@@ -1,0 +1,80 @@
+"""Build the port's CUDA kernels from ``csrc/`` at first use.
+
+Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
+by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
+``ctypes``. The digest covers the source and the flags, so an edited source
+never loads a stale library. Sources are compiled in parallel, one ``nvcc``
+process each. ``ptxas -v`` output (registers, shared memory, spills) is kept
+beside each library as ``.log``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return path
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` lives."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no current library, all at once,
+    and return {name: library path}. Raises with nvcc's output on failure."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: library_path(n) for n in names}
+    procs = {}
+    for name, so in out.items():
+        if so.exists():
+            continue
+        # Per-process temp name + atomic rename: concurrent first uses never
+        # load a half-written library.
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        so = out[name]
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Load the library of ``csrc/<name>.cu``, building it if it has none."""
+    return ctypes.CDLL(str(build([name])[name]))

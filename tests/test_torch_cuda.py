@@ -1,0 +1,78 @@
+"""The port's CUDA path against its plain PyTorch path, on a card.
+
+Every test here needs a CUDA device and skips without one. The file imports
+neither JAX nor bear_tpu, so it runs where only the port is installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from bear_tpu_torch.counting import engine, fastx
+from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
+from bear_tpu_torch.inference.serving import BearServer
+from bear_tpu_torch.models.ar_funcs import LinearAR
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def test_kernel_equals_plain_on_edge_cases(cuda):
+    for name, base, keys in chip_smoke.hist_edge_cases(cuda):
+        before = window_update.launches
+        a = window_update(base.clone(), keys)
+        b = window_update_plain(base.clone(), keys)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), name
+        assert window_update.launches == before + (keys.numel() > 0)
+
+
+def _chunks(rng):
+    reads = []
+    for i in range(200):
+        s = "".join(rng.choice(list("ACGTN"), size=int(rng.integers(0, 300))))
+        reads.append((fastx.encode_seq(s, ambig=True), i % 2))
+    pieces = list(engine.split_ambiguous(reads))
+    return list(engine.chunk_reads(iter(pieces), 7, batch_size=64))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_counter_on_card_equals_cpu(cuda, reverse):
+    chunks = _chunks(np.random.default_rng(int(reverse)))
+    gpu = engine.TransitionCounter(lags=(1, 4, 7), n_groups=2, reverse=reverse)
+    cpu = engine.TransitionCounter(lags=(1, 4, 7), n_groups=2, reverse=reverse,
+                                   device="cpu")
+    gpu.FLUSH_EVERY = 20_000  # exercise mid-stream flushes on the card
+    for c in chunks:
+        gpu.add_chunk(c)
+        cpu.add_chunk(c)
+    for l in (1, 4, 7):
+        np.testing.assert_array_equal(gpu.tables[l], cpu.tables[l])
+
+
+def test_server_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(2)
+    reads = rng.integers(0, 4, size=(500, 90)).astype(np.int8)
+    groups = np.zeros(500, np.int32)
+    tc = engine.TransitionCounter(lags=[6], device="cpu")
+    for c in chip_smoke.read_chunks(reads, groups, rows=128):
+        tc.add_chunk(c)
+    seqs = chip_smoke.decode_reads(reads[:64])
+    ar = LinearAR(6, 4, dtype=torch.float64, device="cpu",
+                  generator=torch.Generator().manual_seed(0))
+    want = BearServer(tc.tables[6][0], 6, h=0.1, ar_apply=ar,
+                      dtype=torch.float64, device="cpu").score(seqs)
+    got = BearServer(tc.tables[6][0], 6, h=0.1, ar_apply=ar.to(cuda),
+                     dtype=torch.float64).score(seqs)
+    np.testing.assert_allclose(got, want, rtol=1e-12)

@@ -1,0 +1,84 @@
+"""Import hygiene of the port: bear_tpu_torch imports neither JAX nor
+bear_tpu, and chip_smoke.py refuses to run without a card."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "bear_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "optax", "bear_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    # bear_tpu_torch shares a prefix with bear_tpu; only the exact name or a
+    # dotted submodule counts.
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _modules():
+    return ["bear_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages([PKG], prefix="bear_tpu_torch.")
+    ]
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert {"bear_tpu_torch.counting.window_hist", "bear_tpu_torch.counting.engine",
+            "bear_tpu_torch.inference.serving", "bear_tpu_torch.inference.scoring",
+            "bear_tpu_torch.models.ar_funcs", "bear_tpu_torch.models.bear_net",
+            "bear_tpu_torch.ops.alphabets", "bear_tpu_torch.ops.distributions",
+            "bear_tpu_torch.counting.fastx", "bear_tpu_torch.utils.checkpoint"} <= set(mods)
+    code = (
+        "import importlib, sys\n"
+        "before = set(sys.modules)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print('\\n'.join(sorted(set(sys.modules) - before)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = out.stdout.split()
+    assert "torch" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_no_forbidden_import_statements():
+    hits = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                hits += [(path, n) for n in names if _forbidden(n)]
+    assert hits == []
+    assert not _forbidden("bear_tpu_torch") and _forbidden("bear_tpu.ops")
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
+    script = os.path.join(REPO, "chip_smoke.py")
+    if where == "alone":
+        script = shutil.copy(script, tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, cwd=os.path.dirname(script), env=env,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
