@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
 by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
-``ctypes``. The digest covers the source and the flags, so an edited source
-never loads a stale library. Sources are compiled in parallel, one ``nvcc``
+``ctypes``. The digest covers the source, every shared header
+``csrc/*.cuh`` and the flags, so an edited source or header never loads a
+stale library. Sources are compiled in parallel, one ``nvcc``
 process each. ``ptxas -v`` output (registers, shared memory, spills) is kept
 beside each library as ``.log``.
 """
@@ -40,6 +41,9 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,31 +1,19 @@
 """Dense k-mer transition counting on the card (port of
 bear_tpu/counting/engine.py).
 
-    host: reads -> int8 residue codes (fastx), padded ReadChunks
-    device: rolling base-A context codes for every lag -> flat table indices
-            (torch ops, :func:`chunk_keys`) -> one histogram-kernel launch
-            per chunk into a single flat int32 table (window_hist)
+    host: reads -> int8 residue codes (fastx), padded ReadChunks; each
+          chunk's row meta packed into one int32 [B, 4] array
+    upload: codes and meta from pinned, double-buffered staging buffers,
+            asynchronously (two copies per chunk)
+    device: one count_chunk kernel launch per chunk (and per reverse
+            complement): codes in, counts added into a single flat int32
+            table; no index vector is ever written
     host: int64 accumulators, flushed into before the int32 table could
           overflow, and on output access
 
-Count-table layout
-------------------
-The context alphabet is residues + the start pad '['; since '[' occurs only
-as a prefix run, a lag-l context is (n_pad, suffix) with suffix in base A of
-length l - n_pad. Table row index:
-
-    offset(n_pad) = (A^(l-n_pad) - 1) / (A - 1)
-    row = offset(n_pad) + baseA(suffix)
-    rows(l) = (A^(l+1) - 1) / (A - 1)
-
-Columns are the transition symbols (residues, then '$'). Tables are
-[n_groups, rows(l), A+1]. For lag l each read contributes len+1 transitions
-of the '['*l padded, '$'-terminated sequence. Counts never clamp: the
-device accumulates int32 per flush window and the host accumulator is
-int64.
-
-Masked transitions carry the sentinel index ``table.numel()``, which the
-histogram kernel drops, so one kernel contract serves every chunk.
+The table layout and the chunk's index math live in
+:mod:`bear_tpu_torch.counting.count_chunk`. Counts never clamp: the device
+accumulates int32 per flush window and the host accumulator is int64.
 """
 
 from __future__ import annotations
@@ -35,9 +23,14 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from bear_tpu_torch.counting.window_hist import window_update
+from bear_tpu_torch.counting.count_chunk import (
+    count_chunk_update,
+    lag_offsets,
+    pack_meta,
+    pad_offset,
+    table_rows,
+)
 from bear_tpu_torch.ops import alphabets as _alpha
 from bear_tpu_torch.utils.device import resolve_device
 
@@ -58,17 +51,6 @@ def extract_nonzero(dev: torch.Tensor, chunk: int = NONZERO_CHUNK):
         vals = part[idx]
         yield (idx.cpu().numpy().astype(np.int64) + start,
                vals.cpu().numpy().astype(np.int64))
-
-
-def table_rows(lag: int, A: int = 4) -> int:
-    """Context rows of a lag-`lag` table over an A-residue alphabet:
-    sum of A^k for k = 0..lag (every '['-padded suffix length)."""
-    return (A ** (lag + 1) - 1) // (A - 1)
-
-
-def pad_offset(lag: int, n_pad, A: int = 4) -> int:
-    """Row offset of the contexts with n_pad leading '['s."""
-    return (A ** (lag - n_pad) - 1) // (A - 1)
 
 
 def check_groups(groups, n_groups: int) -> None:
@@ -146,69 +128,11 @@ class ReadChunk:
     fresh: np.ndarray | None = None
 
 
-def lag_offsets(lags, n_groups, A: int = 4):
-    """Offsets of each lag's flat table inside the single concatenated
-    device buffer, and the total size (one buffer and one kernel launch per
-    chunk covers all lags)."""
-    offsets = {}
-    total = 0
-    for l in sorted(lags):
-        offsets[l] = total
-        total += n_groups * table_rows(l, A) * (A + 1)
-    return offsets, total
-
-
-def chunk_keys(codes, lengths, skip, stopped, groups, lags, n_groups: int,
-               A: int, sentinel: int, fresh=None) -> torch.Tensor:
-    """Flat int32 table indices of every transition of one chunk, for every
-    lag: [n_lags * B * (L+1)], lag-major. Masked positions carry
-    ``sentinel``. All tensors lie on one device; ``stopped`` and ``fresh``
-    are bool. The index math of bear_tpu's ``_count_chunk_kernel``
-    (engine.py:296-367), int32-exact under TransitionCounter's guards."""
-    B, L = codes.shape
-    P = L + 1  # transition positions 0..L (the stop can land at j == L)
-    dev = codes.device
-    j = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
-    lengths = lengths.to(torch.int32)[:, None]
-    skip = skip.to(torch.int32)[:, None]
-    groups32 = groups.to(torch.int32)[:, None]
-    A1 = A + 1
-    offsets, _ = lag_offsets(lags, n_groups, A)
-    max_lag = max(lags)
-    # ONE padded buffer [ max_lag zeros | codes | one zero ]; every shifted
-    # view below is a slice of it.
-    padded = F.pad(codes.to(torch.int32), (max_lag, 1))
-
-    # next symbol at position j: s[j] for j < len, '$' at j == len
-    nxt = torch.where(j < lengths, padded[:, max_lag : max_lag + P], A)
-    mask = (j >= skip) & ((j < lengths) | ((j == lengths) & stopped[:, None]))
-    fresh_col = None if fresh is None else fresh[:, None]
-    jj = np.arange(P)
-    code_acc = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    pow_a = 1
-    keys = []
-    for l in range(1, max_lag + 1):
-        # Rolling base-A suffix code: digits before the read start read the
-        # zero padding, which is exactly the truncated-prefix code.
-        code_acc += padded[:, max_lag - l : max_lag - l + P] * pow_a
-        pow_a *= A
-        if l not in lags:
-            continue
-        # Non-fresh rows drop positions whose lag-l window would cross the
-        # ambiguous base: j < l.
-        mask_l = mask if fresh_col is None else mask & (fresh_col | (j >= l))
-        row_off = torch.as_tensor(pad_offset(l, np.maximum(0, l - jj), A),
-                                  dtype=torch.int32, device=dev)[None, :]
-        flat = offsets[l] + (groups32 * table_rows(l, A) + row_off + code_acc) * A1 + nxt
-        keys.append(torch.where(mask_l, flat, sentinel).reshape(-1))
-    return torch.cat(keys)
-
-
 class TransitionCounter:
     """Accumulates transition counts over streamed read chunks.
 
     The per-lag tables live on ``device`` as ONE flat int32 buffer, updated
-    in place by the histogram kernel — no per-chunk zeroing, no per-chunk
+    in place by the count_chunk kernel — no per-chunk zeroing, no per-chunk
     device->host traffic. A flush into the host int64 accumulators happens
     only when the transitions since the last flush approach int32 range,
     on merge, and on output access.
@@ -263,6 +187,7 @@ class TransitionCounter:
         }
         self._dev: Optional[torch.Tensor] = None  # lazy flat int32 buffer
         self._since_flush = 0
+        self._staging: List[_Staging] = []  # two sets once on the card
 
     def _ensure_dev(self):
         if self._dev is None:
@@ -311,12 +236,8 @@ class TransitionCounter:
                 "reverse=True requires whole-read chunks (skip == 0); "
                 "for segmented long sequences use chunk_reads(reverse=True)"
             )
-        self._add(chunk.codes, chunk.lengths, chunk.skip, chunk.stopped,
-                  chunk.groups, chunk.fresh)
-        if self.reverse:
-            rc, rlen = reverse_complement_codes(chunk.codes, chunk.lengths)
-            st_rc, fr_rc = rc_boundary_flags(chunk)
-            self._add(rc, rlen, chunk.skip, st_rc, chunk.groups, fresh=fr_rc)
+        for rows in chunk_passes(chunk, self.reverse):
+            self._add(*rows)
 
     def _add(self, codes, lengths, skip, stopped, groups, fresh=None):
         codes = np.asarray(codes)
@@ -324,17 +245,17 @@ class TransitionCounter:
         if self._since_flush + new_transitions > self.FLUSH_EVERY:
             self.flush()
         self._ensure_dev()
-        dev = self._dev.device
-
-        def up(a, dtype=None):
-            return torch.as_tensor(np.asarray(a, dtype=dtype), device=dev)
-
-        keys = chunk_keys(
-            up(codes), up(lengths), up(skip), up(stopped, bool), up(groups),
-            self.lags, self.n_groups, self.A, sentinel=self._dev.numel(),
-            fresh=None if fresh is None else up(fresh, bool),
-        )
-        window_update(self._dev, keys)
+        if self._dev.is_cuda:
+            if not self._staging:
+                self._staging = [_Staging(), _Staging()]
+            self._staging.reverse()  # alternate between the two sets
+            codes_t, meta_t = self._staging[0].upload(
+                self._dev.device, codes, lengths, skip, stopped, groups, fresh)
+        else:
+            codes_t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8))
+            meta_t = torch.from_numpy(pack_meta(lengths, skip, stopped, groups, fresh))
+        count_chunk_update(self._dev, codes_t, meta_t, self.lags, self.n_groups,
+                           self.A)
         self._since_flush += new_transitions
 
     @property
@@ -375,6 +296,50 @@ class TransitionCounter:
 
     def nonzero_rows(self, lag: int) -> np.ndarray:
         return np.nonzero(self.tables[lag].sum(axis=(0, 2)))[0]
+
+
+class _Staging:
+    """One set of pinned host buffers for a chunk's two uploads (codes and
+    meta), and the event recorded on the stream right after those copies."""
+
+    def __init__(self):
+        self.codes = torch.empty(0, dtype=torch.int8, pin_memory=True)
+        self.meta = torch.empty((0, 4), dtype=torch.int32, pin_memory=True)
+        self.event = torch.cuda.Event()
+
+    def upload(self, dev, codes, lengths, skip, stopped, groups, fresh):
+        """Fill the buffers on the host and start their copies to ``dev``
+        (non-blocking); returns the device (codes, meta)."""
+        # The copies that last read these buffers may still be in flight:
+        # writing the buffers before they end would change what the card
+        # counts, silently. (A never-recorded event returns at once.)
+        self.event.synchronize()
+        B, L = codes.shape
+        if self.codes.numel() < B * L:
+            self.codes = torch.empty(B * L, dtype=torch.int8, pin_memory=True)
+        if self.meta.shape[0] < B:
+            self.meta = torch.empty((B, 4), dtype=torch.int32, pin_memory=True)
+        host_codes = self.codes[: B * L].view(B, L)
+        host_meta = self.meta[:B]
+        np.copyto(host_codes.numpy(), codes, casting="unsafe")
+        pack_meta(lengths, skip, stopped, groups, fresh, out=host_meta.numpy())
+        with torch.cuda.device(dev):
+            dev_codes = host_codes.to(dev, non_blocking=True)
+            dev_meta = host_meta.to(dev, non_blocking=True)
+            self.event.record(torch.cuda.current_stream(dev))
+        return dev_codes, dev_meta
+
+
+def chunk_passes(chunk: ReadChunk, reverse: bool = False):
+    """(codes, lengths, skip, stopped, groups, fresh) of each kernel pass a
+    chunk takes: the chunk itself, then, with ``reverse``, its reverse
+    complement with the swapped boundary flags."""
+    yield (chunk.codes, chunk.lengths, chunk.skip, chunk.stopped, chunk.groups,
+           chunk.fresh)
+    if reverse:
+        rc, rlen = reverse_complement_codes(chunk.codes, chunk.lengths)
+        st_rc, fr_rc = rc_boundary_flags(chunk)
+        yield rc, rlen, chunk.skip, st_rc, chunk.groups, fr_rc
 
 
 def reverse_complement_codes(codes: np.ndarray, lengths: np.ndarray):

@@ -17,23 +17,18 @@
 // HBM; there is no arithmetic to speak of. The design streams the keys with
 // 16-byte vector loads (4 keys per thread per step, grid-stride) so the key
 // read runs at full width, and lets L2 merge repeated atomics to one sector.
-// A later design can privatise hot table windows in shared memory or fuse
-// the engine's index generation here so the keys never reach HBM.
+// The counting engine's main path no longer sends keys here: count_chunk.cu
+// generates them in registers and applies the same update (hist_add.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "hist_add.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;
-
-__device__ __forceinline__ void count_key(int* __restrict__ table, int key,
-                                          int64_t n_table) {
-  if (key >= 0 && static_cast<int64_t>(key) < n_table) {
-    atomicAdd(table + key, 1);
-  }
-}
 
 __global__ void window_hist_kernel(int* __restrict__ table,
                                    const int* __restrict__ keys,
@@ -48,15 +43,15 @@ __global__ void window_hist_kernel(int* __restrict__ table,
     const int4* keys4 = reinterpret_cast<const int4*>(keys);
     for (int64_t i = tid; i < n_vec; i += stride) {
       const int4 k = keys4[i];
-      count_key(table, k.x, n_table);
-      count_key(table, k.y, n_table);
-      count_key(table, k.z, n_table);
-      count_key(table, k.w, n_table);
+      hist_add(table, k.x, n_table);
+      hist_add(table, k.y, n_table);
+      hist_add(table, k.z, n_table);
+      hist_add(table, k.w, n_table);
     }
     done = n_vec * 4;
   }
   for (int64_t i = done + tid; i < n_keys; i += stride) {
-    count_key(table, keys[i], n_table);
+    hist_add(table, keys[i], n_table);
   }
 }
 

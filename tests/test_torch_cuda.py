@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import chip_smoke
-from bear_tpu_torch.counting import engine, fastx
+from bear_tpu_torch.counting import count_chunk, engine, fastx
+from bear_tpu_torch.counting.count_chunk import count_chunk_update
 from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models.ar_funcs import LinearAR
@@ -54,11 +55,37 @@ def test_counter_on_card_equals_cpu(cuda, reverse):
     cpu = engine.TransitionCounter(lags=(1, 4, 7), n_groups=2, reverse=reverse,
                                    device="cpu")
     gpu.FLUSH_EVERY = 20_000  # exercise mid-stream flushes on the card
+    before = count_chunk_update.launches
     for c in chunks:
         gpu.add_chunk(c)
         cpu.add_chunk(c)
+    # Through the fused kernel: one launch per chunk, two with reverse.
+    assert count_chunk_update.launches == before + len(chunks) * (1 + reverse)
     for l in (1, 4, 7):
         np.testing.assert_array_equal(gpu.tables[l], cpu.tables[l])
+
+
+@pytest.mark.parametrize("case", chip_smoke.COUNT_CASES)
+def test_count_chunk_equals_plain_on_edge_cases(cuda, case):
+    lags, n_groups, A, passes = chip_smoke.count_case(case)
+    before = count_chunk_update.launches
+    a, b = chip_smoke.count_chunk_vs_plain(cuda, lags, n_groups, A, passes)
+    assert count_chunk_update.launches == before + len(passes)
+    assert int(a.sum()) > 0
+    assert torch.equal(a, b)
+
+
+def test_count_chunk_rejects_unaligned_codes_on_card(cuda):
+    lags, n_groups = (2,), 1
+    _, total = count_chunk.lag_offsets(lags, n_groups)
+    table = torch.zeros(total, dtype=torch.int32, device=cuda)
+    codes = torch.zeros(4 * 16 + 1, dtype=torch.int8, device=cuda)[1:].view(4, 16)
+    meta = torch.from_numpy(count_chunk.pack_meta(
+        np.full(4, 16), np.zeros(4), np.ones(4, bool), np.zeros(4))).to(cuda)
+    before = count_chunk_update.launches
+    with pytest.raises(ValueError, match="aligned"):
+        count_chunk_update(table, codes, meta, lags, n_groups, 4)
+    assert count_chunk_update.launches == before
 
 
 def test_server_on_card_equals_cpu(cuda):

@@ -30,6 +30,7 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"bear_tpu_torch.counting.window_hist", "bear_tpu_torch.counting.engine",
+            "bear_tpu_torch.counting.count_chunk",
             "bear_tpu_torch.inference.serving", "bear_tpu_torch.inference.scoring",
             "bear_tpu_torch.models.ar_funcs", "bear_tpu_torch.models.bear_net",
             "bear_tpu_torch.ops.alphabets", "bear_tpu_torch.ops.distributions",
