@@ -5,9 +5,10 @@ from bear_tpu_torch.counting.engine import (
     ReadChunk,
     TransitionCounter,
     chunk_reads,
+    decode_rows,
     split_ambiguous,
     table_rows,
 )
 
-__all__ = ["ReadChunk", "TransitionCounter", "chunk_reads",
+__all__ = ["ReadChunk", "TransitionCounter", "chunk_reads", "decode_rows",
            "split_ambiguous", "table_rows"]

@@ -10,6 +10,8 @@ bear_tpu/counting/engine.py).
             table; no index vector is ever written
     host: int64 accumulators, flushed into before the int32 table could
           overflow, and on output access
+    handoff: ``to_device_dataset`` gives training codes and counts straight
+             from the resident table (``to_dataset`` from the host tables)
 
 The table layout and the chunk's index math live in
 :mod:`bear_tpu_torch.counting.count_chunk`. Counts never clamp: the device
@@ -31,6 +33,7 @@ from bear_tpu_torch.counting.count_chunk import (
     pad_offset,
     table_rows,
 )
+from bear_tpu_torch.data.loaders import CountDataset
 from bear_tpu_torch.ops import alphabets as _alpha
 from bear_tpu_torch.utils.device import resolve_device
 
@@ -51,6 +54,42 @@ def extract_nonzero(dev: torch.Tensor, chunk: int = NONZERO_CHUNK):
         vals = part[idx]
         yield (idx.cpu().numpy().astype(np.int64) + start,
                vals.cpu().numpy().astype(np.int64))
+
+
+def exact_count_limit(dtype: torch.dtype) -> int:
+    """Largest integer a float type holds exactly: 2^(mantissa bits + 1)
+    (float32 2^24, float64 2^53, bfloat16 2^8)."""
+    return 1 << (int(round(-np.log2(torch.finfo(dtype).eps))) + 1)
+
+
+def decode_rows(rows: torch.Tensor, lag: int, A: int = 4) -> torch.Tensor:
+    """Inverse of the table row index on the rows' device: [N] rows -> int8
+    k-mer codes [N, lag], the '[' pad coded A (port of bear_tpu's
+    ``decode_rows``, engine.py:216-236). Suffix-length bounds are
+    (A^k - 1) / (A - 1); pure integer arithmetic, so counts can hand off
+    to training without k-mer strings or a host round trip."""
+    dev = rows.device
+    rows = rows.to(torch.int64)
+    bounds = torch.tensor([(A**k - 1) // (A - 1) for k in range(lag + 2)],
+                          dtype=torch.int64, device=dev)
+    m = torch.searchsorted(bounds, rows, right=True) - 1  # suffix length
+    code = rows - bounds[m]
+    # position p holds the suffix digit of exponent lag-1-p, valid for the
+    # last m positions; earlier positions are the '[' pad (code A).
+    exps = torch.tensor([A ** (lag - 1 - p) for p in range(lag)], dtype=torch.int64,
+                        device=dev)
+    digits = torch.div(code[:, None], exps[None, :], rounding_mode="floor") % A
+    pad = torch.arange(lag, device=dev)[None, :] < (lag - m)[:, None]
+    return torch.where(pad, A, digits).to(torch.int8)
+
+
+def _check_exact(cmax: int, dtype) -> None:
+    if cmax > exact_count_limit(dtype):
+        raise ValueError(
+            f"a count reached {cmax:,}, beyond {dtype}'s exact integer range "
+            f"({exact_count_limit(dtype):,}): use dtype=torch.float64 (the "
+            "no-clamp guarantee would otherwise silently round)"
+        )
 
 
 def check_groups(groups, n_groups: int) -> None:
@@ -187,6 +226,7 @@ class TransitionCounter:
         }
         self._dev: Optional[torch.Tensor] = None  # lazy flat int32 buffer
         self._since_flush = 0
+        self._host_dirty = False  # True once any count reached self._host
         self._staging: List[_Staging] = []  # two sets once on the card
 
     def _ensure_dev(self):
@@ -217,6 +257,7 @@ class TransitionCounter:
                     self._host[l] += dense[off : off + self._host[l].size]
             dev.zero_()
             self._since_flush = 0
+            self._host_dirty = True
 
     def _scatter_host(self, idx: np.ndarray, vals: np.ndarray):
         """Route concatenated-buffer indices into the per-lag host tables."""
@@ -274,6 +315,7 @@ class TransitionCounter:
         """Merge partial counts (cross-process reduction point)."""
         self.flush()
         other.flush()
+        self._host_dirty = True
         for l in self.lags:
             self._host[l] += other._host[l]
 
@@ -296,6 +338,57 @@ class TransitionCounter:
 
     def nonzero_rows(self, lag: int) -> np.ndarray:
         return np.nonzero(self.tables[lag].sum(axis=(0, 2)))[0]
+
+    def _check_alphabet(self, alphabet: Optional[str]) -> str:
+        alphabet = alphabet or self.alphabet
+        if _alpha.alphabet_size(alphabet) != self.A:
+            raise ValueError(
+                f"count tables are base-{self.A}; alphabet {alphabet!r} has "
+                f"{_alpha.alphabet_size(alphabet)} residues"
+            )
+        return alphabet
+
+    def to_dataset(self, lag: int, alphabet: Optional[str] = None) -> CountDataset:
+        """In-memory handoff to training on the host (no TSV round trip):
+        the nonzero rows' contexts, codes and float64 counts
+        [N, n_groups, A+1]."""
+        alphabet = self._check_alphabet(alphabet)
+        rows = self.nonzero_rows(lag)
+        kmers = rows_to_contexts(rows, lag, alphabet)
+        counts = self.tables[lag][:, rows, :].transpose(1, 0, 2).astype(np.float64)
+        codes = (_alpha.encode_kmers(kmers, alphabet) if len(kmers)
+                 else np.zeros((0, lag), np.int8))
+        return CountDataset(kmers=kmers, codes=codes, counts=counts, alphabet=alphabet)
+
+    def to_device_dataset(self, lag: int, alphabet: Optional[str] = None,
+                          dtype=torch.float32):
+        """Counts -> training handoff that stays on the device: the table
+        never crosses to the host and no k-mer strings are built. Row
+        totals of the resident table give the nonzero rows, decode_rows
+        their codes, and one gather their counts.
+
+        Once a flush has moved counts off the device, the device table
+        alone no longer holds them all: the host accumulators' nonzero rows
+        are uploaded instead. Returns (codes [N, lag] int8, counts
+        [N, n_groups, A+1] in ``dtype``), tensors on the counter's device.
+        Raises if a count exceeds ``dtype``'s exact integer range."""
+        self._check_alphabet(alphabet)
+        G, A1 = self.n_groups, self.A1
+        n_rows = table_rows(lag, self.A)
+        if self._dev is not None and not self._host_dirty:
+            off = self._offsets[lag]
+            table = self._dev[off : off + G * n_rows * A1].view(G, n_rows, A1)
+            rows = torch.nonzero(table.sum(dim=(0, 2))).squeeze(1)
+            counts = table[:, rows, :].permute(1, 0, 2).contiguous()
+            _check_exact(int(counts.max()) if counts.numel() else 0, dtype)
+            return decode_rows(rows, lag, self.A), counts.to(dtype)
+        rows_np = self.nonzero_rows(lag)
+        counts_np = self.tables[lag][:, rows_np, :].transpose(1, 0, 2)
+        _check_exact(int(counts_np.max()) if counts_np.size else 0, dtype)
+        dev = resolve_device(self.device)
+        rows = torch.from_numpy(rows_np).to(dev)
+        return (decode_rows(rows, lag, self.A),
+                torch.from_numpy(counts_np).to(device=dev, dtype=dtype))
 
 
 class _Staging:

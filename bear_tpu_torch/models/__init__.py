@@ -1,5 +1,5 @@
-"""AR functions and BEAR parameters."""
+"""AR functions, BEAR training and evaluation, and the training CLI."""
 
-from bear_tpu_torch.models.ar_funcs import LinearAR, get_ar_func
+from bear_tpu_torch.models.ar_funcs import CNNAR, LinearAR, StopAR, get_ar_func
 
-__all__ = ["LinearAR", "get_ar_func"]
+__all__ = ["CNNAR", "LinearAR", "StopAR", "get_ar_func"]

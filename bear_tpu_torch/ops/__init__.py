@@ -1,6 +1,6 @@
-"""Alphabets, codecs and probability constants."""
+"""Alphabets, codecs and the probability core."""
 
-from bear_tpu_torch.ops import alphabets
+from bear_tpu_torch.ops import alphabets, distributions
 from bear_tpu_torch.ops.distributions import EPSILON
 
-__all__ = ["alphabets", "EPSILON"]
+__all__ = ["alphabets", "distributions", "EPSILON"]

@@ -1,1 +1,1 @@
-"""Checkpoint reading and device resolution."""
+"""Model directories, run configs, metrics and device resolution."""

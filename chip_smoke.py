@@ -21,6 +21,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    with a seeded lag-13 LinearAR, held against the same scores from the
    port on the CPU in float64; after the path's kernel counts are read,
    four chunks and one scoring call are profiled;
+4b. training, the published YSD1 protocol: train_bear_net.main on the
+   values of bear_lin_bear.cfg in float32 (10,000 Adam applies, held-out
+   and train-as-test evaluation, config.cfg + results.pickle), then the
+   same training alone, timed; h and the BEAR held-out perplexity against
+   the published values, BMM against the port's CPU float64 evaluation;
+4c. training on the main path: the same chunks counted again into a fresh
+   TransitionCounter, handed off on the card (to_device_dataset, before
+   any flush), a CNN BEAR of examples/genome_lag13.py's widths trained
+   (its first ELBOs against CPU float64), evaluated, written, reloaded by
+   load_bear and served to the 4,096 held-out reads (against CPU float64);
+   then 200 YSD1 applies and 20 CNN applies are profiled;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -32,6 +43,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -56,6 +68,49 @@ COUNT_CASES = ["multi_lag_1_4_7", "reverse", "ambig_not_fresh", "segmented_skip"
 # log term, summed over <= 193 transition positions of a ~-100..-300 score.
 SCORE_RTOL = 1e-5
 SCORE_ATOL = 1e-3
+# Phase 4b: the published YSD1 model results (reference docs/usage.rst:253-265),
+# held within 2% (h) and 0.01 (BEAR held-out perplexity) in float32. BMM
+# does not depend on training: card float32 against CPU float64 at 1e-5
+# (float32 lgamma of counts up to ~1e5, summed over 1,365 rows).
+YSD1_H, YSD1_H_RTOL = 0.04326, 0.02
+YSD1_PERPLEXITY, YSD1_PERPLEXITY_ATOL = 3.79, 0.01
+BMM_RTOL = 1e-5
+VAN_REG = [0.1, 1.0, 10.0]
+# Phase 4c: the CNN BEAR of examples/genome_lag13.py, trained on the counts
+# handed off on the card; its first applies' ELBOs against CPU float64 from
+# the same initial parameters on the same batches (float32 rounding of
+# sums over 2^15 rows).
+CNN_KW = {"filter_width": 8, "num_filters": 96, "kmer_layer1_width": 64}
+TRAIN_BATCH = 1 << 15
+TRAIN_EPOCHS = 3
+TRAIN_LR = 0.005
+N_ELBO_CHECK = 5
+ELBO_RTOL = 1e-4
+
+
+def ysd1_config(out_folder):
+    """The published YSD1 protocol: the values of
+    bear_tpu/models/config_files/bear_lin_bear.cfg (linear BEAR, lag 5,
+    batch 1500, 10,000 epochs = 10,000 Adam applies, lr 0.01, seed 10),
+    in float32, on the port's bundled YSD1 counts (files_path TEST)."""
+    import configparser
+
+    cfg = configparser.ConfigParser()
+    cfg.read_dict({
+        "general": {"out_folder": out_folder, "seed": "10", "precision": "float32"},
+        "data": {"files_path": "TEST", "start_token": "TEST", "sparse": "False",
+                 "num_ds": "3", "alphabet": "dna", "train_column": "0",
+                 "test_column": "1", "reference_column": "2"},
+        "hyperp": {"lag": "5"},
+        "train": {"train": "True", "epochs": "10000", "batch_size": "1500",
+                  "optimizer_name": "Adam", "learning_rate": "0.01",
+                  "train_ar": "False", "accumulation_steps": "1", "cache": "True",
+                  "restart": "False", "restart_path": "temp_name"},
+        "test": {"test": "True", "train_test": "True", "van_reg": "[0.1, 1.0, 10.0]"},
+        "model": {"ar_func_name": "linear", "af_kwargs": "{}"},
+        "results": {},
+    })
+    return cfg
 
 
 def synth_genome(rng, length, template_len=100_000, mutation_rate=0.01):
@@ -164,7 +219,10 @@ def device_breakdown(label, fn, card, top=8):
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and us > 0:
+        # A record_function span (e.g. Optimizer.step) shows on the device
+        # as an annotation covering its kernels: left out, not counted twice.
+        annotation = getattr(e, "is_user_annotation", False)
+        if e.device_type == DeviceType.CUDA and us > 0 and not annotation:
             rows.append((us / 1e3, e.count, e.key))
     busy_ms = sum(r[0] for r in rows)
     if busy_ms == 0:
@@ -286,6 +344,203 @@ def count_chunk_vs_plain(dev, lags, n_groups, A, passes):
     return a, b
 
 
+def synchronize(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def ysd1_phase(out_dir, card, device="cuda"):
+    """4b: the published YSD1 protocol through the training CLI's ``main``
+    in float32, then the same training alone, timed; checks h and the BEAR
+    held-out perplexity against the published values and the BMM
+    perplexities against the port's CPU float64 evaluation."""
+    import torch
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import bear_net, train_bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.checkpoint import load_params_list, load_results
+    from bear_tpu_torch.utils.config import RunConfig, bundled_ysd1_path
+
+    cfg = ysd1_config(out_dir + "*")
+    run = RunConfig.from_configparser(cfg)
+    t0 = time.perf_counter()
+    train_bear_net.main(cfg, device=device)
+    synchronize(device)
+    cli_s = time.perf_counter() - t0
+    res = cfg["results"]  # main writes its results into the config
+    applies = load_results(out_dir)["torch_opt_state"]["step"]
+    h = float(res["h"])
+    perp = {k: json.loads(res[f"heldout_perplex_{k}"]) for k in ("BEAR", "AR", "BMM")}
+    acc = {k: json.loads(res[f"heldout_accuracy_{k}"]) for k in ("BEAR", "AR", "BMM")}
+
+    ds = load_dense(bundled_ysd1_path(), "dna", run.num_ds)
+    ar = get_ar_func("linear", run.lag, 4, dtype=torch.float32, device=device)
+    kw = dict(num_kmers=ds.num_kmers, ar_func=ar, batch_size=int(run.batch_size_raw),
+              learning_rate=run.learning_rate, seed=run.seed, dtype=torch.float32,
+              device=device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    alone = bear_net.train(ds.codes, ds.counts[:, 0], epochs=applies, **kw)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+
+    ar64 = get_ar_func("linear", run.lag, 4, dtype=torch.float64, device="cpu")
+    ref = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", h, ar64,
+                              load_params_list(out_dir)[1:], VAN_REG,
+                              dtype=torch.float64, device="cpu")
+    bmm_err = float(np.max(np.abs(np.asarray(perp["BMM"]) / ref[5] - 1)))
+    print(f"[ysd1] train_bear_net.main, bear_lin_bear.cfg values in float32: {applies:,} "
+          f"optimizer applies; the CLI run (load, train, evaluate twice, write) "
+          f"{cli_s:.3f} s; training alone {train_s:.3f} s = {applies / train_s:.6g} "
+          f"applies/s (h {alone.h:.6g}) [{card}]")
+    print(f"[ysd1] h {h:.6g} (published {YSD1_H}); held-out perplexity BEAR "
+          f"{perp['BEAR']:.6f} AR {perp['AR']:.6f} BMM {perp['BMM']}; accuracy BEAR "
+          f"{acc['BEAR']:.6f} AR {acc['AR']:.6f} BMM {acc['BMM']}; BMM vs CPU float64 "
+          f"max rel err {bmm_err:.3e} [{card}]")
+    check(abs(h / YSD1_H - 1) <= YSD1_H_RTOL, f"YSD1 h {h} not within 2% of {YSD1_H}")
+    check(abs(perp["BEAR"] - YSD1_PERPLEXITY) <= YSD1_PERPLEXITY_ATOL,
+          f"YSD1 BEAR held-out perplexity {perp['BEAR']} not within 0.01 of 3.79")
+    check(bmm_err <= BMM_RTOL, f"YSD1 BMM perplexities {perp['BMM']} differ from "
+          f"CPU float64 {ref[5]} by {bmm_err:.3e}")
+    return ds, kw
+
+
+def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=LAG,
+                      cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                      n_score=N_SCORE):
+    """4c: count the chunks into a fresh TransitionCounter, hand the counts
+    off on the device before any flush, train the CNN BEAR, evaluate,
+    write and reload the model and serve held-out reads with it. Checks
+    conservation of the handoff, the first applies' ELBOs against CPU
+    float64 and the trained model's scores against CPU float64. Returns
+    what the profiles reuse."""
+    import shutil
+
+    import torch
+    from bear_tpu_torch.counting import engine
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.inference import BearServer, load_bear
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.checkpoint import save_results
+    from bear_tpu_torch.utils.cli_common import write_config
+
+    count_chunk_update.launches = 0
+    t_first_read = time.perf_counter()
+    counter = engine.TransitionCounter(lags=[lag], n_groups=N_GROUPS, device=device)
+    for chunk in chunks:
+        counter.add_chunk(chunk)
+    counter.sync()
+    launches = count_chunk_update.launches
+    t0 = time.perf_counter()
+    count_s = t0 - t_first_read
+    codes, counts = counter.to_device_dataset(lag)
+    synchronize(device)
+    handoff_s = time.perf_counter() - t0
+    n_rows = codes.shape[0]
+
+    gen = torch.Generator().manual_seed(SEED)
+    ar = get_ar_func("cnn", lag, 4, cnn_kw, device=device)
+    init = bear_net.init_params(gen, ar)
+    p0 = [init["h_signed"]] + init["ar"]
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bear_net.train(codes, counts[:, 0], num_kmers=n_rows, ar_func=ar,
+                         batch_size=batch, epochs=epochs, learning_rate=TRAIN_LR,
+                         params_restart=p0, dtype=torch.float32, device=device)
+    synchronize(device)
+    t_trained = time.perf_counter()
+    train_s = t_trained - t0
+
+    # The checks, outside the timed span: conservation of the handoff
+    # against validate(), which flushes the table (hence after the handoff).
+    handed = counts.sum(dim=(0, 2), dtype=torch.float64).cpu().numpy()
+    expected = len(reads) * (reads.shape[1] + 1)
+    counter.validate(expected)
+    per_group = counter.tables[lag].sum(axis=(1, 2))
+    check(np.array_equal(handed, per_group),
+          f"handoff totals {handed} differ from the tables' {per_group}")
+    check(codes.is_cuda == counts.is_cuda == (torch.device(device).type == "cuda"),
+          "the handoff left the device")
+    print(f"[train] count again into a fresh counter ({launches} count_chunk launches, "
+          f"{count_s:.4f} s), then to_device_dataset({lag}) before any flush: {n_rows:,} "
+          f"rows in {handoff_s:.4f} s; per-group totals {handed.astype(np.int64).tolist()} "
+          f"== the tables' [{card}]")
+    elbos = res.elbos
+    check(np.isfinite(elbos).all() and len(elbos) == epochs * -(-n_rows // batch),
+          f"ELBOs not finite or of the wrong count: {len(elbos)}")
+    print(f"[train] CNN BEAR {cnn_kw}, batch {batch}, {epochs} epochs, lr {TRAIN_LR}, "
+          f"float32: {len(elbos)} applies in {train_s:.3f} s = {len(elbos) / train_s:.6g} "
+          f"applies/s; h {res.h:.6g}; ELBO {elbos[0]:.7g} -> {elbos[-1]:.7g}; from the "
+          f"first read to a trained model {t_trained - t_first_read:.3f} s [{card}]")
+
+    k = min(N_ELBO_CHECK, -(-n_rows // batch))  # applies of the first epoch
+    ar64 = get_ar_func("cnn", lag, 4, cnn_kw, dtype=torch.float64, device="cpu")
+    ref = bear_net.train(codes[: k * batch].cpu(), counts[: k * batch, 0].cpu(),
+                         num_kmers=n_rows, ar_func=ar64, batch_size=batch, epochs=1,
+                         learning_rate=TRAIN_LR, params_restart=p0, dtype=torch.float64,
+                         device="cpu")
+    elbo_err = float(np.max(np.abs(elbos[:k] / ref.elbos[:k] - 1)))
+    check(len(ref.elbos) == k and elbo_err <= ELBO_RTOL,
+          f"first {k} ELBOs {elbos[:k]} differ from CPU float64 {ref.elbos} "
+          f"by {elbo_err:.3e}")
+    print(f"[train] first {k} ELBOs vs CPU float64 from the same initial parameters: "
+          f"max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL})")
+
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = bear_net.evaluation(codes, counts, 0, 1, "dna", res.h, ar, res.params["ar"],
+                              VAN_REG, dtype=torch.float32, device=device)
+    eval_s = time.perf_counter() - t0
+    print(f"[train] evaluation {eval_s:.3f} s: held-out perplexity BEAR {float(out[3]):.6f} "
+          f"AR {float(out[4]):.6f} BMM {np.asarray(out[5]).tolist()}; accuracy BEAR "
+          f"{float(out[6]):.6f} AR {float(out[7]):.6f} [{card}]")
+    check(all(np.isfinite(np.asarray(o)).all() for o in out), "evaluation not finite")
+
+    # Write the model directory, reload it, and serve with the trained CNN.
+    cfg = ysd1_config(out_dir + "*")
+    cfg["hyperp"]["lag"] = str(lag)
+    cfg["data"]["num_ds"] = str(N_GROUPS)
+    cfg["model"]["ar_func_name"] = "cnn"
+    cfg["model"]["af_kwargs"] = json.dumps(cnn_kw)
+    cfg["train"].update(epochs=str(epochs), batch_size=str(batch), learning_rate=str(TRAIN_LR))
+    cfg["results"]["h"] = str(res.h)
+    os.makedirs(out_dir, exist_ok=True)
+    write_config(cfg, out_dir)
+    save_results(out_dir, res.params_list, extra={"torch_opt_state": res.opt_state})
+    dir64 = out_dir.rstrip("/") + "_float64"
+    shutil.copytree(out_dir, dir64, dirs_exist_ok=True)
+    cfg["general"]["precision"] = "float64"
+    write_config(cfg, dir64)
+
+    tables = counter.tables[lag]
+    del counter
+    seqs = decode_reads(reads[np.flatnonzero(groups == 1)[:n_score]])
+    lag_, _, h, ar_apply, _ = load_bear(out_dir, device=device)
+    check(lag_ == lag and abs(h / res.h - 1) < 1e-6, "load_bear read another model")
+    server = BearServer(tables[0], lag, h=h, ar_apply=ar_apply, device=device)
+    server.score(seqs)  # warm-up
+    synchronize(device)
+    t0 = time.perf_counter()
+    scores = server.score(seqs)
+    serve_s = time.perf_counter() - t0
+    del server
+    _, _, h64, ar_apply64, _ = load_bear(dir64, device="cpu")
+    ref_scores = BearServer(tables[0], lag, h=h64, ar_apply=ar_apply64,
+                            dtype=torch.float64, device="cpu").score(seqs)
+    diff = np.abs(scores - ref_scores)
+    check(scores.shape == (len(seqs),) and np.isfinite(scores).all()
+          and bool((diff <= SCORE_ATOL + SCORE_RTOL * np.abs(ref_scores)).all()),
+          f"trained-model scores differ from CPU float64: max {diff.max()}")
+    print(f"[train] save_results + config.cfg -> load_bear -> BearServer with the trained "
+          f"CNN: {len(seqs)} held-out reads in {serve_s:.4f} s = {len(seqs) / serve_s:.6g} "
+          f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e}; scores "
+          f"{ref_scores.min():.3f}..{ref_scores.max():.3f} [{card}]")
+    return launches, codes, counts, ar, p0, n_rows
+
+
 def main() -> int:
     import torch
 
@@ -299,6 +554,7 @@ def main() -> int:
     from bear_tpu_torch.counting.count_chunk import count_chunk_plain, count_chunk_update
     from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
     from bear_tpu_torch.inference.serving import BearServer
+    from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import LinearAR
 
     # 1. device
@@ -517,6 +773,32 @@ def main() -> int:
     print(f"[serve] float32 card vs float64 CPU: max |diff| {diff.max():.3e} "
           f"(tolerance {SCORE_ATOL} + {SCORE_RTOL}*|score|); scores "
           f"{ref.min():.3f}..{ref.max():.3f}")
+    del server, tables, ar, ar64
+    torch.cuda.empty_cache()
+
+    # 4b. the published YSD1 protocol through the training CLI;
+    # 4c. count -> on-device handoff -> CNN training -> evaluation -> serve
+    with tempfile.TemporaryDirectory() as tmp:
+        ysd1, ysd1_kw = ysd1_phase(os.path.join(tmp, "ysd1"), card)
+        launches_4c, codes_d, counts_d, cnn, p0, n_rows = lag13_train_phase(
+            chunks, reads, groups, os.path.join(tmp, "cnn"), card)
+    check(launches_4c == len(chunks),
+          f"4c launched count_chunk {launches_4c} times for {len(chunks)} chunks")
+    torch.cuda.empty_cache()
+
+    # Where training's time goes.
+    def ysd1_200():
+        bear_net.train(ysd1.codes, ysd1.counts[:, 0], epochs=200, **ysd1_kw)
+
+    device_breakdown("train YSD1 linear BEAR, 200 applies", ysd1_200, card, top=10)
+    host_breakdown("train YSD1 linear BEAR, 200 applies", ysd1_200, top=10)
+    n_prof = 20 * TRAIN_BATCH
+    device_breakdown("train lag-13 CNN BEAR, 20 applies",
+                     lambda: bear_net.train(codes_d[:n_prof], counts_d[:n_prof, 0],
+                                            num_kmers=n_rows, ar_func=cnn,
+                                            batch_size=TRAIN_BATCH, epochs=1,
+                                            learning_rate=TRAIN_LR, params_restart=p0,
+                                            dtype=torch.float32), card, top=10)
 
     # 5. kernels, then the device line
     print(json.dumps({"kernels": [{

@@ -1,12 +1,15 @@
 """Import hygiene of the port: bear_tpu_torch imports neither JAX nor
-bear_tpu, and chip_smoke.py refuses to run without a card."""
+bear_tpu, chip_smoke.py refuses to run without a card, and the package data
+ships every file the port reads at run time."""
 
 import ast
+import fnmatch
 import os
 import pkgutil
 import shutil
 import subprocess
 import sys
+import tomllib
 
 import pytest
 
@@ -34,7 +37,10 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.inference.serving", "bear_tpu_torch.inference.scoring",
             "bear_tpu_torch.models.ar_funcs", "bear_tpu_torch.models.bear_net",
             "bear_tpu_torch.ops.alphabets", "bear_tpu_torch.ops.distributions",
-            "bear_tpu_torch.counting.fastx", "bear_tpu_torch.utils.checkpoint"} <= set(mods)
+            "bear_tpu_torch.counting.fastx", "bear_tpu_torch.utils.checkpoint",
+            "bear_tpu_torch.data.loaders", "bear_tpu_torch.data.likelihood",
+            "bear_tpu_torch.models.train_bear_net", "bear_tpu_torch.utils.config",
+            "bear_tpu_torch.utils.cli_common", "bear_tpu_torch.utils.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -83,3 +89,20 @@ def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
                          timeout=300)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_package_data_ships_kernel_sources_and_fixtures():
+    # A non-editable install holds only what package-data lists: every
+    # kernel source and shared header (nvcc builds them at first use) and
+    # every data fixture must match one of the globs.
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
+        globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["bear_tpu_torch"]
+    wanted = []
+    for sub, patterns in (("csrc", ("*.cu", "*.cuh")), ("data/fixtures", ("*",))):
+        for name in os.listdir(os.path.join(PKG, sub)):
+            if os.path.isfile(os.path.join(PKG, sub, name)) and any(
+                    fnmatch.fnmatch(name, p) for p in patterns):
+                wanted.append(f"{sub}/{name}")
+    assert "csrc/hist_add.cuh" in wanted and "data/fixtures/ysd1_lag_5_file_0_preshuf.tsv" in wanted
+    missing = [w for w in wanted if not any(fnmatch.fnmatch(w, g) for g in globs)]
+    assert missing == []

@@ -27,7 +27,7 @@ from bear_tpu_torch.inference import serving
 from bear_tpu_torch.inference.scoring import load_bear
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models import bear_net
-from bear_tpu_torch.models.ar_funcs import LinearAR, flat_one_hot, get_ar_func
+from bear_tpu_torch.models.ar_funcs import CNNAR, LinearAR, StopAR, flat_one_hot, get_ar_func
 from bear_tpu_torch.ops import alphabets
 
 torch.set_num_threads(2)
@@ -100,9 +100,10 @@ def test_flat_one_hot_and_init_shape():
 
 def test_get_ar_func_names():
     assert isinstance(get_ar_func("linear", 3, 4, {}, device="cpu"), LinearAR)
-    for name in ("cnn", "stop", "attention"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_ar_func(name, 3, 4, device="cpu")
+    assert isinstance(get_ar_func("cnn", 3, 4, {"filter_width": 2}, device="cpu"), CNNAR)
+    assert isinstance(get_ar_func("stop", 3, 4, device="cpu"), StopAR)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_ar_func("attention", 3, 4, device="cpu")
     with pytest.raises(ValueError):
         get_ar_func("transformer", 3, 4, device="cpu")
 
@@ -244,6 +245,9 @@ def test_load_bear_rejects_wrong_param_count(tmp_path):
     path = _model_dir(tmp_path, 3, "float64", 0.0, list(ar_params) + [np.zeros(2)])
     with pytest.raises(ValueError, match="parameter"):
         load_bear(path, device="cpu")
-    path2 = _model_dir(tmp_path, 3, "float64", 0.0, ar_params, ar_name="cnn")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    path2 = _model_dir(tmp_path, 3, "float64", 0.0, ar_params, ar_name="stop")
+    with pytest.raises(ValueError, match="parameter"):
         load_bear(path2, device="cpu")
+    path3 = _model_dir(tmp_path, 3, "float64", 0.0, ar_params, ar_name="attention")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_bear(path3, device="cpu")

@@ -109,3 +109,19 @@ def test_make_reads_full_size_counts():
                   / chip_smoke.READ_LEN)
     assert n_reads == 306_666
     assert n_reads * (chip_smoke.READ_LEN + 1) == 46_306_566
+
+
+def test_chip_smoke_train_phase_rehearsal(tmp_path):
+    # chip_smoke.py's phase 4c on the CPU at a small size: count -> handoff
+    # -> CNN training (first ELBOs vs float64) -> evaluation -> model dir ->
+    # load_bear -> BearServer (vs float64); its own checks raise on a fault.
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    launches, codes, counts, ar, p0, n_rows = chip_smoke.lag13_train_phase(
+        chunks, reads, groups, str(tmp_path / "cnn"), "CPU", device="cpu", lag=LAG,
+        cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
+        batch=1024, epochs=2, n_score=100)
+    assert launches == 0  # the plain version runs on the CPU: no kernel
+    assert codes.shape == (n_rows, LAG) and counts.shape == (n_rows, 2, 5)
+    assert len(p0) == 9 and ar.name == "cnn"
+    assert (tmp_path / "cnn" / "results.pickle").exists()
