@@ -1,15 +1,24 @@
-"""Batch sequence scoring over a device-resident count table (port of the
-MAP path of bear_tpu/inference/serving.py).
+"""Batch scoring over a count table on the device (port of
+bear_tpu/inference/serving.py): sequences, SNVs and arbitrary variants,
+MAP or posterior-sampled.
 
     rolling '['-padded context rows (the counting engine's index math)
     -> gather transition counts from the table on the device
     -> concentrations = ar(context)/h + counts   (or counts + van, BMM)
-    -> MAP log-prob sum per sequence
+    -> MAP log-prob, or a Dirichlet draw of each context's transition
+       distribution, keyed on (sample, [sequence,] table row)
 
 Scores include the start-pad contexts and the stop transition, matching
 the reference's get_bear_probs_seqs padding (get_var_probs.py:573-574).
-The sampled and Monte Carlo modes, SNV and variant Δ-scores and ``mesh=``
-follow in later slices (ROADMAP.md).
+
+Sampled draws are stateless (:mod:`bear_tpu_torch.ops.keyed_random`): the
+draw of a row is a function of its key alone, so a context repeated within
+a sequence reuses one draw, wild type and mutant share the draws of their
+shared windows (Δ contributions cancel exactly), and results do not depend
+on batching. Rows, gathers and concentrations are computed once per call;
+only the draw carries the sample axis, in slices of elements that keep its
+temporaries within ``SAMPLE_BUDGET_BYTES``. ``mesh=`` (a row-split table)
+follows in a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -20,8 +29,49 @@ import numpy as np
 import torch
 
 from bear_tpu_torch.counting.engine import pad_offset, table_rows
+from bear_tpu_torch.inference.scoring import load_bear, load_bear_dataset, parse_var
 from bear_tpu_torch.ops import alphabets
+from bear_tpu_torch.ops import keyed_random as kr
+from bear_tpu_torch.ops.loggamma import _pairs, fold_in_many, log_dirichlet_draw_keyed
 from bear_tpu_torch.utils.device import resolve_device
+
+# Marsaglia-Tsang proposals per lane in the serving samplers (bear_tpu's
+# setting): acceptance is >= 95% per proposal and a lane that accepts none
+# falls back to the Wilson-Hilferty cube, so 3 keeps that ~1e-4 of lanes
+# near the distribution.
+SAMPLE_PROPOSALS = 3
+# Device memory the draw's temporaries may take in one slice of elements.
+SAMPLE_BUDGET_BYTES = 4 << 30
+# Rows per AR call when the sampled and Δ paths form concentrations: the
+# lag-13 CNN of examples/genome_lag13.py holds ~10 KB of activations per
+# row (chip_smoke.py's peak memory on an H100, PERF.md), so a slice stays
+# near 2.7 GB.
+AR_SLICE_ROWS = 1 << 18
+
+
+def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS) -> int:
+    """Peak bytes of one (sample, element) draw, estimated from its
+    tensors: ~9 live int64 Philox states per counter block while the rounds
+    run, then ~16 float temporaries per proposal lane in the accept test."""
+    blocks = -(-_pairs(F * A1) // 4) + -(-F * A1 // 4) + -(-A1 // 4)
+    return 80 * blocks + 16 * F * A1 * itemsize
+
+
+def _sampled_logp_picked(keys, conc, nxt):
+    """Posterior-sampled log-prob of the chosen category: one Dirichlet
+    draw per key (keys [...], conc [..., A1] and nxt [...] broadcast).
+    Same key and concentrations, same draw; a zero concentration that is
+    picked scores -inf."""
+    lg = log_dirichlet_draw_keyed(keys, conc, n_iter=SAMPLE_PROPOSALS)
+    lse = torch.logsumexp(lg, dim=-1)
+    idx = nxt.long().expand(lg.shape[:-1])[..., None]
+    return lg.gather(-1, idx)[..., 0] - lse
+
+
+def _map_picked(conc, nxt):
+    """MAP log-prob of the chosen category, log(conc_k / sum conc)."""
+    logp = torch.log(conc / conc.sum(dim=-1, keepdim=True))
+    return logp.gather(-1, nxt[..., None].long())[..., 0]
 
 
 def _context_rows_and_next(codes: torch.Tensor, lengths: torch.Tensor,
@@ -68,6 +118,19 @@ def contexts_to_rows(contexts, lag: int, alphabet: str = "dna") -> np.ndarray:
     return _rows_from_codes(codes, lag, alphabets.alphabet_size(alphabet))
 
 
+def table_from_dataset(dataset, lag: int, train_col: int = 0) -> np.ndarray:
+    """Dense ``[table_rows(lag), A+1]`` transition table from one column of
+    an in-memory CountDataset (a trained model directory's count files, via
+    load_bear_dataset). Duplicate k-mer rows accumulate."""
+    if dataset.lag != lag:
+        raise ValueError(f"dataset lag {dataset.lag} != model lag {lag}")
+    A = alphabets.alphabet_size(dataset.alphabet)
+    rows = _rows_from_codes(dataset.codes, lag, A)
+    table = np.zeros((table_rows(lag, A), A + 1), dataset.counts.dtype)
+    np.add.at(table, rows, dataset.counts[:, train_col, :])
+    return table
+
+
 def _rows_to_onehot_contexts(rows: torch.Tensor, lag: int, dtype, A: int = 4):
     """Inverse of the row index on the device: [..] rows -> one-hot
     [.., lag, A+1] '['-padded contexts (integer-exact suffix-length
@@ -90,8 +153,36 @@ def _rows_to_onehot_contexts(rows: torch.Tensor, lag: int, dtype, A: int = 4):
     return alphabets.one_hot(classes, A + 1, dtype)
 
 
+def _reduce_width(reduce: str, quantiles) -> int:
+    """Output columns of a reduction over the sample axis."""
+    if reduce == "mean_std":
+        return 2
+    if reduce == "quantiles":
+        return len(quantiles)
+    raise ValueError(f"unknown reduce {reduce!r}")
+
+
+def _reduce(d: torch.Tensor, reduce: str, quantiles) -> torch.Tensor:
+    """[n, S] draws -> [n, 2] (mean, std with ddof = min(1, S-1): S = 1
+    has no spread and reports 0) or [n, len(quantiles)] (linear
+    interpolation, jnp.quantile's and torch.quantile's default)."""
+    if reduce == "mean_std":
+        ddof = min(1, d.shape[-1] - 1)
+        return torch.stack([d.mean(dim=-1), d.std(dim=-1, correction=ddof)], dim=-1)
+    if reduce == "quantiles":
+        q = torch.as_tensor(quantiles, dtype=d.dtype, device=d.device)
+        return torch.quantile(d, q, dim=-1).T
+    raise ValueError(f"unknown reduce {reduce!r}")
+
+
+def _pad_windows(win, width: int):
+    """(rows, nxt, mask) [n, W] -> [n, width], padded with masked zeros."""
+    pad = width - win[0].shape[1]
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in win)
+
+
 class BearServer:
-    """Batch MAP scorer over a count table held on ``device``.
+    """Batch scorer over a count table held on ``device``.
 
     Parameters
     ----------
@@ -102,7 +193,7 @@ class BearServer:
     ar_apply : (one-hot [.., lag, A+1] on ``device``) -> probs [.., A+1],
         e.g. from load_bear; None with ``van`` for the BMM.
     van : BMM symmetric prior (used when ar_apply is None).
-    dtype : float type of the table and the scores.
+    dtype : float type of the table, the draws and the scores.
     device : "cuda" (default) or "cpu".
 
     No epsilon is added here: load_bear's ar_apply already carries
@@ -134,11 +225,78 @@ class BearServer:
         self.lag = lag
         self.alphabet = alphabet
 
+    @classmethod
+    def from_model_dir(cls, path: str, *, train_col: int = 0,
+                       double_softmax: bool = True, dtype=torch.float32,
+                       device="cuda"):
+        """A server from a trained model directory (config.cfg +
+        results.pickle): the fitted (h, ar_func) via load_bear, the training
+        counts via load_bear_dataset, densified from the ``train_col``
+        column into a table on the device (the reference's load-model-then-
+        scan-counts set-up, get_var_probs.py:59-82 + 429-451)."""
+        lag, alphabet_name, h, ar_apply, info = load_bear(
+            path, double_softmax=double_softmax, device=device)
+        table = table_from_dataset(load_bear_dataset(info), lag, train_col=train_col)
+        return cls(table, lag, h=h, ar_apply=ar_apply, dtype=dtype,
+                   alphabet=alphabet_name, device=device)
+
     def _concentrations(self, rows, counts):
         if self._ar_apply is None:
             return counts + self._van
         oh = _rows_to_onehot_contexts(rows, self.lag, self._dtype, self._A)
         return self._ar_apply(oh) / self._h + counts
+
+    def _row_concentrations(self, rows):
+        """Concentrations [E, A1] of E table rows, the AR evaluated in
+        slices of AR_SLICE_ROWS rows."""
+        return torch.cat([self._concentrations(r, self._table[r])
+                          for r in torch.split(rows, AR_SLICE_ROWS)])
+
+    def _sample_keys(self, key, mc_samples: int) -> torch.Tensor:
+        """[S] sample keys fold_in(key, s)."""
+        s = torch.arange(mc_samples, dtype=torch.int64, device=self.device)
+        return kr.fold_in(kr._as_keys(key, self.device), s)
+
+    def _draw_picked(self, base_keys, group, rows, nxt, conc):
+        """Sampled log-prob of the chosen symbol of E elements: element e
+        draws under fold_in(base_keys[:, group[e]], rows[e]). base_keys
+        [S, G], group/rows/nxt [E], conc [E, A1] -> [S, E]. The draw runs
+        in slices of elements within SAMPLE_BUDGET_BYTES."""
+        S, E = base_keys.shape[0], rows.shape[0]
+        out = torch.empty((S, E), dtype=conc.dtype, device=conc.device)
+        per = S * _draw_bytes(conc.shape[-1], conc.element_size())
+        step = max(1, SAMPLE_BUDGET_BYTES // per)
+        for s in range(0, E, step):
+            sl = slice(s, s + step)
+            keys = fold_in_many(base_keys[:, group[sl]], rows[sl])
+            out[:, sl] = _sampled_logp_picked(keys, conc[sl], nxt[sl])
+        return out
+
+    def _window_logp(self, rows, nxt, keys):
+        """Log-prob of the chosen symbol of E windows: [1, E] MAP (keys
+        None) or [S, E] sampled, each draw keyed on (sample key, row)."""
+        conc = self._row_concentrations(rows)
+        if keys is None:
+            return _map_picked(conc, nxt)[None]
+        return self._draw_picked(keys[:, None], torch.zeros_like(rows), rows, nxt, conc)
+
+    def _delta(self, mt, wt, keys):
+        """Δ log-prob, mutant minus wild type, from their windows (rows,
+        nxt, mask) [n, W_mt] and [n, W_wt]: [n] MAP, or [n, S] sampled.
+        Only masked-in windows are scored, in one call; both sides are
+        summed over one padded width, so identical windows cancel to an
+        exact 0."""
+        width = max(mt[0].shape[1], wt[0].shape[1])
+        (rm, nm, mm), (rw, nw, mw) = _pad_windows(mt, width), _pad_windows(wt, width)
+        lp = self._window_logp(torch.cat([rm[mm], rw[mw]]),
+                               torch.cat([nm[mm], nw[mw]]), keys)
+        k = int(mm.sum())
+        a = lp.new_zeros((lp.shape[0],) + tuple(mm.shape))
+        b = torch.zeros_like(a)
+        a[:, mm] = lp[:, :k]
+        b[:, mw] = lp[:, k:]
+        d = (a - b).sum(dim=-1)
+        return d[0] if keys is None else d.T
 
     @torch.no_grad()
     def log_prob_map(self, codes, lengths) -> torch.Tensor:
@@ -148,9 +306,35 @@ class BearServer:
         lengths = torch.as_tensor(lengths, device=self.device)
         rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
         conc = self._concentrations(rows, self._table[rows])
-        logp = torch.log(conc / conc.sum(dim=-1, keepdim=True))
-        picked = logp.gather(-1, nxt[..., None].long())[..., 0]
+        picked = _map_picked(conc, nxt)
         return torch.where(mask, picked, 0.0).sum(dim=-1)
+
+    @torch.no_grad()
+    def log_prob_sampled_multi(self, codes, lengths, keys) -> torch.Tensor:
+        """Posterior-sampled log-probabilities [B, S] for [S] sample keys.
+        Sequence b of sample s scores under its own sampled model, keyed
+        fold_in(keys[s], b) (b the index in this call); a row repeated
+        within a sequence reuses one draw. Rows, gathers and concentrations
+        run once, for the masked-in transitions only."""
+        codes = torch.as_tensor(codes, device=self.device)
+        lengths = torch.as_tensor(lengths, device=self.device)
+        keys = kr._as_keys(keys, self.device).reshape(-1)
+        rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
+        b_idx, p_idx = mask.nonzero(as_tuple=True)
+        rv, nv = rows[b_idx, p_idx], nxt[b_idx, p_idx]
+        conc = self._row_concentrations(rv)
+        seq = torch.arange(codes.shape[0], dtype=torch.int64, device=self.device)
+        seq_keys = kr.fold_in(keys[:, None], seq[None, :])  # [S, B]
+        picked = self._draw_picked(seq_keys, b_idx, rv, nv, conc)
+        full = picked.new_zeros((keys.shape[0],) + tuple(mask.shape))
+        full[:, b_idx, p_idx] = picked
+        return full.sum(dim=-1).T
+
+    def log_prob_sampled(self, codes, lengths, key) -> torch.Tensor:
+        """Posterior-sampled per-sequence log-probabilities [B] under one
+        key (the draws of ``log_prob_sampled_multi`` with keys [key])."""
+        return self.log_prob_sampled_multi(codes, lengths,
+                                           kr._as_keys(key, self.device)[None])[:, 0]
 
     def _encode_ragged(self, strs, lens, maxlen):
         """Encode variable-length strings into a padded (0-filled)
@@ -171,17 +355,264 @@ class BearServer:
         out[mask] = flat
         return out
 
-    def score(self, seqs, mode: str = "map", pad_to: Optional[int] = None):
-        """List of strings -> [B] numpy scores. Pads to ``pad_to`` (or the
-        max length rounded up to 64)."""
-        if mode != "map":
-            raise NotImplementedError(
-                f"score mode {mode!r} is not ported yet (needs ops/loggamma); "
-                "see ROADMAP.md"
+    def _sample_plan(self, mode, key, mc_samples, reduce, quantiles):
+        """(sample keys or None, output width or None) of a Δ-score call,
+        after checking the mode/reduce contract."""
+        if reduce != "none" and mode != "sample":
+            raise ValueError('reduce= requires mode="sample"')
+        if mode == "map":
+            return None, None
+        if mode != "sample":
+            raise ValueError(f"unknown mode {mode!r}")
+        if key is None:
+            raise ValueError('mode="sample" requires key=')
+        width = mc_samples if reduce == "none" else _reduce_width(reduce, quantiles)
+        return self._sample_keys(key, mc_samples), width
+
+    def _finish(self, d, keys, reduce, quantiles):
+        """A chunk's Δ [n] or [n, S] -> its output rows."""
+        if keys is None or reduce == "none":
+            return d
+        return _reduce(d, reduce, quantiles)
+
+    def _wt_transitions(self, wt_codes: np.ndarray):
+        """The wild type's per-transition (rows, nxt) [L+1] on the device."""
+        L = wt_codes.shape[0]
+        rows, nxt, _ = _context_rows_and_next(
+            torch.as_tensor(wt_codes[None, :], device=self.device),
+            torch.tensor([L], dtype=torch.int32, device=self.device), self.lag, self._A)
+        return rows[0], nxt[0]
+
+    @torch.no_grad()
+    def delta_scores_snv(self, wt_seq: str, positions, alt_bases,
+                         batch: int = 1 << 17, mode: str = "map",
+                         key=None, mc_samples: int = 1,
+                         reduce: str = "none",
+                         quantiles=(0.05, 0.5, 0.95)):
+        """Δ log-prob (mutant − wild type) for a batch of substitutions on
+        the device.
+
+        A substitution at position p touches exactly the transitions t in
+        [p, p+lag]: at t == p the next symbol changes; at t > p the context
+        row shifts by (alt - ref) * A^(t-p-1). Only those 2(lag+1) windows
+        are gathered per variant (the reference's Δ-window scoring,
+        get_var_probs.py:293-334, 343-454).
+
+        mode : "map" (equals ``get_bear_probs(..., get_map=True)``) or
+            "sample" (each touched window scored under a posterior
+            Dirichlet draw keyed on (sample, row); requires ``key``).
+        mc_samples : with mode="sample", draws per variant; sample s uses
+            key fold_in(key, s).
+        reduce : with mode="sample": "none" returns the draws, "mean_std"
+            [V, 2] (mean, ddof-1 std), "quantiles" [V, len(quantiles)].
+
+        Returns [V] scores in the server's float type (or [V, mc_samples]
+        when mc_samples > 1 / [V, 2] / [V, len(quantiles)]).
+        """
+        codes = alphabets.encode_kmers(np.array([wt_seq]), self.alphabet)[0]
+        L = codes.shape[0]
+        pos = np.asarray(positions, dtype=np.int64)
+        if pos.ndim != 1:
+            raise ValueError("positions must be 1-D")
+        if (pos < 0).any() or (pos >= L).any():
+            raise ValueError("SNV position outside the wild-type sequence")
+        alt = np.asarray(alt_bases)
+        if alt.dtype.kind in "US":
+            alt = alphabets.encode_kmers(alt, self.alphabet)[:, 0]
+        alt = alt.astype(np.int64)
+        ref = codes[pos].astype(np.int64)
+        keys, width = self._sample_plan(mode, key, mc_samples, reduce, quantiles)
+        if keys is not None:
+            # Window buffers and draws grow with the sample axis.
+            batch = min(batch, max((1 << 21) // mc_samples, 1))
+        rows1, nxt1 = self._wt_transitions(codes)
+        lag, A, dev = self.lag, self._A, self.device
+        i = torch.arange(lag + 1, dtype=torch.int64, device=dev)[None, :]
+        pow_a = torch.as_tensor([1] + [A**k for k in range(lag)], dtype=torch.int32,
+                                device=dev)[None, :]
+        V = len(pos)
+        out = torch.empty((V,) if keys is None else (V, width), dtype=self._dtype,
+                          device=dev)
+        for s in range(0, V, batch):
+            e = min(s + batch, V)
+            p = torch.as_tensor(pos[s:e], device=dev)[:, None]
+            a = torch.as_tensor(alt[s:e], dtype=torch.int32, device=dev)[:, None]
+            r = torch.as_tensor(ref[s:e], dtype=torch.int32, device=dev)[:, None]
+            t = p + i
+            valid = t <= L  # t == L is the stop
+            tc = torch.clamp(t, max=L)
+            r_wt, n_wt = rows1[tc], nxt1[tc]
+            r_mt = torch.where(i >= 1, r_wt + (a - r) * pow_a, r_wt)
+            n_mt = torch.where(i == 0, a, n_wt)
+            d = self._delta((r_mt, n_mt, valid), (r_wt, n_wt, valid), keys)
+            out[s:e] = self._finish(d, keys, reduce, quantiles)
+        out = out.cpu().numpy()
+        if keys is None or reduce != "none":
+            return out
+        return out[..., 0] if mc_samples == 1 else out
+
+    def _mt_windows(self, C: torch.Tensor, n_mt: torch.Tensor):
+        """Mutant covering windows from the [V, Q] local char-code matrix
+        (left lag context | variant letters | right context): window i
+        covers chars C[:, i:i+lag] with next symbol C[:, i+lag]; '['-pads
+        (code A) give digit 0 and count toward the prefix-block offset (the
+        Horner form of _rows_from_codes' math)."""
+        lag, A = self.lag, self._A
+        W_mt = C.shape[1] - lag
+        C32 = C.to(torch.int32)
+        code = torch.zeros((C.shape[0], W_mt), dtype=torch.int32, device=C.device)
+        npad = torch.zeros_like(code)
+        for k in range(lag):
+            ch = C32[:, k : k + W_mt]
+            is_pad = ch == A
+            npad += is_pad.to(torch.int32)
+            code = code * A + torch.where(is_pad, 0, ch)
+        offsets = torch.as_tensor([pad_offset(lag, n, A) for n in range(lag + 1)],
+                                  dtype=torch.int32, device=C.device)
+        rows_mt = offsets[npad] + code
+        nxt_mt = C32[:, lag:]
+        m_mt = torch.arange(W_mt, device=C.device)[None, :] < n_mt[:, None]
+        return rows_mt, nxt_mt, m_mt
+
+    @torch.no_grad()
+    def delta_scores_variants(self, wt_seq: str, variants, *,
+                              batch: int = 1 << 18, mode: str = "map",
+                              key=None, mc_samples: int = 1,
+                              reduce: str = "none",
+                              quantiles=(0.05, 0.5, 0.95)):
+        """Δ log-prob (mutant − wild type) for arbitrary variants — multi-
+        base substitutions, insertions, deletions in the reference's
+        'AAG23CC' syntax (get_var_probs.py:336-341) or (wt, mt, pos)
+        triples — on the device.
+
+        Covering-window semantics of get_bear_probs (reference
+        get_var_probs.py:293-334): the wild-type windows of a variant are
+        transitions pos..pos+n_wt-1 of the wild type; the host builds only
+        an int8 char matrix of each mutant's local sequence, whose window
+        rows, next symbols and masks are derived on the device. Modes,
+        ``reduce`` and the returned shapes as in :meth:`delta_scores_snv`;
+        the shapes hold for an empty variant list too.
+        """
+        lag = self.lag
+        A = self._A
+        wt_codes = alphabets.encode_kmers(np.array([wt_seq]), self.alphabet)[0].astype(np.int32)
+        L = len(wt_codes)
+        if isinstance(variants, np.ndarray):
+            variants = variants.tolist()
+        else:
+            variants = list(variants)
+        parsed = [parse_var(v) if isinstance(v, str) else v for v in variants]
+        V = len(parsed)
+        if reduce != "none" and mode != "sample":
+            raise ValueError('reduce= requires mode="sample"')
+        if V == 0:
+            if mode == "sample" and reduce != "none":
+                return np.zeros((0, _reduce_width(reduce, quantiles)), self._np_dtype())
+            if mode == "sample" and mc_samples != 1:
+                return np.zeros((0, mc_samples), self._np_dtype())
+            return np.zeros((0,), self._np_dtype())
+
+        # '['-padded + '$'-terminated char codes; both out-of-alphabet
+        # symbols carry code A ('[' only in context prefixes, '$' only as a
+        # final next symbol).
+        padded_enc = np.concatenate([
+            np.full(lag, A, np.int32), wt_codes, np.full(1, A, np.int32)])
+        len_padded = L + lag + 1
+
+        wt_aas, mt_aas, pos_t = zip(*parsed)
+        pos = np.fromiter(pos_t, np.int64, V)
+        lw = np.fromiter(map(len, wt_aas), np.int64, V)
+        lm = np.fromiter(map(len, mt_aas), np.int64, V)
+        if (pos < 0).any() or (pos + lw > L).any():
+            raise ValueError("variant outside the wild-type sequence")
+        max_lw, max_lm = int(max(lw.max(), 1)), int(max(lm.max(), 1))
+        wt_var = self._encode_ragged(wt_aas, lw, max_lw)
+        mt_var = self._encode_ragged(mt_aas, lm, max_lm)
+
+        # The wild-type letters must match (reference get_var_probs.py:309).
+        span = np.arange(max_lw)[None, :]
+        in_wt = span < lw[:, None]
+        ref_at = wt_codes[np.clip(pos[:, None] + span, 0, L - 1)]
+        mism = in_wt & (ref_at != wt_var)
+        if mism.any():
+            bad = int(np.nonzero(mism.any(1))[0][0])
+            raise AssertionError(
+                f"variant {parsed[bad]} does not match wild-type sequence "
+                f"at position {int(pos[bad])}"
             )
+
+        p_pad = pos + lag
+        right_len = np.clip(len_padded - (p_pad + lw), 0, lag)
+        n_wt = lw + right_len  # wild-type covering windows
+        n_mt = lm + right_len  # mutant covering windows
+        W_wt = int(n_wt.max())
+
+        # Mutant local char matrix C[v, q]: left context (lag), variant
+        # letters (lm), right context (truncated at '$'), as int8.
+        Q = 2 * lag + max_lm
+        q = np.arange(Q)[None, :]
+        is_left = q < lag
+        is_mid = (q >= lag) & (q < lag + lm[:, None])
+        idx_l = np.clip(p_pad[:, None] - lag + q, 0, len_padded - 1)
+        idx_r = np.clip(p_pad[:, None] + lw[:, None] + (q - lag - lm[:, None]),
+                        0, len_padded - 1)
+        C = np.where(
+            is_left, padded_enc[idx_l],
+            np.where(is_mid,
+                     mt_var[np.arange(V)[:, None], np.clip(q - lag, 0, max_lm - 1)],
+                     padded_enc[idx_r])).astype(np.int8)
+
+        keys, width = self._sample_plan(mode, key, mc_samples, reduce, quantiles)
+        if keys is not None:
+            # Arbitrary-variant windows are ~2x the SNV count: half its budget.
+            batch = min(batch, max((1 << 20) // mc_samples, 1))
+        rows1, nxt1 = self._wt_transitions(wt_codes)
+        dev = self.device
+        i_wt = torch.arange(W_wt, device=dev)[None, :]
+        out = torch.empty((V,) if keys is None else (V, width), dtype=self._dtype,
+                          device=dev)
+        for s in range(0, V, batch):
+            e = min(s + batch, V)
+            p = torch.as_tensor(pos[s:e], device=dev)[:, None]
+            nw = torch.as_tensor(n_wt[s:e], device=dev)
+            tc = torch.clamp(p + i_wt, 0, L)
+            wt = (rows1[tc], nxt1[tc], i_wt < nw[:, None])
+            mt = self._mt_windows(torch.as_tensor(C[s:e], device=dev),
+                                  torch.as_tensor(n_mt[s:e], device=dev))
+            out[s:e] = self._finish(self._delta(mt, wt, keys), keys, reduce, quantiles)
+        out = out.cpu().numpy()
+        if keys is None or reduce != "none":
+            return out
+        return out[..., 0] if mc_samples == 1 else out
+
+    def _np_dtype(self):
+        return np.float64 if self._dtype == torch.float64 else np.float32
+
+    @torch.no_grad()
+    def score(self, seqs, mode: str = "map", key=None,
+              pad_to: Optional[int] = None, mc_samples: int = 1,
+              reduce: str = "none", quantiles=(0.05, 0.5, 0.95)):
+        """List of strings -> [B] numpy scores. Pads to ``pad_to`` (or the
+        max length rounded up to 64). mode="sample" scores each sequence
+        under posterior draws: with mc_samples == 1 under ``key`` itself
+        (default key(0)), else [B, mc_samples] under fold_in(key, s).
+        ``reduce``/``quantiles`` as in :meth:`delta_scores_snv`: [B, 2]
+        ("mean_std") or [B, len(quantiles)]."""
+        if reduce != "none" and mode != "sample":
+            raise ValueError('reduce= requires mode="sample"')
+        if mode not in ("map", "sample"):
+            raise ValueError(f"unknown mode {mode!r}")
         seqs = list(seqs)
         lengths = np.asarray([len(s) for s in seqs], np.int32)
         maxlen = int(lengths.max()) if len(seqs) else 0
         L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
         codes = self._encode_ragged(seqs, lengths, L).astype(np.int8)
-        return self.log_prob_map(codes, lengths).cpu().numpy()
+        if mode == "map":
+            return self.log_prob_map(codes, lengths).cpu().numpy()
+        base = key if key is not None else kr.key(0)
+        if reduce == "none" and mc_samples == 1:
+            return self.log_prob_sampled(codes, lengths, base).cpu().numpy()
+        d = self.log_prob_sampled_multi(codes, lengths, self._sample_keys(base, mc_samples))
+        if reduce != "none":
+            d = _reduce(d, reduce, quantiles)
+        return d.cpu().numpy()

@@ -7,8 +7,9 @@ Conventions (matching the reference's column order exactly):
 - *Output* (transition) alphabet: the residues followed by the stop symbol
   ``]``/``$`` in the last column (counts are ordered ``A,C,G,T,$``).
 
-Integer codes: residue i -> i, ``[`` -> alphabet_size. The codecs are host
-numpy; only :func:`one_hot` builds a tensor.
+Integer codes: residue i -> i, ``[`` -> alphabet_size (input side), ``]``
+-> alphabet_size (output side). The codecs are host numpy; only
+:func:`one_hot` and :func:`one_hot_kmers` build tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ _RESIDUES = {
 }
 
 START = "["
+STOP = "]"
 
 
 def residues(alphabet: str) -> str:
@@ -40,16 +42,22 @@ def input_letters(alphabet: str) -> np.ndarray:
     return np.array(list(_RESIDUES[alphabet]) + [START])
 
 
-def _lookup_table(alphabet: str) -> np.ndarray:
-    """256-entry byte -> input code table; unknown bytes map to -1."""
+def output_letters(alphabet: str) -> np.ndarray:
+    """Residues + ']' (stop) — the transition-count column order."""
+    return np.array(list(_RESIDUES[alphabet]) + [STOP])
+
+
+def _lookup_table(alphabet: str, last: str) -> np.ndarray:
+    """256-entry byte -> code table; unknown bytes map to -1."""
     table = np.full(256, -1, dtype=np.int8)
     for i, ch in enumerate(_RESIDUES[alphabet]):
         table[ord(ch)] = i
-    table[ord(START)] = len(_RESIDUES[alphabet])
+    table[ord(last)] = len(_RESIDUES[alphabet])
     return table
 
 
-_INPUT_TABLES = {a: _lookup_table(a) for a in _RESIDUES}
+_INPUT_TABLES = {a: _lookup_table(a, START) for a in _RESIDUES}
+_OUTPUT_TABLES = {a: _lookup_table(a, STOP) for a in _RESIDUES}
 
 
 def encode_kmers(kmers, alphabet: str) -> np.ndarray:
@@ -89,6 +97,19 @@ def encode_string(s: str, alphabet: str) -> np.ndarray:
     return codes
 
 
+def encode_output_symbols(symbols, alphabet: str) -> np.ndarray:
+    """Encode transition symbols (residues or ']') to 0..A codes."""
+    arr = np.asarray(symbols)
+    if arr.dtype.kind == "U":
+        arr = np.char.encode(arr, "ascii")
+    flat = arr.ravel()
+    byte_view = flat.view(np.uint8).reshape(flat.size, -1)[:, 0]
+    codes = _OUTPUT_TABLES[alphabet][byte_view]
+    if np.any(codes < 0):
+        raise ValueError("symbol outside alphabet")
+    return codes.reshape(arr.shape)
+
+
 def decode_kmers(codes: np.ndarray, alphabet: str) -> np.ndarray:
     """Inverse of :func:`encode_kmers`: int codes -> k-mer strings."""
     letters = input_letters(alphabet)
@@ -104,3 +125,10 @@ def one_hot(codes, num_classes: int, dtype) -> torch.Tensor:
     codes = torch.as_tensor(codes)
     classes = torch.arange(num_classes, dtype=codes.dtype, device=codes.device)
     return (codes[..., None] == classes).to(dtype)
+
+
+def one_hot_kmers(kmers, alphabet: str, dtype=torch.float32, device=None) -> torch.Tensor:
+    """String k-mers -> one-hot [n, lag, alphabet_size+1] on ``device``
+    (host encode, one-hot where the codes land)."""
+    codes = torch.from_numpy(encode_kmers(kmers, alphabet)).to(device)
+    return one_hot(codes, alphabet_size(alphabet) + 1, dtype)

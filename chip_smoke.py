@@ -32,6 +32,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (its first ELBOs against CPU float64), evaluated, written, reloaded by
    load_bear and served to the 4,096 held-out reads (against CPU float64);
    then 200 YSD1 applies and 20 CNN applies are profiled;
+4d. posterior-sampled serving and variant scoring, from the main path's
+   train table with 4c's reloaded CNN and its h: (C) the 4,096 held-out
+   reads at MC-41 (41 posterior draws, reduce "mean_std" and "none"); (D)
+   the deep-mutational-scan grid of the first 10 kb of the genome (30,000
+   SNVs), MAP and MC-41; (E) 10,000 seeded SNVs, substitutions, insertions
+   and deletions on the same 10 kb, MAP and MC-41; (F) the score CLI on
+   4b's YSD1 model (snv --all --sample --std, variants --device, seqs
+   --map). MAP against the port on the CPU in float64; sampled float64 on
+   the card against the CPU in float64 from the same keys, on subsets; the
+   in-call reductions against the raw draws. Rates, peak device memory,
+   the sampler's share of device time, and profiles of (C) and (D);
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -86,6 +97,21 @@ TRAIN_EPOCHS = 3
 TRAIN_LR = 0.005
 N_ELBO_CHECK = 5
 ELBO_RTOL = 1e-4
+# Phase 4d: posterior-sampled serving at the reference's Monte Carlo
+# default (41 draws), the deep-mutational-scan grid and seeded arbitrary
+# variants on the genome's first 10 kb, and the subsets held against the
+# CPU in float64: sampled float64 values agree to 1e-9 but for draws whose
+# Marsaglia-Tsang accept test lands on its boundary (at most 1e-4 of them).
+MC = 41
+DMS_BP = 10_000
+N_VARIANTS = 10_000
+SAMPLED_CHECK = (256, 2000, 1000)  # reads, SNVs, variants
+MAP_CHECK = (3000, 1000)  # SNVs, variants
+SAMPLED_RTOL = 1e-9
+SAMPLED_FLIPS = 1e-4
+PEAK_BUDGET = 8 << 30  # bytes a call may take above what is resident
+CLI_WT_BP = 500
+CLI_READS = 64
 
 
 def ysd1_config(out_folder):
@@ -154,6 +180,44 @@ def read_chunks(reads, groups, rows=CHUNK_ROWS):
         grp = np.zeros(rows, np.int32)
         grp[:n] = groups[s : s + n]
         yield ReadChunk(codes, lengths, np.zeros(rows, np.int32), stopped, grp)
+
+
+def genome_prefix(n, genome_mb=GENOME_MB, seed=SEED):
+    """The first n bases of make_reads' genome, as a string."""
+    genome = synth_genome(np.random.default_rng(seed), int(genome_mb * 1e6))
+    return decode_reads(genome[None, :n])[0]
+
+
+def snv_grid(wt):
+    """Every position x every other base: (positions, alternates)."""
+    pos = np.repeat(np.arange(len(wt)), 3)
+    alts = [b for ref in wt for b in "ACGT" if b != ref]
+    return pos, np.array(alts)
+
+
+def make_variants(wt, n, seed=0):
+    """n variants on wt in parse_var syntax, from a numpy seed: 40% SNVs,
+    20% 2-3 bp substitutions, 20% 1-5 bp insertions, 20% 1-5 bp
+    deletions."""
+    rng = np.random.default_rng(seed)
+    L = len(wt)
+    out = []
+    for kind in rng.choice(4, size=n, p=[0.4, 0.2, 0.2, 0.2]):
+        if kind == 0:
+            p = int(rng.integers(L))
+            out.append(f"{wt[p]}{p}{rng.choice([b for b in 'ACGT' if b != wt[p]])}")
+        elif kind == 1:
+            m = int(rng.integers(2, 4))
+            p = int(rng.integers(L - m + 1))
+            out.append(f"{wt[p:p + m]}{p}{''.join(rng.choice(list('ACGT'), m))}")
+        elif kind == 2:
+            p = int(rng.integers(L + 1))
+            out.append(f"{p}{''.join(rng.choice(list('ACGT'), int(rng.integers(1, 6))))}")
+        else:
+            m = int(rng.integers(1, 6))
+            p = int(rng.integers(L - m + 1))
+            out.append(f"{wt[p:p + m]}{p}")
+    return out
 
 
 def decode_reads(reads):
@@ -541,6 +605,215 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     return launches, codes, counts, ar, p0, n_rows
 
 
+def sampler_ops_per_draw(A1, F=3):
+    """Operations of one keyed draw of A1 categories with F proposals,
+    counted from the algorithm: 10 Philox rounds of ~10 integer operations
+    (two multiplies, two high-word shifts, four XORs, two masks) for each
+    block (the row key's fold_in, then the normal, exponential and boost
+    words), ~25 float operations per proposal lane (its share of
+    Box-Muller, the cube, the accept test with its log, the selection) and
+    ~10 per category (boost, logsumexp, pick)."""
+    blocks = 1 + -(-(F * A1 + F * A1 % 2) // 4) + -(-F * A1 // 4) + -(-A1 // 4)
+    return 100 * blocks + 25 * F * A1 + 10 * A1
+
+
+def sampler_share(server, fn):
+    """(draw ms, call ms, draw bound ms, bound_by): device time of the keyed
+    draws (BearServer._draw_picked) inside one call of fn and of the whole
+    call, both between CUDA events, and the least time the card could take
+    for those draws: their inputs (concentrations, rows, next symbols,
+    groups, base keys) read and their [S, E] outputs written once at the
+    HBM rate, against their operations (sampler_ops_per_draw) at the
+    CUDA cores' float32 rate."""
+    import torch
+
+    spans = []
+    work = [0, 0]  # bytes, operations
+    inner = server._draw_picked
+
+    def timed(base_keys, group, rows, nxt, conc):
+        S, E = base_keys.shape[0], rows.shape[0]
+        work[0] += (conc.numel() * conc.element_size() + rows.numel() * rows.element_size()
+                    + nxt.numel() * nxt.element_size() + group.numel() * group.element_size()
+                    + base_keys.numel() * 8 + S * E * conc.element_size())
+        work[1] += S * E * sampler_ops_per_draw(conc.shape[-1])
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = inner(base_keys, group, rows, nxt, conc)
+        e.record()
+        spans.append((s, e))
+        return out
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    server._draw_picked = timed
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    finally:
+        del server._draw_picked
+    bytes_ms = work[0] / HBM_BYTES_PER_S * 1e3
+    ops_ms = work[1] / FP32_OPS_PER_S * 1e3
+    return (sum(s.elapsed_time(e) for s, e in spans), start.elapsed_time(end),
+            max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda",
+                  mc=MC, n_variants=N_VARIANTS, sampled_check=SAMPLED_CHECK,
+                  map_check=MAP_CHECK, cli_wt_bp=CLI_WT_BP, profile=True):
+    """4d: posterior-sampled serving (C), the SNV scan (D), arbitrary
+    variants (E) and the score CLI (F), from ``table`` with the model of
+    ``model_dir`` (and its float64 copy ``model_dir + '_float64'``).
+    Checks MAP against CPU float64, sampled float64 on the device against
+    the CPU from the same keys on subsets, the reductions against the raw
+    draws, and finiteness; reports rates and peak device memory, and with
+    ``profile`` the sampler's share of device time and the profiles of (C)
+    and (D)."""
+    import contextlib
+    import io
+
+    import torch
+    from bear_tpu_torch.inference import BearServer, load_bear, score_cli
+    from bear_tpu_torch.ops.keyed_random import key as make_key
+
+    on_card = torch.device(device).type == "cuda"
+    dir64 = model_dir.rstrip("/") + "_float64"
+    _, _, h, ar_apply, _ = load_bear(model_dir, device=device)
+    server = BearServer(table, lag, h=h, ar_apply=ar_apply, device=device)
+    _, _, h64, ar64, _ = load_bear(dir64, device=device)
+    dev64 = BearServer(table, lag, h=h64, ar_apply=ar64, dtype=torch.float64, device=device)
+    _, _, h64, ar64_cpu, _ = load_bear(dir64, device="cpu")
+    cpu64 = BearServer(table, lag, h=h64, ar_apply=ar64_cpu, dtype=torch.float64,
+                       device="cpu")
+    key = make_key(SEED)
+
+    def run(label, n, unit, fn):
+        fn()  # warm-up
+        synchronize(device)
+        base = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = fn()
+        synchronize(device)
+        sec = time.perf_counter() - t0
+        mem = ""
+        if on_card:
+            peak = torch.cuda.max_memory_allocated()
+            mem = (f"; peak device memory {peak / 2**30:.3f} GiB, "
+                   f"{(peak - base) / 2**30:.3f} GiB above the resident "
+                   f"{base / 2**30:.3f} GiB")
+            check(peak - base <= PEAK_BUDGET,
+                  f"{label} took {peak - base} bytes above the resident, over the budget")
+        print(f"[sample] {label}: {n:,} {unit} in {sec:.4f} s = {n / sec:.6g} {unit}/s"
+              f"{mem} [{card}]")
+        check(np.isfinite(out).all(), f"{label}: values not finite")
+        return out
+
+    def held(label, got, want, n_values):
+        bad = int((np.abs(got - want) > SAMPLED_RTOL * np.abs(want) + 1e-12).sum())
+        check(got.shape == want.shape and bad <= SAMPLED_FLIPS * n_values,
+              f"{label}: {bad} of {n_values} sampled float64 values differ from the CPU")
+        print(f"[sample] {label}: sampled float64 {device} vs CPU from the same keys: "
+              f"{bad} of {n_values} values beyond rtol {SAMPLED_RTOL} (allowed "
+              f"{SAMPLED_FLIPS:g} of them); max |diff| {np.abs(got - want).max():.3e}")
+
+    def map_held(label, got, want):
+        diff = np.abs(got - want)
+        check(bool((diff <= SCORE_ATOL + SCORE_RTOL * np.abs(want)).all()),
+              f"{label}: MAP float32 differs from CPU float64: max {diff.max()}")
+        print(f"[sample] {label}: MAP float32 vs CPU float64 on {len(want):,}: max |diff| "
+              f"{diff.max():.3e} (tolerance {SCORE_ATOL} + {SCORE_RTOL}*|score|)")
+
+    def reductions_held(label, ms, raw):
+        d_mean = np.abs(ms[:, 0] - raw.mean(-1))
+        d_std = np.abs(ms[:, 1] - raw.std(-1, ddof=1))
+        check(bool((d_mean <= 1e-3 + 1e-5 * np.abs(raw.mean(-1))).all()
+                   and (d_std <= 1e-3 + 1e-4 * raw.std(-1)).all()),
+              f"{label}: mean_std differs from the raw draws' statistics")
+        print(f"[sample] {label}: reduce='mean_std' == mean, std of reduce='none' "
+              f"(max |diff| {d_mean.max():.3e}, {d_std.max():.3e})")
+
+    # (C) posterior-sampled serving
+    n_r, n_s, n_v = sampled_check
+    kw = dict(mode="sample", key=key, mc_samples=mc)
+    score_ms = lambda: server.score(seqs, reduce="mean_std", **kw)  # noqa: E731
+    ms = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='mean_std'", len(seqs),
+             "sequences", score_ms)
+    raw = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='none'", len(seqs), "sequences",
+              lambda: server.score(seqs, **kw))
+    check(ms.shape == (len(seqs), 2) and raw.shape == (len(seqs), mc), "(C) shapes")
+    reductions_held("(C)", ms, raw)
+    held(f"(C) {n_r} reads", dev64.score(seqs[:n_r], **kw), cpu64.score(seqs[:n_r], **kw),
+         n_r * mc)
+
+    # (D) the deep-mutational-scan grid
+    pos, alts = snv_grid(wt)
+    snv_ms = lambda: server.delta_scores_snv(wt, pos, alts, reduce="mean_std", **kw)  # noqa: E731
+    d_map = run(f"(D) {len(pos):,} SNVs, MAP", len(pos), "SNVs",
+                lambda: server.delta_scores_snv(wt, pos, alts))
+    d_ms = run(f"(D) {len(pos):,} SNVs, MC-{mc}, reduce='mean_std'", len(pos), "SNVs", snv_ms)
+    check(d_map.shape == (len(pos),) and d_ms.shape == (len(pos), 2), "(D) shapes")
+    k = map_check[0]
+    map_held(f"(D) first {k:,} SNVs", d_map[:k],
+             cpu64.delta_scores_snv(wt, pos[:k], alts[:k]))
+    held(f"(D) {n_s} SNVs", dev64.delta_scores_snv(wt, pos[:n_s], alts[:n_s], **kw),
+         cpu64.delta_scores_snv(wt, pos[:n_s], alts[:n_s], **kw), n_s * mc)
+    raw_snv = server.delta_scores_snv(wt, pos[:n_s], alts[:n_s], **kw)
+    reductions_held(f"(D) {n_s} SNVs", d_ms[:n_s], raw_snv)
+
+    # (E) arbitrary variants
+    variants = make_variants(wt, n_variants)
+    e_map = run(f"(E) {len(variants):,} variants, MAP", len(variants), "variants",
+                lambda: server.delta_scores_variants(wt, variants))
+    e_ms = run(f"(E) {len(variants):,} variants, MC-{mc}, reduce='mean_std'", len(variants),
+               "variants", lambda: server.delta_scores_variants(wt, variants,
+                                                                reduce="mean_std", **kw))
+    check(e_map.shape == (len(variants),) and e_ms.shape == (len(variants), 2), "(E) shapes")
+    k = map_check[1]
+    map_held(f"(E) first {k:,} variants", e_map[:k],
+             cpu64.delta_scores_variants(wt, variants[:k]))
+    held(f"(E) {n_v} variants", dev64.delta_scores_variants(wt, variants[:n_v], **kw),
+         cpu64.delta_scores_variants(wt, variants[:n_v], **kw), n_v * mc)
+    del dev64, cpu64
+
+    # (F) the score CLI on the YSD1 model
+    def cli(argv, rows, header):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = score_cli.main(argv + ["--torch-device", torch.device(device).type])
+        sec = time.perf_counter() - t0
+        lines = buf.getvalue().splitlines()
+        vals = np.array([[float(x) for x in l.split("\t")[1:]] for l in lines[1:]])
+        check(rc == 0 and lines[0] == header and len(lines) == rows + 1
+              and np.isfinite(vals).all(), f"score_cli {argv[:1]} output: {lines[:2]}")
+        print(f"[cli] score_cli {argv[0]} {' '.join(a for a in argv if a.startswith('--'))}"
+              f": {rows:,} rows in {sec:.4f} s (model load included) [{card}]")
+
+    cli_wt = "".join(np.random.default_rng(SEED).choice(list("ACGT"), cli_wt_bp))
+    cli(["snv", ysd1_dir, cli_wt, "--all", "--sample", "--std"], 3 * cli_wt_bp,
+        "variant\tBEAR\tmc_std")
+    cli_vars = make_variants(cli_wt, 100, seed=1)
+    cli(["variants", ysd1_dir, cli_wt, *cli_vars, "--device"], len(cli_vars),
+        "target\tBEAR")
+    cli(["seqs", ysd1_dir, *seqs[:CLI_READS], "--map"], min(CLI_READS, len(seqs)),
+        "target\tAR\tBEAR")
+
+    if profile:
+        for label, fn in ((f"(C) serve {len(seqs)} reads MC-{mc} mean_std", score_ms),
+                          (f"(D) {len(pos):,} SNVs MC-{mc} mean_std", snv_ms)):
+            draw_ms, call_ms, bound_ms, bound_by = sampler_share(server, fn)
+            print(f"[sample] {label}: keyed draws {draw_ms:.3f} ms of the call's "
+                  f"{call_ms:.3f} ms on the device = {100 * draw_ms / call_ms:.1f}%; the "
+                  f"draws' bound_ms {bound_ms:.6f} ({bound_by}) [{card}]")
+            device_breakdown(label, fn, card, top=10)
+            host_breakdown(label, fn, top=10)
+
+
 def main() -> int:
     import torch
 
@@ -773,17 +1046,29 @@ def main() -> int:
     print(f"[serve] float32 card vs float64 CPU: max |diff| {diff.max():.3e} "
           f"(tolerance {SCORE_ATOL} + {SCORE_RTOL}*|score|); scores "
           f"{ref.min():.3f}..{ref.max():.3f}")
+    train_table = tables[0]  # the main path's counts, for phase 4d
     del server, tables, ar, ar64
     torch.cuda.empty_cache()
 
     # 4b. the published YSD1 protocol through the training CLI;
-    # 4c. count -> on-device handoff -> CNN training -> evaluation -> serve
+    # 4c. count -> on-device handoff -> CNN training -> evaluation -> serve;
+    # 4d. sampled serving and variant scoring with 4c's model, on the main
+    # path's table, and the score CLI on 4b's model
     with tempfile.TemporaryDirectory() as tmp:
         ysd1, ysd1_kw = ysd1_phase(os.path.join(tmp, "ysd1"), card)
         launches_4c, codes_d, counts_d, cnn, p0, n_rows = lag13_train_phase(
             chunks, reads, groups, os.path.join(tmp, "cnn"), card)
-    check(launches_4c == len(chunks),
-          f"4c launched count_chunk {launches_4c} times for {len(chunks)} chunks")
+        check(launches_4c == len(chunks),
+              f"4c launched count_chunk {launches_4c} times for {len(chunks)} chunks")
+        torch.cuda.empty_cache()
+        window_update.launches = 0
+        count_chunk_update.launches = 0
+        sampled_phase(train_table, LAG, os.path.join(tmp, "cnn"), os.path.join(tmp, "ysd1"),
+                      seqs, genome_prefix(DMS_BP), card)
+        print(f"[sample] kernel launches in phase 4d: count_chunk "
+              f"{count_chunk_update.launches}, window_hist {window_update.launches} "
+              "(the sampler and the Δ window math are PyTorch ops)")
+    del train_table
     torch.cuda.empty_cache()
 
     # Where training's time goes.

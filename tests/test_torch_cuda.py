@@ -18,6 +18,7 @@ from bear_tpu_torch.counting.count_chunk import count_chunk_update
 from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models.ar_funcs import LinearAR
+from bear_tpu_torch.ops import keyed_random as kr
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +104,42 @@ def test_server_on_card_equals_cpu(cuda):
     got = BearServer(tc.tables[6][0], 6, h=0.1, ar_apply=ar.to(cuda),
                      dtype=torch.float64).score(seqs)
     np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_philox_words_on_card_equal_cpu(cuda):
+    keys = kr.fold_in(kr.key(12), torch.arange(100_000))
+    streams = [(kr.NORMAL, 16), (kr.EXPONENTIAL, 15), (kr.BOOST, 5)]
+    cpu = kr.stream_words(keys, 0, streams)
+    gpu = kr.stream_words(keys.to(cuda), 0, streams)
+    for a, b in zip(cpu, gpu):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(kr.fold_in(kr.key(12), torch.arange(100_000, device=cuda)).cpu(), keys)
+
+
+def test_sampled_float64_on_card_equals_cpu(cuda):
+    # The integer streams are identical; float64 transcendentals may differ
+    # in the last bits, which can flip a Marsaglia-Tsang accept test that
+    # lands on its boundary (expected in ~0 of these values).
+    rng = np.random.default_rng(3)
+    reads = rng.integers(0, 4, size=(300, 60)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[5], device="cpu")
+    for c in chip_smoke.read_chunks(reads, np.zeros(300, np.int32), rows=128):
+        tc.add_chunk(c)
+    def ar():  # nn.Module.to moves in place: one module per device
+        return LinearAR(5, 4, dtype=torch.float64, device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+
+    kw = dict(h=0.2, dtype=torch.float64)
+    cpu = BearServer(tc.tables[5][0], 5, ar_apply=ar(), device="cpu", **kw)
+    gpu = BearServer(tc.tables[5][0], 5, ar_apply=ar().to(cuda), **kw)
+    seqs = chip_smoke.decode_reads(reads[:32])
+    wt = seqs[0]
+    calls = [
+        lambda s: s.score(seqs, mode="sample", key=kr.key(1), mc_samples=7),
+        lambda s: s.delta_scores_snv(wt, list(range(60)), ["A"] * 60, mode="sample",
+                                     key=kr.key(2), mc_samples=7),
+        lambda s: s.delta_scores_variants(wt, ["0AC", wt[3:6] + "3", wt[10] + "10GG"],
+                                          mode="sample", key=kr.key(3), mc_samples=7),
+    ]
+    for call in calls:
+        np.testing.assert_allclose(call(gpu), call(cpu), rtol=1e-9, atol=1e-9)

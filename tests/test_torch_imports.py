@@ -40,6 +40,8 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.counting.fastx", "bear_tpu_torch.utils.checkpoint",
             "bear_tpu_torch.data.loaders", "bear_tpu_torch.data.likelihood",
             "bear_tpu_torch.models.train_bear_net", "bear_tpu_torch.utils.config",
+            "bear_tpu_torch.ops.keyed_random", "bear_tpu_torch.ops.loggamma",
+            "bear_tpu_torch.inference.score_cli",
             "bear_tpu_torch.utils.cli_common", "bear_tpu_torch.utils.metrics"} <= set(mods)
     code = (
         "import importlib, sys\n"

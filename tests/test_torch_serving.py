@@ -198,8 +198,8 @@ def test_server_rejects_bad_arguments():
         BearServer(table, 2, van=1.0, ar_apply=lambda oh: oh, h=1.0, device="cpu")
     with pytest.raises(ValueError, match="table rows"):
         BearServer(table, 3, van=1.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BearServer(table, 2, van=1.0, device="cpu").score(["ACGT"], mode="sample")
+    with pytest.raises(ValueError, match="unknown mode"):
+        BearServer(table, 2, van=1.0, device="cpu").score(["ACGT"], mode="nope")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             BearServer(table, 2, van=1.0)

@@ -125,3 +125,60 @@ def test_chip_smoke_train_phase_rehearsal(tmp_path):
     assert codes.shape == (n_rows, LAG) and counts.shape == (n_rows, 2, 5)
     assert len(p0) == 9 and ar.name == "cnn"
     assert (tmp_path / "cnn" / "results.pickle").exists()
+
+
+def test_chip_smoke_sampled_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4d on the CPU at a small size: sampled serving,
+    # the SNV scan, arbitrary variants and the score CLI, with 4c's model
+    # and a YSD1 model; its own checks raise on a fault.
+    from bear_tpu_torch.models import train_bear_net
+
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    chip_smoke.lag13_train_phase(
+        chunks, reads, groups, str(tmp_path / "cnn"), "CPU", device="cpu", lag=LAG,
+        cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
+        batch=1024, epochs=1, n_score=50)
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chunks:
+        counter.add_chunk(c)
+    cfg = chip_smoke.ysd1_config(str(tmp_path / "ysd1") + "*")
+    cfg["train"]["epochs"] = "3"
+    cfg["test"].update(test="False", train_test="False")
+    train_bear_net.main(cfg, device="cpu")
+    seqs = chip_smoke.decode_reads(reads[np.flatnonzero(groups == 1)[:40]])
+    wt = chip_smoke.genome_prefix(300, genome_mb=0.05, seed=4)
+    capsys.readouterr()
+    chip_smoke.sampled_phase(counter.tables[LAG][0], LAG, str(tmp_path / "cnn"),
+                             str(tmp_path / "ysd1"), seqs, wt, "CPU", device="cpu", mc=5,
+                             n_variants=100, sampled_check=(8, 30, 20), map_check=(100, 50),
+                             cli_wt_bp=40, profile=False)
+    out = capsys.readouterr().out
+    for part in ("(C) 40 reads", "(D) 900 SNVs", "(E) 100 variants", "reduce='mean_std' =="):
+        assert part in out
+    assert out.count("[cli] score_cli") == 3
+
+
+def test_chip_smoke_variant_generators():
+    wt = chip_smoke.genome_prefix(1000, genome_mb=0.05, seed=4)
+    assert set(wt) <= set("ACGT") and len(wt) == 1000
+    pos, alts = chip_smoke.snv_grid(wt)
+    assert len(pos) == 3000 and all(wt[p] != a for p, a in zip(pos, alts))
+    variants = chip_smoke.make_variants(wt, 2000)
+    assert variants == chip_smoke.make_variants(wt, 2000)
+    from bear_tpu_torch.inference.scoring import parse_var
+
+    kinds = np.zeros(4)
+    for v in variants:
+        ref, alt, p = parse_var(v)
+        assert wt[p : p + len(ref)] == ref and p + len(ref) <= len(wt)
+        if len(ref) == len(alt) == 1:
+            kinds[0] += ref != alt
+        elif len(ref) == len(alt):
+            kinds[1] += 2 <= len(ref) <= 3
+        elif not ref:
+            kinds[2] += 1 <= len(alt) <= 5
+        else:
+            kinds[3] += not alt and 1 <= len(ref) <= 5
+    assert kinds.sum() == 2000
+    np.testing.assert_allclose(kinds / 2000, [0.4, 0.2, 0.2, 0.2], atol=0.03)
