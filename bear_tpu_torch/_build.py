@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels from ``csrc/`` at first use.
+"""Build the port's native code from ``csrc/`` at first use.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
 by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
@@ -7,6 +7,11 @@ by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
 stale library. Sources are compiled in parallel, one ``nvcc``
 process each. ``ptxas -v`` output (registers, shared memory, spills) is kept
 beside each library as ``.log``.
+
+The host route (:func:`build_host`) compiles ``csrc/<name>.cpp`` with
+``g++`` the same way, linking zlib where it links (``-DBEAR_HAS_ZLIB
+-lz``) and without it otherwise. A failed build raises with the
+compiler's output: there is no silent fallback.
 """
 
 from __future__ import annotations
@@ -82,3 +87,39 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """Load the library of ``csrc/<name>.cu``, building it if it has none."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+ZLIB_FLAGS = ("-DBEAR_HAS_ZLIB", "-lz")
+
+
+def host_library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cpp`` lives."""
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(HOST_FLAGS + ZLIB_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` with g++ unless its library is current;
+    with zlib where it links, else without. Raises with both attempts'
+    compiler output when neither builds."""
+    so = host_library_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        raise RuntimeError(f"no C++ compiler (g++) on PATH to build csrc/{name}.cpp")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    logs = []
+    for extra in (ZLIB_FLAGS, ()):
+        cmd = [gxx, *HOST_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp"), *extra]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        if proc.returncode == 0:
+            so.with_suffix(".log").write_text(logs[-1])
+            os.replace(tmp, so)
+            return so
+    tmp.unlink(missing_ok=True)
+    raise RuntimeError(f"g++ failed for {name}.cpp:\n" + "\n".join(logs))

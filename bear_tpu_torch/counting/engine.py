@@ -12,6 +12,15 @@ bear_tpu/counting/engine.py).
           overflow, and on output access
     handoff: ``to_device_dataset`` gives training codes and counts straight
              from the resident table (``to_dataset`` from the host tables)
+    output: ``nonzero_rows``, ``row_counts``, ``validate`` and
+            ``export_tsv`` read the device table while it holds every count
+            (only the nonzero rows cross to the host), the host
+            accumulators after a flush; ``write_tsv_shards`` writes
+            bear_tpu's TSV shards byte for byte; ``save_state`` /
+            ``load_state`` keep bear_tpu's ``.npz`` layout
+
+``chunks_from_packed`` packs the native parser's whole-file buffers into
+ReadChunks (the summarize path); ``chunk_reads`` batches streamed reads.
 
 The table layout and the chunk's index math live in
 :mod:`bear_tpu_torch.counting.count_chunk`. Counts never clamp: the device
@@ -20,6 +29,8 @@ accumulates int32 per flush window and the host accumulator is int64.
 
 from __future__ import annotations
 
+import glob
+import os
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -33,6 +44,7 @@ from bear_tpu_torch.counting.count_chunk import (
     pad_offset,
     table_rows,
 )
+from bear_tpu_torch.counting.native import load as load_native
 from bear_tpu_torch.data.loaders import CountDataset
 from bear_tpu_torch.ops import alphabets as _alpha
 from bear_tpu_torch.utils.device import resolve_device
@@ -118,27 +130,27 @@ def context_to_row(context: str, lag: int, alphabet: str = "dna") -> int:
     return pad_offset(lag, n_pad, A) + code
 
 
-def rows_to_contexts(rows, lag: int, alphabet: str = "dna") -> np.ndarray:
-    """Vectorized inverse of context_to_row: row indices -> context
-    strings."""
+def rows_to_context_bytes(rows, lag: int, alphabet: str = "dna") -> np.ndarray:
+    """Vectorized inverse of context_to_row: row indices -> contexts as an
+    ``S{lag}`` byte-string array."""
     letters_s = "".join(_alpha.input_letters(alphabet)[:-1])
     A = len(letters_s)
     rows = np.asarray(rows, dtype=np.int64)
-    bounds = np.array(
-        [(A**k - 1) // (A - 1) for k in range(lag + 2)], dtype=np.int64
-    )
+    bounds = np.array([(A**k - 1) // (A - 1) for k in range(lag + 2)], dtype=np.int64)
     m = np.searchsorted(bounds, rows, side="right") - 1  # suffix length
-    code = rows - (A**m - 1) // (A - 1)
+    rem = rows - bounds[m]
     letters = np.frombuffer(letters_s.encode(), dtype=np.uint8)
-    chars = np.full((len(rows), lag), ord("["), dtype=np.uint8)
-    rem = code.copy()
+    chars = np.empty((len(rows), lag), dtype=np.uint8)
     for i in range(lag):  # digit i is the (i+1)-th letter from the right
-        pos = lag - 1 - i
-        digit = (rem % A).astype(np.int64)
+        chars[:, lag - 1 - i] = np.where(i < m, letters[rem % A], ord("["))
         rem //= A
-        valid = i < m
-        chars[valid, pos] = letters[digit[valid]]
-    return np.char.decode(chars.view(f"S{lag}").reshape(-1), "ascii")
+    return chars.view(f"S{lag}").reshape(-1)
+
+
+def rows_to_contexts(rows, lag: int, alphabet: str = "dna") -> np.ndarray:
+    """Vectorized inverse of context_to_row: row indices -> context
+    strings."""
+    return np.char.decode(rows_to_context_bytes(rows, lag, alphabet), "ascii")
 
 
 @dataclass
@@ -300,6 +312,15 @@ class TransitionCounter:
         self._since_flush += new_transitions
 
     @property
+    def max_lag(self) -> int:
+        return max(self.lags)
+
+    @property
+    def table_size(self) -> int:
+        """Entries of the flat int32 device table, all lags and groups."""
+        return self._total_size
+
+    @property
     def tables(self) -> Dict[int, np.ndarray]:
         """Host int64 tables {lag: [n_groups, rows(lag), A+1]} (flushes
         first)."""
@@ -311,6 +332,18 @@ class TransitionCounter:
             for l in self.lags
         }
 
+    def _resident(self) -> bool:
+        """Whether the device table alone holds every count: nothing has
+        been flushed to the host accumulators yet."""
+        return self._dev is not None and not self._host_dirty
+
+    def _device_table(self, lag: int) -> torch.Tensor:
+        """The device table of one lag, a [n_groups, rows(lag), A+1] view."""
+        n_rows = table_rows(lag, self.A)
+        off = self._offsets[lag]
+        return self._dev[off : off + self.n_groups * n_rows * self.A1].view(
+            self.n_groups, n_rows, self.A1)
+
     def merge_from(self, other: "TransitionCounter"):
         """Merge partial counts (cross-process reduction point)."""
         self.flush()
@@ -319,11 +352,50 @@ class TransitionCounter:
         for l in self.lags:
             self._host[l] += other._host[l]
 
+    def save_state(self, path: str):
+        """Checkpoint the accumulated counts (flushes first) as bear_tpu's
+        ``.npz`` layout, so either package loads the other's file."""
+        self.flush()
+        if not path.endswith(".npz"):
+            path += ".npz"  # np.savez appends it; keep load_state symmetric
+        np.savez_compressed(
+            path,
+            lags=np.array(self.lags),
+            n_groups=np.array(self.n_groups),
+            reverse=np.array(self.reverse),
+            alphabet=np.array(self.alphabet),
+            **{f"table_{l}": self._host[l] for l in self.lags},
+        )
+
+    @classmethod
+    def load_state(cls, path: str, device="cuda") -> "TransitionCounter":
+        """A counter holding a :meth:`save_state` file's counts (on the
+        host), counting further on ``device``."""
+        if not path.endswith(".npz") and not os.path.exists(path):
+            path += ".npz"
+        with np.load(path) as data:
+            tc = cls(
+                lags=[int(l) for l in data["lags"]],
+                n_groups=int(data["n_groups"]),
+                reverse=bool(data["reverse"]),
+                alphabet=str(data["alphabet"]) if "alphabet" in data else "dna",
+                device=device,
+            )
+            for l in tc.lags:
+                tc._host[l] = data[f"table_{l}"].astype(np.int64)
+        tc._host_dirty = True
+        return tc
+
     def validate(self, expected_transitions: Optional[int] = None):
         """Count-conservation invariant: every table must hold exactly the
         same grand total (= transitions counted, x2 if reverse). Returns the
-        per-lag totals."""
-        totals = {l: int(t.sum()) for l, t in self.tables.items()}
+        per-lag totals, summed on the device while its table holds every
+        count, else on the host accumulators."""
+        if self._resident():
+            totals = {l: int(self._device_table(l).sum(dtype=torch.int64))
+                      for l in self.lags}
+        else:
+            totals = {l: int(t.sum()) for l, t in self.tables.items()}
         values = set(totals.values())
         if len(values) > 1:
             raise AssertionError(f"count tables disagree on total transitions: {totals}")
@@ -337,7 +409,23 @@ class TransitionCounter:
         return totals
 
     def nonzero_rows(self, lag: int) -> np.ndarray:
+        """Ascending int64 table rows with any count in any group. While the
+        device table holds every count, the row totals are taken there and
+        only the nonzero rows cross to the host (a lag-13 table is GBs)."""
+        if self._resident():
+            totals = self._device_table(lag).sum(dim=(0, 2))
+            return torch.nonzero(totals).squeeze(1).cpu().numpy().astype(np.int64)
         return np.nonzero(self.tables[lag].sum(axis=(0, 2)))[0]
+
+    def row_counts(self, lag: int, rows: np.ndarray) -> np.ndarray:
+        """int64 counts [len(rows), n_groups, A+1] of the given table rows:
+        gathered on the device while its table holds every count, else
+        from the host accumulators."""
+        if self._resident():
+            idx = torch.as_tensor(np.asarray(rows, np.int64), device=self._dev.device)
+            picked = self._device_table(lag)[:, idx, :].permute(1, 0, 2)
+            return picked.cpu().numpy().astype(np.int64)
+        return self.tables[lag][:, rows, :].transpose(1, 0, 2)
 
     def _check_alphabet(self, alphabet: Optional[str]) -> str:
         alphabet = alphabet or self.alphabet
@@ -355,7 +443,7 @@ class TransitionCounter:
         alphabet = self._check_alphabet(alphabet)
         rows = self.nonzero_rows(lag)
         kmers = rows_to_contexts(rows, lag, alphabet)
-        counts = self.tables[lag][:, rows, :].transpose(1, 0, 2).astype(np.float64)
+        counts = self.row_counts(lag, rows).astype(np.float64)
         codes = (_alpha.encode_kmers(kmers, alphabet) if len(kmers)
                  else np.zeros((0, lag), np.int8))
         return CountDataset(kmers=kmers, codes=codes, counts=counts, alphabet=alphabet)
@@ -373,22 +461,81 @@ class TransitionCounter:
         [N, n_groups, A+1] in ``dtype``), tensors on the counter's device.
         Raises if a count exceeds ``dtype``'s exact integer range."""
         self._check_alphabet(alphabet)
-        G, A1 = self.n_groups, self.A1
-        n_rows = table_rows(lag, self.A)
-        if self._dev is not None and not self._host_dirty:
-            off = self._offsets[lag]
-            table = self._dev[off : off + G * n_rows * A1].view(G, n_rows, A1)
+        if self._resident():
+            table = self._device_table(lag)
             rows = torch.nonzero(table.sum(dim=(0, 2))).squeeze(1)
             counts = table[:, rows, :].permute(1, 0, 2).contiguous()
             _check_exact(int(counts.max()) if counts.numel() else 0, dtype)
             return decode_rows(rows, lag, self.A), counts.to(dtype)
         rows_np = self.nonzero_rows(lag)
-        counts_np = self.tables[lag][:, rows_np, :].transpose(1, 0, 2)
+        counts_np = self.row_counts(lag, rows_np)
         _check_exact(int(counts_np.max()) if counts_np.size else 0, dtype)
         dev = resolve_device(self.device)
         rows = torch.from_numpy(rows_np).to(dev)
         return (decode_rows(rows, lag, self.A),
                 torch.from_numpy(counts_np).to(device=dev, dtype=dtype))
+
+    def export_tsv(self, out_prefix: str, lag: int, n_bin_bits: int = 0, seed: int = 0,
+                   shuffle: bool = False, rows: Optional[np.ndarray] = None,
+                   native: bool = True):
+        """Write reference-format TSVs ``{out_prefix}_lag_{lag}_file_{b}.tsv``
+        (see :func:`write_tsv_shards`). Row totals, nonzero rows and their
+        counts come from the device while its table holds every count."""
+        if rows is None:
+            rows = self.nonzero_rows(lag)
+        return write_tsv_shards(out_prefix, lag, rows, self.row_counts(lag, rows),
+                                n_bin_bits, seed=seed, shuffle=shuffle,
+                                alphabet=self.alphabet, native=native)
+
+
+def write_tsv_shards(out_prefix: str, lag: int, rows: np.ndarray,
+                     per_row_counts: np.ndarray, n_bin_bits: int = 0, seed: int = 0,
+                     shuffle: bool = False, alphabet: str = "dna",
+                     native: bool = True) -> List[str]:
+    """Write reference-format count TSV shards for the given table rows
+    (bear_tpu's ``write_tsv_shards``, byte for byte).
+
+    rows: [n] table rows; per_row_counts: [n, n_groups, A+1] aligned with
+    them. Lines are ``kmer\\t[[g0 counts],[g1 counts],...]``. Rows go
+    uniformly at random into 2^n_bin_bits files and, with ``shuffle``, in
+    random order within each, both from ``np.random.default_rng(seed)``.
+    Shards numbered beyond this run's count from an earlier run with the
+    same prefix are removed. ``native`` formats with the C++ formatter
+    (one call per shard), else with the per-row Python formatter."""
+    rng = np.random.default_rng(seed)
+    n_bins = 2**n_bin_bits
+    if shuffle:
+        perm = rng.permutation(len(rows))
+        rows, per_row_counts = rows[perm], per_row_counts[perm]
+    bins = (rng.integers(0, n_bins, size=len(rows)) if n_bins > 1
+            else np.zeros(len(rows), int))
+    paths = [f"{out_prefix}_lag_{lag}_file_{b}.tsv" for b in range(n_bins)]
+    # Stale higher-numbered shards would be merged in by glob consumers
+    # (check_summarize, training on a file prefix).
+    for stale in glob.glob(f"{out_prefix}_lag_{lag}_file_*.tsv"):
+        suffix = stale.rsplit("_file_", 1)[1][:-4]
+        if suffix.isdigit() and int(suffix) >= n_bins:
+            os.remove(stale)
+    kmers_b = rows_to_context_bytes(rows, lag, alphabet)
+    # One shard at a time (2^12+ shards would exceed the open-file limit);
+    # a stable argsort gives each shard's rows, in order, as one slice.
+    order = np.argsort(bins, kind="stable")
+    bounds = np.searchsorted(bins[order], np.arange(n_bins + 1))
+    lib = load_native() if native else None
+    kmers = None if native else np.char.decode(kmers_b, "ascii")
+    for b, p in enumerate(paths):
+        sel = order[bounds[b] : bounds[b + 1]]
+        if lib is not None:
+            with open(p, "wb") as fh:
+                fh.write(lib.format_tsv(kmers_b[sel], per_row_counts[sel]))
+            continue
+        with open(p, "w") as fh:
+            for i in sel:
+                mat = "[[" + "],[".join(
+                    ",".join(str(int(c)) for c in per_row_counts[i, g])
+                    for g in range(per_row_counts.shape[1])) + "]]"
+                fh.write(f"{kmers[i]}\t{mat}\n")
+    return paths
 
 
 class _Staging:
@@ -612,3 +759,167 @@ def chunk_reads(
     last = emit()
     if last is not None:
         yield last
+
+
+def chunks_from_packed(
+    codes_flat: np.ndarray,
+    offsets: np.ndarray,
+    groups,
+    max_lag: int,
+    batch_size: int = 1024,
+    segment_len: int = 1 << 16,
+    reverse: bool = False,
+    max_chunk_elems: int = 1 << 25,
+    ambig_code: int | None = None,
+    native: bool = True,
+) -> Iterable[ReadChunk]:
+    """Padded ReadChunks straight from a packed read buffer (bear_tpu's
+    ``chunks_from_packed``, chunk for chunk): the native parser gives a
+    whole file as (codes_flat, offsets), and each chunk's rows are filled
+    with one memcpy or reverse-complement copy per row
+    (``bear_fill_chunks``; ``native=False``: a NumPy gather, the same
+    bytes). No per-read Python loop.
+
+    groups: scalar or [n_reads] per-read group ids.
+    Long reads split into ``segment_len`` segments with a max_lag overlap
+    (the skip rule of :func:`chunk_reads`). reverse=True also packs each
+    read's reverse complement, after all forward rows. Chunks are capped at
+    ``max_chunk_elems`` padded elements, so long segments shrink the row
+    count instead of widening the chunk.
+
+    ambig_code: when set (parse with ambig=True -> code 4), reads split at
+    ambiguous bases into pieces: the first keeps its '['-prefix
+    transitions, the last its '$' transition, and every transition whose
+    window crosses the ambiguous base is dropped (:func:`split_ambiguous`'s
+    semantics). Pieces reference the original buffer.
+    """
+    if segment_len < max_lag:
+        raise ValueError(
+            f"segment_len ({segment_len}) must be >= max_lag ({max_lag}): "
+            "continuation segments carry a max_lag context overlap"
+        )
+    codes_flat = np.ascontiguousarray(codes_flat, dtype=np.int8)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lengths_all = np.diff(offsets)
+    n_reads = len(lengths_all)
+    if n_reads == 0:
+        return
+    groups = np.broadcast_to(np.asarray(groups, dtype=np.int32), (n_reads,))
+    read_starts = offsets[:-1]
+    read_fresh = read_stop = None  # None = all True
+    if ambig_code is not None:
+        amb = np.flatnonzero(codes_flat == ambig_code)
+        if len(amb):
+            # Expand reads into N-free pieces. Positions amb lie strictly
+            # inside their read, so a 'right' search is exact even next to
+            # empty reads.
+            cut_read = np.searchsorted(offsets, amb, side="right") - 1
+            n_cuts = np.bincount(cut_read, minlength=n_reads)
+            cut_base = np.concatenate([[0], np.cumsum(n_cuts)[:-1]])
+            per_read = n_cuts + 1
+            piece_read = np.repeat(np.arange(n_reads), per_read)
+            piece_ord = np.arange(len(piece_read)) - np.repeat(
+                np.concatenate([[0], np.cumsum(per_read)[:-1]]), per_read)
+            cut_at = cut_base[piece_read] + piece_ord
+            p_starts = np.where(piece_ord == 0, offsets[piece_read],
+                                amb[np.clip(cut_at - 1, 0, len(amb) - 1)] + 1)
+            last = piece_ord == n_cuts[piece_read]
+            p_ends = np.where(last, offsets[piece_read + 1],
+                              amb[np.clip(cut_at, 0, len(amb) - 1)])
+            fresh_p = piece_ord == 0
+            # Empty pieces stay only for reads that were empty to begin with
+            # (their '[' -> '$' transition); pieces emptied by a split
+            # count nothing.
+            keep = (p_ends > p_starts) | (fresh_p & last & (n_cuts[piece_read] == 0))
+            read_starts = p_starts[keep]
+            lengths_all = (p_ends - p_starts)[keep]
+            groups = groups[piece_read[keep]]
+            read_fresh = fresh_p[keep]
+            read_stop = last[keep]
+            n_reads = len(read_starts)
+            if n_reads == 0:
+                return
+    lib = load_native() if native else None
+
+    # Expand reads into (start, seg_len, skip, stopped, group) segment rows.
+    n_segs = np.maximum(1, -(-lengths_all // segment_len)).astype(np.int64)
+    seg_read = np.repeat(np.arange(n_reads), n_segs)
+    seg_ord = np.arange(len(seg_read)) - np.repeat(
+        np.concatenate([[0], np.cumsum(n_segs)[:-1]]), n_segs)
+    seg_begin = seg_ord * segment_len  # position within the read
+    read_len = lengths_all[seg_read]
+    seg_end = np.minimum(seg_begin + segment_len, read_len)
+    first = seg_ord == 0
+    start_in_read = np.where(first, seg_begin, seg_begin - max_lag)
+    seg_lengths = seg_end - start_in_read
+    skip = np.where(first, 0, max_lag).astype(np.int32)
+    at_end = seg_end == read_len
+    seg_groups = groups[seg_read]
+    # Boundary flags per strand: under reversal fresh and stop swap sides;
+    # continuation segments are fresh (skip = max_lag already drops their
+    # j < lag positions).
+    if read_fresh is None:
+        flags = {False: (at_end, None), True: (at_end, None)}
+    else:
+        flags = {
+            False: (at_end & read_stop[seg_read], read_fresh[seg_read] | ~first),
+            True: (at_end & read_fresh[seg_read], read_stop[seg_read] | ~first),
+        }
+
+    order = np.arange(len(seg_read))
+    for rc in [False] + ([True] if reverse else []):
+        s = 0
+        while s < len(order):
+            look = order[s : s + batch_size]
+            # Long segments take fewer rows per chunk. Shrinking B can drop
+            # the wide rows that forced the shrink, so the width is
+            # recomputed over the kept prefix until it is stable.
+            B = len(look)
+            while True:
+                L = int(seg_lengths[look[:B]].max())
+                L = -(-L // PAD_LEN_ALIGN) * PAD_LEN_ALIGN
+                B_new = max(1, min(len(look), max_chunk_elems // max(L, 1)))
+                if B_new >= B:
+                    break
+                B = B_new
+            sel = look[:B]
+            s += len(sel)
+            # Trailing partial chunks keep the budgeted (B, L) shape.
+            B = max(len(sel), min(batch_size, max(1, max_chunk_elems // max(L, 1))))
+            out = np.zeros((B, L), dtype=np.int8)
+            lens = np.zeros(B, dtype=np.int32)
+            lens[: len(sel)] = seg_lengths[sel]
+            # The RC read has the same length and segmentation; its
+            # position p reads the complement of forward position
+            # read_len - 1 - p, so the copy starts at the range's last
+            # forward base and walks backward.
+            if rc:
+                starts_abs = (read_starts[seg_read[sel]] + read_len[sel] - 1
+                              - start_in_read[sel])
+            else:
+                starts_abs = read_starts[seg_read[sel]] + start_in_read[sel]
+            if lib is not None:
+                lib.fill_chunks(codes_flat, starts_abs, seg_lengths[sel],
+                                np.full(len(sel), rc, np.uint8), out)
+            else:
+                j = np.arange(L)[None, :]
+                src = starts_abs[:, None] + (-1 if rc else 1) * j
+                valid = j < seg_lengths[sel][:, None]
+                vals = codes_flat[np.clip(src, 0, len(codes_flat) - 1)]
+                if rc:
+                    vals = 3 - vals
+                out[: len(sel)] = np.where(valid, vals, 0)
+            sk = np.zeros(B, dtype=np.int32)
+            st = np.zeros(B, dtype=bool)
+            gr = np.zeros(B, dtype=np.int32)
+            stopped_v, fresh_v = flags[rc]
+            sk[: len(sel)] = skip[sel]
+            st[: len(sel)] = stopped_v[sel]
+            gr[: len(sel)] = seg_groups[sel]
+            fr = None
+            if fresh_v is not None:
+                fr = np.ones(B, dtype=bool)
+                fr[: len(sel)] = fresh_v[sel]
+                if fr.all():
+                    fr = None
+            yield ReadChunk(out, lens, sk, st, gr, fr)

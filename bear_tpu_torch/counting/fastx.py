@@ -1,7 +1,10 @@
 """Streaming FASTA/FASTQ parsing and base encoding on the host (port of
-the NumPy path of bear_tpu/counting/fastx.py).
+bear_tpu/counting/fastx.py).
 
-Reads stream directly into int8 residue codes with no intermediate files.
+Reads stream directly into int8 residue codes with no intermediate files:
+DNA through the native parser (``csrc/fastx.cpp``, :mod:`.native`), other
+alphabets and gzip files the library cannot inflate through the Python
+readers and a NumPy lookup table, which give the same codes.
 """
 
 from __future__ import annotations
@@ -123,11 +126,32 @@ def read_input_csv(path: str) -> list[tuple[str, int, str]]:
     return entries
 
 
+def _native():
+    """The native host library (built at first use; raises if it cannot
+    build)."""
+    from bear_tpu_torch.counting import native
+
+    return native.load()
+
+
+def native_reads(path: str, alphabet: str = "dna", native: bool = True) -> bool:
+    """Whether the native parser takes this file: DNA only (it encodes
+    ACGT), and gzip only when the library links zlib."""
+    return bool(native) and alphabet == "dna" and (
+        not is_gzip(path) or _native().supports_gzip)
+
+
 def stream_encoded(
     entries: Iterable[tuple[str, int, str]], alphabet: str = "dna",
-    ambig: bool = False,
+    ambig: bool = False, native: bool = True,
 ) -> Iterator[Tuple[np.ndarray, int]]:
-    """Stream (code_array, group) over all input files."""
+    """Stream (code_array, group) over all input files: through the native
+    parser where :func:`native_reads` allows it, else through the Python
+    readers and the NumPy encoder (the same codes). ``native=False`` takes
+    the Python route for every file."""
     for path, group, ftype in entries:
-        for _, seq in iter_seqs(path, ftype):
-            yield encode_seq(seq, alphabet, ambig=ambig), group
+        if native_reads(path, alphabet, native):
+            yield from _native().stream_encoded(path, ftype, group, ambig=ambig)
+        else:
+            for _, seq in iter_seqs(path, ftype):
+                yield encode_seq(seq, alphabet, ambig=ambig), group

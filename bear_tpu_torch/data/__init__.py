@@ -7,8 +7,9 @@ from bear_tpu_torch.data.loaders import (
     discover_files,
     load_dense,
     load_files,
+    load_files_cached,
     load_sparse,
 )
 
 __all__ = ["CountDataset", "bmm_likelihood", "count_kmers", "discover_files",
-           "load_dense", "load_files", "load_sparse"]
+           "load_dense", "load_files", "load_files_cached", "load_sparse"]

@@ -6,17 +6,22 @@ with one inner list per dataset group, counts ordered A,C,G,T,$.
 
 Sparse: ``kmer; [[ds,letter],...]; [vals...]`` with a header row.
 
-``load_dense`` parses with the vectorised NumPy path (fixed-offset row
-split + one ``fromstring`` pass) and falls back to a per-line parse for
-irregular rows. bear_tpu's C++ one-pass parser and ``load_files_cached``
-are not ported yet (ROADMAP.md, Queue 1).
+``load_dense`` parses with the C++ one-pass parser of the native host
+library (``csrc/fastx.cpp``; it also reads .tsv.gz where the library links
+zlib), or with ``native=False`` the vectorised NumPy path (fixed-offset row
+split + one ``fromstring`` pass); irregular rows take a per-line parse.
+``load_files_cached`` keeps each parsed shard as an ``.npz`` so a streamed
+run's later epochs skip the parse.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import os
 import warnings
+import zipfile
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -70,10 +75,22 @@ class CountDataset:
 
 
 def load_dense(file: str, alphabet: str, num_ds: int, dtype=np.float64,
-               header: bool = False) -> CountDataset:
-    """Load a dense count TSV: the vectorised NumPy parse, or a tolerant
-    per-line parse that '['-pads ragged contexts when rows are irregular."""
+               header: bool = False, native: bool = True) -> CountDataset:
+    """Load a dense count TSV: with the native one-pass parser (``native``,
+    the default; raises if the library cannot build) or the vectorised
+    NumPy parse, and a tolerant per-line parse that '['-pads ragged
+    contexts when rows are irregular. All three give the same dataset."""
     A1 = alphabets.alphabet_size(alphabet) + 1
+    if native:
+        from bear_tpu_torch.counting.native import load as load_native
+
+        parsed = load_native().parse_tsv(file, header, num_ds, A1)
+        if parsed is not None:
+            kmers_b, counts64 = parsed
+            return CountDataset(kmers=np.char.decode(kmers_b, "ascii"),
+                                codes=alphabets.encode_kmers(kmers_b, alphabet),
+                                counts=counts64.astype(dtype, copy=False),
+                                alphabet=alphabet)
     with open(file, "rb") as fh:
         data = fh.read()
     lines = np.array(data.split(b"\n"))
@@ -168,6 +185,57 @@ def load_files(files: Sequence[str], alphabet: str, num_ds: int,
     for part in parts[1:]:
         ds = ds.concat(part)
     return ds
+
+
+def load_files_cached(files: Sequence[str], alphabet: str, num_ds: int,
+                      sparse: bool = False, dtype=np.float64,
+                      cache_dir: str | None = None) -> CountDataset:
+    """``load_files`` with an on-disk cache of parsed shards (bear_tpu's
+    ``load_files_cached``: the same key and ``.npz`` contents).
+
+    A streamed run reads every shard every epoch; the first read parses and
+    writes ``{cache_dir}/{basename}.{key}.npz`` (kmers, codes, counts),
+    later ones load it. The key hashes the source's path, size and mtime
+    and the parse parameters, so a changed shard is parsed again, as is an
+    entry that fails to load. Writes go to a per-process temporary file and
+    are renamed into place. ``cache_dir=None`` is plain ``load_files``."""
+    if cache_dir is None:
+        return load_files(files, alphabet, num_ds, sparse=sparse, dtype=dtype)
+    if not files:
+        raise ValueError("no count files to load")
+    os.makedirs(cache_dir, exist_ok=True)
+    loader = load_sparse if sparse else load_dense
+    parts = []
+    for f in files:
+        st = os.stat(f)
+        tag = hashlib.sha1(
+            f"{os.path.abspath(f)}|{st.st_size}|{st.st_mtime_ns}|{alphabet}|"
+            f"{num_ds}|{np.dtype(dtype).name}|{sparse}".encode()).hexdigest()[:16]
+        cpath = os.path.join(cache_dir, f"{os.path.basename(f)}.{tag}.npz")
+        if os.path.exists(cpath):
+            try:
+                with np.load(cpath, allow_pickle=False) as z:
+                    parts.append(CountDataset(kmers=z["kmers"], codes=z["codes"],
+                                              counts=z["counts"], alphabet=alphabet))
+                continue
+            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+                pass  # a truncated or corrupt entry: parse again
+        ds = loader(f, alphabet, num_ds, dtype=dtype)
+        tmp = f"{cpath}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "wb") as fh:
+                np.savez(fh, kmers=ds.kmers, codes=ds.codes, counts=ds.counts)
+            os.replace(tmp, cpath)
+        except OSError:
+            pass  # the cache is best-effort: the parsed data is in hand
+        finally:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(tmp)
+        parts.append(ds)
+    out = parts[0]
+    for part in parts[1:]:
+        out = out.concat(part)
+    return out
 
 
 def discover_files(files_path: str, start_token: str) -> list[str]:

@@ -1,5 +1,5 @@
-"""BEAR / AR training, evaluation and h-scan (port of
-bear_tpu/models/bear_net.py, in-memory paths).
+"""BEAR / AR training, evaluation and h-scan, in memory and streamed over
+shards (port of bear_tpu/models/bear_net.py).
 
 The model is ``{"h_signed": scalar tensor, "ar": [tensors]}``; the
 checkpoint list is ``[h_signed] + ar`` (reference bear_net.py:99),
@@ -15,16 +15,25 @@ Semantics kept from bear_tpu:
   batches is dropped (``total_steps // acc_steps`` applies).
 - Adam takes eps=1e-7 (tf.keras's default, as bear_tpu's optax Adam).
 - Evaluation sums its metrics across batches in float64 whatever the
-  compute type.
+  compute type. Exact ties of the most likely transition are broken by a
+  generator seeded from (seed, global batch index), so a streamed
+  evaluation whose batches line up with the in-memory one draws the same.
+- Streaming (``train_streaming``): accumulation groups span shard
+  boundaries, a trailing partial group is dropped, the in-shard
+  permutation of epoch e at stream position p is
+  ``default_rng([seed, e, p])``, and checkpoints count optimizer applies
+  (rounded up to whole ``block_steps`` blocks), so they fall where
+  bear_tpu's do. A resume fast-forwards past the applies already done.
 
-The step loop never waits for the device: ELBOs are written into a device
-tensor and copied to the host once, after the last apply. Not ported yet:
-``mesh``, ``ref_counts``, ``checkpoint_dir`` (mid-run train state), the
-streaming variants and optimizers other than Adam and SGD (ROADMAP.md).
+The step loop never waits for the device: ELBOs stay on the device until
+the run ends (or a checkpoint is written). Not ported yet: ``mesh``,
+``ref_counts`` (and three-element shards), and optimizers other than Adam
+and SGD (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -37,6 +46,7 @@ from bear_tpu_torch.ops.distributions import (
     ml_output,
     multinomial_perm_logpmf,
 )
+from bear_tpu_torch.utils.checkpoint import load_train_state, save_train_state
 from bear_tpu_torch.utils.device import resolve_device
 
 
@@ -219,6 +229,78 @@ def _not_ported(**args):
             )
 
 
+def _start(ar_func, params_restart, opt_state_restart, seed, dtype, dev,
+           optimizer_name, learning_rate, checkpoint_dir):
+    """(params, leaves, optimizer, applies_done) of a run: the mid-run state
+    in ``checkpoint_dir`` when there is one, else ``params_restart`` /
+    ``opt_state_restart``, else a fresh init seeded by ``seed``."""
+    applies_done = 0
+    state = load_train_state(checkpoint_dir) if checkpoint_dir is not None else None
+    if state is not None:
+        params_restart = state["params"]
+        opt_state_restart = state["torch_opt_state"]
+        applies_done = int(state["applies_done"])
+    if params_restart is None:
+        init = init_params(torch.Generator().manual_seed(seed), ar_func)
+        params_restart = [init["h_signed"]] + init["ar"]
+    params = params_from_list(params_restart, device=dev, dtype=dtype)
+    leaves = [params["h_signed"]] + params["ar"]
+    for p in leaves:
+        p.requires_grad_(True)
+        # Every parameter holds a gradient from the start, so each apply
+        # updates every optimizer state (as optax does, a zero gradient
+        # included) and accumulation adds into zeros.
+        p.grad = torch.zeros_like(p)
+    optimizer = make_optimizer(optimizer_name, learning_rate, leaves)
+    if opt_state_restart is not None:
+        _load_optimizer_state(optimizer, opt_state_restart)
+    return params, leaves, optimizer, applies_done
+
+
+def _batch_loss(params, ar_func, train_ar, codes_b, counts_b, scale):
+    """-scale * the batch's summed log-likelihood (scale = num_kmers /
+    actual batch size: the unbiased ELBO, reference bear_net.py:187-191)."""
+    ar_probs = ar_func.apply_codes(codes_b, params["ar"])
+    if train_ar:
+        ll = ar_log_prob(counts_b, ar_probs)
+    else:
+        ll = bear_log_prob(counts_b, ar_probs, torch.exp(params["h_signed"]))
+    return -scale * ll.sum()
+
+
+def _apply(optimizer, losses):
+    """One optimizer apply over a group of batch losses (zero-argument
+    callables), gradients summed; returns the summed loss, on the device."""
+    optimizer.zero_grad(set_to_none=False)
+    loss_sum = 0.0
+    for loss_of in losses:
+        loss = loss_of()
+        loss.backward()
+        loss_sum = loss_sum + loss.detach()
+    optimizer.step()
+    return loss_sum
+
+
+def _save_state(checkpoint_dir, params, optimizer, applies_done):
+    save_train_state(checkpoint_dir, {
+        "params": params_to_list(params),
+        "torch_opt_state": optimizer_state(optimizer),
+        "applies_done": int(applies_done),
+    })
+
+
+def _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps):
+    """Release the parameters from autograd, report the ELBOs and wrap the
+    run's result."""
+    if writer is not None:
+        for i, e in enumerate(elbos):
+            writer.scalar("elbo", float(e), step=(start_apply + i + 1) * acc_steps)
+    for p in leaves:
+        p.requires_grad_(False)
+        p.grad = None
+    return TrainResult(params=params, losses=-elbos, opt_state=optimizer_state(optimizer))
+
+
 def train(
     codes,
     counts,
@@ -242,6 +324,7 @@ def train(
     mesh=None,
     ref_counts=None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> TrainResult:
     """Train a BEAR (empirical-Bayes h) or AR (max-likelihood) model.
 
@@ -259,23 +342,18 @@ def train(
     writer : optional object with ``scalar(tag, value, step)``, given each
         apply's ELBO after training.
     device : where training runs; "cuda" (default) raises without a card.
+    checkpoint_dir : resume from its ``train_state.pickle`` when there is
+        one (the ELBOs returned are those of the applies run now); with
+        ``checkpoint_every > 0`` also write that state every
+        ``checkpoint_every`` applies and after the last. Each apply is a
+        function of its index, so a resumed run ends on a bit-identical
+        trajectory.
     """
-    _not_ported(mesh=mesh, ref_counts=ref_counts, checkpoint_dir=checkpoint_dir)
+    _not_ported(mesh=mesh, ref_counts=ref_counts)
     dev = resolve_device(device)
-    if params_restart is None:
-        init = init_params(torch.Generator().manual_seed(seed), ar_func)
-        params_restart = [init["h_signed"]] + init["ar"]
-    params = params_from_list(params_restart, device=dev, dtype=dtype)
-    leaves = [params["h_signed"]] + params["ar"]
-    for p in leaves:
-        p.requires_grad_(True)
-        # Every parameter holds a gradient from the start, so each apply
-        # updates every optimizer state (as optax does, a zero gradient
-        # included) and accumulation adds into zeros.
-        p.grad = torch.zeros_like(p)
-    optimizer = make_optimizer(optimizer_name, learning_rate, leaves)
-    if opt_state_restart is not None:
-        _load_optimizer_state(optimizer, opt_state_restart)
+    params, leaves, optimizer, applies_done = _start(
+        ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
+        learning_rate, checkpoint_dir)
 
     codes, counts = _to_device(codes, counts, dtype, dev)
     if shuffle:
@@ -290,34 +368,158 @@ def train(
     if n_apply == 0:
         raise ValueError("fewer total steps than acc_steps; nothing to train")
     scales = [float(num_kmers) / float(s) for s in sizes]
+    every = int(checkpoint_every) if checkpoint_dir is not None else 0
 
     def loss_of(idx):
-        ar_probs = ar_func.apply_codes(codes_s[idx], params["ar"])
-        if train_ar:
-            ll = ar_log_prob(counts_s[idx], ar_probs)
-        else:
-            ll = bear_log_prob(counts_s[idx], ar_probs, torch.exp(params["h_signed"]))
-        return -scales[idx] * ll.sum()
+        return lambda: _batch_loss(params, ar_func, train_ar, codes_s[idx], counts_s[idx],
+                                   scales[idx])
 
-    elbos = torch.empty(n_apply, dtype=dtype, device=dev)
-    for a in range(n_apply):
-        optimizer.zero_grad(set_to_none=False)
-        loss_sum = 0.0
-        for k in range(acc_steps):
-            loss = loss_of((a * acc_steps + k) % steps_per_epoch)
-            loss.backward()
-            loss_sum = loss_sum + loss.detach()
-        optimizer.step()
+    start_apply = applies_done
+    elbos = torch.empty(max(0, n_apply - start_apply), dtype=dtype, device=dev)
+    for a in range(start_apply, n_apply):
+        loss_sum = _apply(optimizer, [loss_of((a * acc_steps + k) % steps_per_epoch)
+                                      for k in range(acc_steps)])
         # ELBO estimate at each apply (reference bear_net.py:303-307).
-        elbos[a] = -loss_sum / acc_steps
+        elbos[a - start_apply] = -loss_sum / acc_steps
+        done = a + 1
+        if every > 0 and ((done - start_apply) % every == 0 or done == n_apply):
+            _save_state(checkpoint_dir, params, optimizer, done)
+    return _finish(leaves, params, optimizer, elbos.cpu().numpy(), writer, start_apply,
+                   acc_steps)
+
+
+def _shards_takes_epoch(shards) -> bool:
+    """Whether a shards callable accepts an epoch argument (the hook for a
+    per-epoch shard order)."""
+    try:
+        return len(inspect.signature(shards).parameters) >= 1
+    except (TypeError, ValueError):
+        return False
+
+
+def _two_element(shard):
+    if len(shard) > 2:
+        raise NotImplementedError(
+            "shards carrying reference counts (bear_ref) are not ported to PyTorch "
+            "yet; see ROADMAP.md Queue 1")
+    return shard[0], shard[1]
+
+
+def train_streaming(
+    shards,
+    num_kmers,
+    ar_func,
+    *,
+    alphabet: str = "dna",
+    batch_size: int,
+    epochs: int = 1,
+    learning_rate: float = 0.01,
+    optimizer_name: str = "Adam",
+    train_ar: bool = False,
+    params_restart: Optional[list] = None,
+    opt_state_restart: Optional[dict] = None,
+    seed: int = 0,
+    dtype=torch.float32,
+    writer=None,
+    block_steps: int = 64,
+    mesh=None,
+    acc_steps: int = 1,
+    shuffle: bool = False,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 1,
+    device="cuda",
+) -> TrainResult:
+    """Shard-streamed training: host and device memory bounded by one shard
+    (bear_tpu's ``train_streaming``, apply for apply).
+
+    shards : callable returning an iterable of (codes [n, lag], counts
+        [n, A+1]) pairs, numpy or tensors; called once per epoch, with the
+        epoch number when it takes an argument (the hook for a per-epoch
+        shard order). Each shard's last batch may be partial: batches never
+        span shards, while accumulation groups of ``acc_steps`` batches do;
+        a trailing partial group is dropped.
+    num_kmers : the k-mer count over ALL shards (the ELBO scale).
+    shuffle : permute the rows within each shard, epoch e at stream position
+        p by ``np.random.default_rng([seed, e, p])``.
+    block_steps : the unit of the checkpoint cadence: bear_tpu runs applies
+        in jitted blocks of this many, and checkpoints every
+        ceil(checkpoint_every / block_steps) blocks.
+    checkpoint_dir : write ``train_state.pickle`` there every
+        ``checkpoint_every`` applies (rounded up to whole blocks) and at the
+        end, and resume from it: the stream is fast-forwarded past the
+        applies already done (their shards are read, not computed on), so
+        the run ends on a bit-identical trajectory.
+    device : where training runs; "cuda" (default) raises without a card.
+    """
+    _not_ported(mesh=mesh)
+    dev = resolve_device(device)
+    ck_blocks = max(1, -(-int(checkpoint_every) // int(block_steps)))
+    params, leaves, optimizer, applies_done = _start(
+        ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
+        learning_rate, checkpoint_dir)
+    acc_steps, K, bsz = int(acc_steps), int(block_steps), int(batch_size)
+    takes_epoch = _shards_takes_epoch(shards)
+    lag_w = None
+
+    def batch_stream():
+        """(codes, counts, scale) of every batch, over epochs and shards."""
+        nonlocal lag_w
+        pos = 0  # position in the stream: the in-shard shuffle's seed index
+        for epoch in range(int(epochs)):
+            for shard in (shards(epoch) if takes_epoch else shards()):
+                codes, counts = _to_device(*_two_element(shard), dtype, dev)
+                if shuffle:  # the permutation gathers on the device
+                    perm = np.random.default_rng([seed, epoch, pos]).permutation(len(codes))
+                    perm = torch.as_tensor(perm, device=dev)
+                    codes, counts = codes[perm], counts[perm]
+                pos += 1
+                codes_s, counts_s, sizes = _stack_batches(codes, counts, bsz)
+                if lag_w is None:
+                    lag_w = codes_s.shape[2]
+                elif codes_s.shape[2] != lag_w:
+                    raise ValueError(f"shard lag {codes_s.shape[2]} != first shard's {lag_w}")
+                for t in range(codes_s.shape[0]):
+                    yield codes_s[t], counts_s[t], float(num_kmers) / float(sizes[t])
+
+    def save():
+        if checkpoint_dir is not None:
+            _save_state(checkpoint_dir, params, optimizer, applies_done)
+
+    start_apply = applies_done
+    elbos = []
+    applies_seen = 0  # groups taken from the stream, the skipped ones included
+    n_in_block = blocks_done = 0
+    pending = []
+    for batch in batch_stream():
+        pending.append(batch)
+        if len(pending) < acc_steps:
+            continue
+        group, pending = pending, []
+        applies_seen += 1
+        if applies_seen <= applies_done:
+            continue  # resume: applied before the interruption
+        loss_sum = _apply(optimizer, [
+            (lambda c=c, n=n, sc=sc: _batch_loss(params, ar_func, train_ar, c, n, sc))
+            for c, n, sc in group])
+        elbos.append(-loss_sum / acc_steps)
+        applies_done += 1
+        n_in_block += 1
+        if n_in_block == K:
+            n_in_block, blocks_done = 0, blocks_done + 1
+            if blocks_done % ck_blocks == 0:
+                save()
+    if n_in_block:
+        blocks_done += 1
+        if blocks_done % ck_blocks == 0:
+            save()
+    if lag_w is None:
+        raise ValueError("shards() yielded no shards")
+    if applies_seen == 0:
+        raise ValueError("fewer total batches than acc_steps; nothing to train")
+    save()
+    elbos = torch.stack(elbos) if elbos else torch.zeros(0, dtype=dtype)
     elbos = elbos.cpu().numpy()
-    if writer is not None:
-        for i, e in enumerate(elbos):
-            writer.scalar("elbo", float(e), step=(i + 1) * acc_steps)
-    for p in leaves:
-        p.requires_grad_(False)
-        p.grad = None
-    return TrainResult(params=params, losses=-elbos, opt_state=optimizer_state(optimizer))
+    return _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps)
 
 
 # --- evaluation -----------------------------------------------------------
@@ -365,6 +567,45 @@ def _evaluation_step(counts_test, ar_probs, h, van_reg, generator,
     return ll_ear, ll_arm, ll_van, correct_ear, correct_arm, correct_van, total_len
 
 
+class _Evaluator:
+    """The per-batch metrics of one evaluation, in float64 whatever the
+    compute type; the tie-break generator is reseeded from (seed, global
+    batch index) before each batch."""
+
+    def __init__(self, ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
+                 seed, dev):
+        self.loc_train, self.loc_test = ds_loc_train, ds_loc_test
+        self.use_train = ds_loc_train >= 0
+        self.ar_func, self.dtype, self.seed, self.dev = ar_func, dtype, seed, dev
+        self.van_reg = torch.as_tensor(np.asarray(van_reg), dtype=dtype, device=dev)
+        self.h = torch.as_tensor(np.asarray(h), dtype=dtype, device=dev)
+        self.ar_params = [_tensor(p, dev, dtype) for p in ar_params]
+        self.generator = torch.Generator(device=dev)
+
+    def stacks(self, codes, counts, batch_size):
+        """(codes, test counts, train counts or None) stacked to [steps, B,
+        ...] on the device."""
+        codes, counts = _to_device(codes, counts, self.dtype, self.dev)
+        codes_s, test_s, _ = _stack_batches(codes, counts[:, self.loc_test, :], batch_size)
+        train_s = (_stack_one(counts[:, self.loc_train, :], batch_size)
+                   if self.use_train else None)
+        return codes_s, test_s, train_s
+
+    def batch(self, codes_b, test_b, train_b, step):
+        state = np.random.SeedSequence([self.seed, step]).generate_state(2, np.uint32)
+        self.generator.manual_seed((int(state[0]) << 31) | (int(state[1]) >> 1))
+        ar_probs = self.ar_func.apply_codes(codes_b, self.ar_params)
+        out = _evaluation_step(test_b, ar_probs, self.h, self.van_reg, self.generator,
+                               counts_train=train_b)
+        return [o.to(torch.float64) for o in out]
+
+
+def _metrics(ll_ear, ll_arm, ll_van, c_ear, c_arm, c_van, total, exp):
+    """The reference's 9-tuple from the summed metrics."""
+    return (ll_ear, ll_arm, ll_van, exp(-ll_ear / total), exp(-ll_arm / total),
+            exp(-ll_van / total), c_ear / total, c_arm / total, c_van / total)
+
+
 @torch.no_grad()
 def evaluation(
     codes,
@@ -395,34 +636,74 @@ def evaluation(
     Each batch is computed in ``dtype``; the sums across batches are
     float64 tensors on the device, copied to the host once at the end.
     Exact ties of the most likely transition are broken with a
-    ``torch.Generator`` on the device seeded by ``seed`` (the draws differ
-    from bear_tpu's, so tied rows may count differently).
+    ``torch.Generator`` on the device seeded from (``seed``, batch index)
+    (the draws differ from bear_tpu's, so tied rows may count differently).
     """
     _not_ported(mesh=mesh, ref_counts=ref_counts)
     dev = resolve_device(device)
-    use_train = ds_loc_train >= 0
-    codes, counts = _to_device(codes, counts, dtype, dev)
-    counts_test = counts[:, ds_loc_test, :]
-    codes_s, test_s, _ = _stack_batches(codes, counts_test, batch_size)
-    train_s = _stack_one(counts[:, ds_loc_train, :], batch_size) if use_train else None
-    van_reg = torch.as_tensor(np.asarray(van_reg), dtype=dtype, device=dev)
-    h_arr = torch.as_tensor(np.asarray(h), dtype=dtype, device=dev)
-    ar_params = [_tensor(p, dev, dtype) for p in ar_params]
-    generator = torch.Generator(device=dev).manual_seed(seed)
-
+    ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
+                    seed, dev)
+    codes_s, test_s, train_s = ev.stacks(codes, counts, batch_size)
     sums = None
     for step in range(codes_s.shape[0]):
-        ar_probs = ar_func.apply_codes(codes_s[step], ar_params)
-        out = _evaluation_step(test_s[step], ar_probs, h_arr, van_reg, generator,
-                               counts_train=train_s[step] if use_train else None)
-        out = [o.to(torch.float64) for o in out]
+        out = ev.batch(codes_s[step], test_s[step],
+                       None if train_s is None else train_s[step], step)
         sums = out if sums is None else [s + o for s, o in zip(sums, out)]
-    ll_ear, ll_arm, ll_van, c_ear, c_arm, c_van, total = sums
-    metrics = (ll_ear, ll_arm, ll_van,
-               torch.exp(-ll_ear / total), torch.exp(-ll_arm / total),
-               torch.exp(-ll_van / total),
-               c_ear / total, c_arm / total, c_van / total)
-    return tuple(m.cpu().numpy() for m in metrics)
+    return tuple(m.cpu().numpy() for m in _metrics(*sums, exp=torch.exp))
+
+
+@torch.no_grad()
+def evaluation_streaming(
+    shards,
+    ds_loc_train,
+    ds_loc_test,
+    alphabet,
+    h,
+    ar_func,
+    ar_params,
+    van_reg,
+    *,
+    batch_size: int = 1 << 14,
+    dtype=torch.float32,
+    seed: int = 0,
+    block_steps: int = 32,
+    device="cuda",
+    mesh=None,
+):
+    """Shard-streamed evaluation, memory bounded by one shard (bear_tpu's
+    ``evaluation_streaming``): the same contract and 9-tuple as
+    :func:`evaluation`. ``shards`` is a callable returning an iterable of
+    (codes, counts [n, num_ds, A+1]) pairs, consumed once. Batches never
+    span shards; the tie-break draws are keyed by the global batch index.
+    The metrics of each block of ``block_steps`` batches are summed in
+    float64 on the device, and the blocks in float64 on the host."""
+    _not_ported(mesh=mesh)
+    dev = resolve_device(device)
+    ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
+                    seed, dev)
+    K = int(block_steps)
+    totals = None
+    lag_w = None
+    step = 0
+    for shard in shards():
+        codes_s, test_s, train_s = ev.stacks(*_two_element(shard), batch_size)
+        if lag_w is None:
+            lag_w = codes_s.shape[2]
+        elif codes_s.shape[2] != lag_w:
+            raise ValueError(f"shard lag {codes_s.shape[2]} != first shard's {lag_w}")
+        steps = codes_s.shape[0]
+        for s0 in range(0, steps, K):
+            block = None
+            for t in range(s0, min(s0 + K, steps)):
+                out = ev.batch(codes_s[t], test_s[t],
+                               None if train_s is None else train_s[t], step + t)
+                block = out if block is None else [b + o for b, o in zip(block, out)]
+            block = [b.cpu().numpy() for b in block]
+            totals = block if totals is None else [a + b for a, b in zip(totals, block)]
+        step += steps
+    if totals is None:
+        raise ValueError("shards() yielded no shards")
+    return _metrics(*totals, exp=np.exp)
 
 
 def h_scan(codes, counts, ds_loc_train, ds_loc_test, alphabet, h_values,
@@ -432,5 +713,16 @@ def h_scan(codes, counts, ds_loc_train, ds_loc_test, alphabet, h_values,
     out = evaluation(codes, counts, ds_loc_train, ds_loc_test, alphabet,
                      np.asarray(h_values), ar_func, ar_params, van_reg=np.ones(1),
                      **kwargs)
+    ll_ear, _, _, perp_ear, _, _, acc_ear, _, _ = out
+    return ll_ear, perp_ear, acc_ear
+
+
+def h_scan_streaming(shards, ds_loc_train, ds_loc_test, alphabet, h_values,
+                     ar_func, ar_params, **kwargs):
+    """Shard-streamed :func:`h_scan` (reference bear_net.py:1291-1319);
+    ``shards`` as in :func:`evaluation_streaming`."""
+    out = evaluation_streaming(shards, ds_loc_train, ds_loc_test, alphabet,
+                               np.asarray(h_values), ar_func, ar_params,
+                               van_reg=np.ones(1), **kwargs)
     ll_ear, _, _, perp_ear, _, _, acc_ear, _, _ = out
     return ll_ear, perp_ear, acc_ear

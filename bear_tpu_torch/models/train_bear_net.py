@@ -1,5 +1,5 @@
-"""Config-driven training and evaluation of BEAR and AR models (port of the
-in-memory path of bear_tpu/models/train_bear_net.py).
+"""Config-driven training and evaluation of BEAR and AR models (port of
+bear_tpu/models/train_bear_net.py).
 
     python -m bear_tpu_torch.models.train_bear_net config.cfg [--device cpu]
 
@@ -8,6 +8,13 @@ trains by empirical Bayes (BEAR) or maximum likelihood (AR) on the card,
 evaluates held-out and train-as-test metrics, and writes them into the out
 folder's config.cfg [results] section, beside results.pickle (the
 reference's output contract, train_bear_net.py:141-198).
+
+With ``[train] streaming = True`` training and evaluation read one count
+file at a time (``train_streaming``, ``evaluation_streaming``), in a
+per-epoch file order from ``default_rng([seed, epoch])`` when ``shuffle``,
+each file parsed once into ``out_folder/shard_cache`` when ``cache``. With
+``checkpoint_every > 0`` the run keeps ``train_state.pickle`` in the out
+folder, resumes from it, and removes it once results.pickle is written.
 """
 
 from __future__ import annotations
@@ -18,11 +25,11 @@ import os
 
 import numpy as np
 
-from bear_tpu_torch.data import count_kmers, load_files
+from bear_tpu_torch.data import count_kmers, load_files, load_files_cached
 from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.models.ar_funcs import get_ar_func
 from bear_tpu_torch.ops import alphabets
-from bear_tpu_torch.utils.checkpoint import save_results
+from bear_tpu_torch.utils.checkpoint import clear_train_state, save_results
 from bear_tpu_torch.utils.cli_common import load_restart, write_config, write_eval_results
 from bear_tpu_torch.utils.config import RunConfig
 from bear_tpu_torch.utils.device import resolve_device
@@ -50,8 +57,21 @@ def _main(config, run, out_folder, dev, writer):
     num_kmers = count_kmers(files, header=run.sparse)
     batch_size = run.resolve_batch_size(num_kmers)
     epochs = run.resolve_epochs(num_kmers, batch_size)
-    ds = load_files(files, run.alphabet, run.num_ds, sparse=run.sparse)
+    # Streaming defers loading: training and evaluation read one file at a
+    # time.
+    ds = None if run.streaming else load_files(files, run.alphabet, run.num_ds,
+                                               sparse=run.sparse)
     print("data_loaded")
+    shard_cache = os.path.join(out_folder, "shard_cache") if run.cache else None
+
+    def load_shard(f):
+        return load_files_cached([f], run.alphabet, run.num_ds, sparse=run.sparse,
+                                 cache_dir=shard_cache)
+
+    def eval_shards():
+        for f in files:
+            d = load_shard(f)
+            yield d.codes, d.counts
 
     # Record the result location in the config (reference
     # train_bear_net.py:90-95).
@@ -63,34 +83,57 @@ def _main(config, run, out_folder, dev, writer):
     ar_func = get_ar_func(run.ar_func_name, run.lag, alphabets.alphabet_size(run.alphabet),
                           run.af_kwargs, dtype=dtype, device=dev)
     params_restart, opt_state_restart = load_restart(run)
+    ckpt = (dict(checkpoint_dir=out_folder, checkpoint_every=run.checkpoint_every)
+            if run.checkpoint_every > 0 else {})
+    kw = dict(num_kmers=num_kmers, ar_func=ar_func, batch_size=batch_size, epochs=epochs,
+              learning_rate=run.learning_rate, optimizer_name=run.optimizer_name,
+              train_ar=run.train_ar, acc_steps=run.accumulation_steps,
+              params_restart=params_restart, opt_state_restart=opt_state_restart,
+              seed=run.seed, dtype=dtype, shuffle=run.shuffle, writer=writer, device=dev,
+              **ckpt)
 
-    if run.train:
-        result = bear_net.train(
-            ds.codes, ds.counts[:, ds_loc], num_kmers=num_kmers, ar_func=ar_func,
-            batch_size=batch_size, epochs=epochs, learning_rate=run.learning_rate,
-            optimizer_name=run.optimizer_name, train_ar=run.train_ar,
-            acc_steps=run.accumulation_steps, params_restart=params_restart,
-            opt_state_restart=opt_state_restart, seed=run.seed, dtype=dtype,
-            shuffle=run.shuffle, writer=writer, device=dev,
-        )
-        writer.close()
-        params, opt_state = result.params, result.opt_state
-        save_loss_curve(result.elbos, out_folder)
+    if run.train and run.streaming:
+        def shards(epoch=0):
+            # The per-epoch file order; the in-file permutation is
+            # train_streaming's shuffle.
+            order = list(range(len(files)))
+            if run.shuffle:
+                np.random.default_rng([run.seed, epoch]).shuffle(order)
+            for fi in order:
+                d = load_shard(files[fi])
+                yield d.codes, d.counts[:, ds_loc]
+
+        result = bear_net.train_streaming(shards, alphabet=run.alphabet, **kw)
+    elif run.train:
+        result = bear_net.train(ds.codes, ds.counts[:, ds_loc], alphabet=run.alphabet, **kw)
     else:
         if not run.restart:
             raise ValueError("train=False requires restart=True")
+        result = None
         params = bear_net.params_from_list(params_restart, device=dev, dtype=dtype)
         opt_state = opt_state_restart
+    if result is not None:
+        writer.close()
+        params, opt_state = result.params, result.opt_state
+        save_loss_curve(result.elbos, out_folder)
 
     params_list = bear_net.params_to_list(params)
     h = float(np.exp(params_list[0]))
     config["results"]["h"] = str(h)
     write_config(config, out_folder)
     save_results(out_folder, params_list, extra={"torch_opt_state": opt_state})
+    if run.checkpoint_every > 0:
+        # results.pickle is the durable result now: a rerun into this folder
+        # starts afresh.
+        clear_train_state(out_folder)
 
     van_reg = np.array(run.van_reg)
 
     def _evaluate(train_loc, test_loc):
+        if run.streaming:
+            return bear_net.evaluation_streaming(
+                eval_shards, train_loc, test_loc, run.alphabet, h, ar_func, params["ar"],
+                van_reg, dtype=dtype, seed=run.seed, device=dev)
         return bear_net.evaluation(
             ds.codes, ds.counts, train_loc, test_loc, run.alphabet, h, ar_func,
             params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev,

@@ -1,5 +1,5 @@
-"""Model directories (port of bear_tpu/utils/checkpoint.py, without the
-mid-run train state).
+"""Model directories and mid-run training state (port of
+bear_tpu/utils/checkpoint.py).
 
 A model directory holds ``config.cfg`` + ``results.pickle`` with the
 reference's ``{'params': [...]}`` schema, the params as plain numpy arrays
@@ -12,6 +12,10 @@ interchangeable for their params:
   rebuilt without optax. When the port loads such a pickle, the classes of
   jax, optax and bear_tpu are replaced by inert stand-ins (nothing of them
   is imported), so the params load and that optimizer state is not used.
+
+A run with ``checkpoint_dir`` also keeps ``train_state.pickle`` there:
+``{"params", "torch_opt_state", "applies_done"}``, all plain numpy, written
+by atomic replace and removed once the run's results.pickle is written.
 """
 
 from __future__ import annotations
@@ -55,6 +59,11 @@ def save_results(out_folder: str, params_list: List[np.ndarray],
     if extra:
         payload.update(extra)
     path = os.path.join(out_folder, "results.pickle")
+    _atomic_pickle(path, payload)
+    return path
+
+
+def _atomic_pickle(path: str, payload) -> None:
     # A crash mid-dump must not destroy the previous file (open('wb')
     # truncates at once); the temporary name is unique per process.
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -65,7 +74,6 @@ def save_results(out_folder: str, params_list: List[np.ndarray],
     finally:
         with contextlib.suppress(FileNotFoundError):
             os.remove(tmp)
-    return path
 
 
 def load_results(path_or_dir: str) -> dict:
@@ -81,3 +89,37 @@ def load_results(path_or_dir: str) -> dict:
 def load_params_list(path_or_dir: str) -> List[np.ndarray]:
     results = load_results(path_or_dir)
     return [np.asarray(p) for p in results["params"]]
+
+
+TRAIN_STATE_FILE = "train_state.pickle"
+
+
+def save_train_state(out_dir: str, state: dict) -> str:
+    """Atomically write a mid-run training state: ``params`` (the
+    ``[h_signed] + ar`` list), ``torch_opt_state`` (``optimizer_state``)
+    and ``applies_done`` (optimizer applies completed), as plain numpy."""
+    path = os.path.join(out_dir, TRAIN_STATE_FILE)
+    _atomic_pickle(path, state)
+    return path
+
+
+def load_train_state(out_dir: str) -> Optional[dict]:
+    """The mid-run training state in ``out_dir``, or None when there is none
+    (a fresh run). Raises when the state holds no port optimizer state (one
+    bear_tpu wrote, whose optax state the port cannot resume exactly)."""
+    path = os.path.join(out_dir, TRAIN_STATE_FILE)
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as fh:
+        state = _Unpickler(fh).load()
+    if "torch_opt_state" not in state:
+        raise ValueError(f"{path} holds no torch_opt_state: it was written by another "
+                         "package and cannot be resumed exactly; remove it to start afresh")
+    return state
+
+
+def clear_train_state(out_dir: str) -> None:
+    """Remove a completed run's mid-run state, so that a rerun into the same
+    directory starts afresh (tolerates a concurrent remove)."""
+    with contextlib.suppress(FileNotFoundError):
+        os.remove(os.path.join(out_dir, TRAIN_STATE_FILE))

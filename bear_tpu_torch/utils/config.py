@@ -12,10 +12,14 @@ Semantics kept:
 - batch_size <= 1 -> a fraction of num_kmers.
 - epochs with a trailing 's' -> a step count converted to epochs.
 
+- [train] streaming feeds training and evaluation one count file at a
+  time; cache (default True) keeps each parsed file as an .npz in the out
+  folder for later epochs; checkpoint_every > 0 writes the mid-run train
+  state every N optimizer applies and resumes from it.
+
 Not ported yet, and refused when asked for (ROADMAP.md, Queue 1):
-``data_parallel``, ``streaming``, ``checkpoint_every > 0`` and any
-``compute_precision``. Keys the port does not use (``[train] cache``,
-``[data] reference_column``) are read by nothing.
+``data_parallel`` and any ``compute_precision``. ``[data]
+reference_column`` is read by nothing.
 """
 
 from __future__ import annotations
@@ -76,7 +80,11 @@ class RunConfig:
     # [model]
     ar_func_name: str
     af_kwargs: dict = field(default_factory=dict)
-    shuffle: bool = False  # [train] shuffle: one seeded permutation per run
+    shuffle: bool = False  # [train] shuffle: in memory one seeded permutation
+    # per run; streaming a per-epoch file order and in-file permutation
+    cache: bool = True  # [train] cache: parsed-shard .npz cache when streaming
+    streaming: bool = False  # [train] streaming: one count file at a time
+    checkpoint_every: int = 0  # [train] checkpoint_every: mid-run state cadence
 
     @classmethod
     def from_configparser(cls, config: configparser.ConfigParser) -> "RunConfig":
@@ -105,6 +113,9 @@ class RunConfig:
             restart=tr.get("restart", "False") == "True",
             restart_path=tr.get("restart_path", ""),
             shuffle=tr.get("shuffle", "False") == "True",
+            cache=tr.get("cache", "True") == "True",
+            streaming=tr.get("streaming", "False") == "True",
+            checkpoint_every=int(tr.get("checkpoint_every", "0")),
             test=te["test"] == "True",
             train_test=te["train_test"] == "True",
             van_reg=json.loads(te["van_reg"]),
@@ -154,14 +165,10 @@ class RunConfig:
 
 def _refuse_not_ported(tr, mo) -> None:
     """Raise on the bear_tpu extensions the port does not have yet."""
-    for key in ("data_parallel", "streaming"):
-        if tr.get(key, "False") == "True":
-            raise NotImplementedError(
-                f"[train] {key} = True is not ported to PyTorch yet; see ROADMAP.md Queue 1")
-    if int(tr.get("checkpoint_every", "0")) > 0:
+    if tr.get("data_parallel", "False") == "True":
         raise NotImplementedError(
-            "[train] checkpoint_every > 0 (mid-run train state) is not ported to "
-            "PyTorch yet; see ROADMAP.md Queue 1")
+            "[train] data_parallel = True is not ported to PyTorch yet; see ROADMAP.md "
+            "Queue 1")
     if mo.get("compute_precision", "") != "":
         raise NotImplementedError(
             f"[model] compute_precision = {mo['compute_precision']!r} is not ported "

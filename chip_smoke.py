@@ -43,6 +43,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card against the CPU in float64 from the same keys, on subsets; the
    in-call reductions against the raw draws. Rates, peak device memory,
    the sampler's share of device time, and profiles of (C) and (D);
+4e. the on-disk workflow: phase 4's reads written as FASTQ (the train
+   group over 3 files, one gzip-compressed; the held-out group in 1), the
+   summarize CLI at -l 13 through its parser on the card (native parser for
+   every file, one count_chunk launch per chunk over all 13 lag tables,
+   conservation at every lag, the lag-13 shards read back equal to phase
+   4's counts), count_chunk timed at the summarize chunk over 13 lags, then
+   the streaming training CLI on the lag-13 shards (4c's CNN BEAR, shuffle,
+   shard cache, checkpoints every 32 applies; first ELBOs against CPU
+   float64 from the same start and stream, streamed held-out perplexities
+   against the in-memory evaluation on the card) and the score CLI on the
+   trained model directory;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -112,6 +123,14 @@ SAMPLED_FLIPS = 1e-4
 PEAK_BUDGET = 8 << 30  # bytes a call may take above what is resident
 CLI_WT_BP = 500
 CLI_READS = 64
+# Phase 4e: the on-disk workflow. The reads as FASTQ (the train group over 3
+# files, one gzip-compressed), summarize -l 13 (every lag 1..13 in one table,
+# chunks of 1,024 reads), the CNN BEAR of 4c trained by the streaming CLI on
+# the lag-13 shards. Streamed and in-memory evaluation on the card differ only
+# in batch boundaries (float32 per batch, float64 sums).
+N_TRAIN_FILES = 3
+STREAM_CHECKPOINT_EVERY = 32
+EVAL_RTOL = 1e-5
 
 
 def ysd1_config(out_folder):
@@ -814,6 +833,358 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
             host_breakdown(label, fn, top=10)
 
 
+def write_fastq(reads, groups, out_dir, n_train_files=N_TRAIN_FILES):
+    """The reads as FASTQ: group 0 over ``n_train_files`` files (the second
+    gzip-compressed), group 1 in one file, and an infiles.csv listing them.
+    Returns (csv path, [(path, group, reads)])."""
+    import gzip
+
+    os.makedirs(out_dir, exist_ok=True)
+    letters = np.frombuffer(b"ACGT", np.uint8)
+    parts = [(idx, 0) for idx in np.array_split(np.flatnonzero(groups == 0), n_train_files)]
+    parts.append((np.flatnonzero(groups == 1), 1))
+    L = reads.shape[1]
+    files = []
+    for k, (idx, group) in enumerate(parts):
+        head = np.frombuffer("".join(f"@r{i:09d}\n" for i in idx).encode(), np.uint8)
+        rec = np.empty((len(idx), 12 + 2 * L + 4), np.uint8)  # @r + 9 digits + newline
+        rec[:, :12] = head.reshape(len(idx), 12)
+        rec[:, 12:12 + L] = letters[reads[idx]]
+        rec[:, 12 + L:15 + L] = np.frombuffer(b"\n+\n", np.uint8)
+        rec[:, 15 + L:15 + 2 * L] = ord("F")
+        rec[:, -1] = ord("\n")
+        path = os.path.join(out_dir, f"reads_{k}.fq" + (".gz" if k == 1 else ""))
+        with (gzip.open(path, "wb", compresslevel=1) if k == 1 else open(path, "wb")) as fh:
+            fh.write(rec.tobytes())
+        files.append((path, group, len(idx)))
+    csv = os.path.join(out_dir, "infiles.csv")
+    with open(csv, "w") as fh:
+        fh.writelines(f"{os.path.basename(p)},{g},fq\n" for p, g, _ in files)
+    return csv, files
+
+
+def codes_to_rows(codes, lag, A=4):
+    """Table rows of int8 contexts ('[' coded A): the inverse of decode_rows."""
+    c = np.asarray(codes, np.int64)
+    suffix = (c != A).sum(axis=1)
+    code = np.where(c == A, 0, c) @ (A ** np.arange(lag - 1, -1, -1, dtype=np.int64))
+    return (A ** suffix - 1) // (A - 1) + code
+
+
+def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="cuda",
+                    lag=LAG, profile=True):
+    """4e, counting: write the reads as FASTQ, run the summarize CLI at
+    ``-l lag`` on ``device`` through its parser, and read the lag-``lag``
+    shards back. Checks that the native parser took every file, one
+    count_chunk launch per chunk on the card, conservation (summarize's own
+    check, at every lag) and that the shards hold exactly ``want_rows`` /
+    ``want_counts`` (phase 4's nonzero rows and counts). With ``profile``,
+    profiles the count loop on the card and the host side of the export.
+    Returns what the later steps use."""
+    import glob
+
+    import torch
+    from bear_tpu_torch.counting import summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.data import load_files
+
+    t0 = time.perf_counter()
+    csv, files = write_fastq(reads, groups, os.path.join(work, "reads"))
+    write_s = time.perf_counter() - t0
+    prefix = os.path.join(work, "counts", "run")
+    os.makedirs(os.path.dirname(prefix))
+    args = summarize.build_parser().parse_args(
+        [csv, prefix, "-l", str(lag), "--device", torch.device(device).type])
+    report = {}
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    n_bins, _ = summarize.main(args, report)
+    synchronize(device)
+    wall_s = time.perf_counter() - t0
+    launches = count_chunk_update.launches
+    run = report["forward"]
+    stats = run["stats"]
+    per_lag = stats["bases"] + stats["reads"]
+    on_card = torch.device(device).type == "cuda"
+    check(per_lag == len(reads) * (reads.shape[1] + 1), "summarize read another input")
+    check(sorted(stats["parser"].values()) == ["native"] * len(files),
+          f"not every file went through the native parser: {stats['parser']}")
+    check(launches == (stats["chunks"] if on_card else 0),
+          f"summarize launched count_chunk {launches} times for {stats['chunks']} chunks")
+    print(f"[summarize] {len(files)} FASTQ files ({', '.join(os.path.basename(p) for p, _, _ in files)}; "
+          f"{stats['reads']:,} reads) written in {write_s:.3f} s; parsers: "
+          f"{sorted(set(stats['parser'].values()))} for all {len(files)}")
+    print(f"[summarize] -l {lag}: {per_lag:,} transitions per lag x {lag} lags conserved; "
+          f"parse {stats['parse_s']:.4f} s (inside the native parser, overlapped with "
+          f"counting), count {run['count_s']:.4f} s = {lag * per_lag / run['count_s']:.6g} "
+          f"transitions/s over all {lag} lags, export {run['export_s']:.4f} s = "
+          f"{sum(run['rows'].values()) / run['export_s']:.6g} rows/s; whole CLI {wall_s:.3f} s "
+          f"[{card}]")
+    print(f"[summarize] table {run['table_bytes']:,} bytes (int32, lags 1..{lag} x "
+          f"{N_GROUPS} groups) on {device}; {stats['chunks']} chunks, {launches} count_chunk "
+          f"launches; {n_bins} shards per lag; nonzero rows per lag "
+          f"{[run['rows'][l] for l in sorted(run['rows'])]}")
+
+    shards = sorted(glob.glob(f"{prefix}_lag_{lag}_file_*.tsv"))
+    check(len(shards) == n_bins, f"{len(shards)} lag-{lag} shards, expected {n_bins}")
+    ds = load_files(shards, "dna", N_GROUPS)
+    rows = codes_to_rows(ds.codes, lag)
+    order = np.argsort(rows)
+    check(np.array_equal(rows[order], want_rows)
+          and np.array_equal(ds.counts[order], want_counts.astype(np.float64)),
+          f"the lag-{lag} shards ({len(rows):,} rows) differ from phase 4's counts "
+          f"({len(want_rows):,} rows)")
+    print(f"[summarize] lag-{lag} shards read back with load_files: {len(rows):,} rows, "
+          "both groups' counts == phase 4's exactly")
+    if profile:
+        # Where the time goes: the count loop on the card (counting alone,
+        # a fresh table each run), and the host side of one lag's export.
+        from bear_tpu_torch.counting.engine import write_tsv_shards
+
+        device_breakdown(f"summarize count, lags 1..{lag}", lambda: summarize.run_counting(
+            csv, range(1, lag + 1), device=device).sync(), card)
+        out = os.path.join(work, "profile", "run")
+        os.makedirs(os.path.dirname(out))
+        host_breakdown(f"export of lag {lag} ({len(rows):,} rows, {n_bins} shards)",
+                       lambda: write_tsv_shards(out, lag, want_rows, want_counts,
+                                                int(np.log2(n_bins))), top=10)
+    return dict(launches=launches, chunks=stats["chunks"], prefix=prefix, files=files,
+                shards=shards)
+
+
+def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20):
+    """count_chunk at the summarize geometry: the first chunk that
+    chunks_from_packed makes of ``first_file`` (1,024 reads, padded), over
+    lags 1..lag, held against its plain version (exact) and timed like
+    phase 3. The byte bound counts the distinct 32-byte sectors the chunk's
+    keys touch over all the lag tables; the library call is index_put_ on
+    those keys. Returns the kernel's JSON fields for this geometry."""
+    import torch
+    from bear_tpu_torch.counting import count_chunk, engine, native
+    from bear_tpu_torch.counting.count_chunk import count_chunk_plain, count_chunk_update
+
+    codes_flat, offsets = native.load().parse(first_file, "fq")
+    chunk = next(iter(engine.chunks_from_packed(codes_flat, offsets, 0, lag)))
+    lags = tuple(range(1, lag + 1))
+    meta_np = count_chunk.pack_meta(chunk.lengths, chunk.skip, chunk.stopped, chunk.groups,
+                                    chunk.fresh)
+    codes = torch.from_numpy(chunk.codes).to(dev)
+    meta = torch.from_numpy(meta_np).to(dev)
+    _, total = count_chunk.lag_offsets(lags, N_GROUPS)
+    a = torch.zeros(total, dtype=torch.int32, device=dev)
+    b = torch.zeros(total, dtype=torch.int32, device=dev)
+    count_chunk_update(a, codes, meta, lags, N_GROUPS, 4)
+    count_chunk_plain(b, codes, meta, lags, N_GROUPS, 4)
+    torch.cuda.synchronize()
+    err = int((a.long() - b.long()).abs().max())
+    check(torch.equal(a, b), f"count_chunk differs from plain on the summarize chunk: {err}")
+    del b
+    lengths, skip, stopped, grp, fresh = count_chunk.unpack_meta(meta)
+    keys = count_chunk.chunk_keys(codes, lengths, skip, stopped, grp, lags, N_GROUPS, 4,
+                                  sentinel=total, fresh=fresh)
+    valid = keys[(keys >= 0) & (keys < total)].long()
+    ones = torch.ones_like(valid, dtype=torch.int32)
+    sectors = int(torch.unique(valid // 8).numel())
+    l2_flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)
+    ms = timed_ms(lambda: count_chunk_update(a, codes, meta, lags, N_GROUPS, 4), reps, l2_flush)
+    plain_ms = timed_ms(lambda: count_chunk_plain(a, codes, meta, lags, N_GROUPS, 4), reps,
+                        l2_flush)
+    library_ms = timed_ms(lambda: a.index_put_((valid,), ones, accumulate=True), reps, l2_flush)
+    n_pos = codes.shape[0] * (codes.shape[1] + 1)
+    bytes_ms = (codes.numel() + 4 * meta.numel() + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_pos * (ROLL_OPS + KEY_OPS * len(lags)) / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    print(f"[kernel] count_chunk at the summarize chunk: {codes.shape[0]:,} x {codes.shape[1]} "
+          f"codes over lags 1..{lag} ({valid.numel():,} keys counted, {sectors:,} table "
+          f"sectors of {total:,} int32): == plain, max_abs_err {err}; ms {ms:.6f} plain_ms "
+          f"{plain_ms:.6f} bound_ms {bound_ms:.6f} ({bound_by}) library_ms {library_ms:.6f} "
+          f"(index_put_ on the chunk's keys) [{card}]")
+    return {"shape": list(codes.shape), "lags": len(lags), "max_abs_err": float(err),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def stream_config(out_folder, counts_prefix, lag=LAG, cnn_kw=CNN_KW, batch=TRAIN_BATCH,
+                  epochs=TRAIN_EPOCHS, seed=SEED):
+    """The streaming training config of phase 4e: 4c's CNN BEAR on the
+    lag-``lag`` shards, streamed with a per-epoch file order, the shard
+    cache and mid-run checkpoints, evaluated held out (column 1) and as
+    train-as-test."""
+    cfg = ysd1_config(out_folder)
+    cfg["general"]["seed"] = str(seed)
+    cfg["data"].update(files_path=os.path.dirname(counts_prefix),
+                       start_token=f"{os.path.basename(counts_prefix)}_lag_{lag}_file_",
+                       num_ds=str(N_GROUPS))
+    cfg["hyperp"]["lag"] = str(lag)
+    cfg["train"].update(epochs=str(epochs), batch_size=str(batch), learning_rate=str(TRAIN_LR),
+                        streaming="True", shuffle="True", cache="True",
+                        checkpoint_every=str(STREAM_CHECKPOINT_EVERY))
+    cfg["model"].update(ar_func_name="cnn", af_kwargs=json.dumps(cnn_kw))
+    return cfg
+
+
+def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="cuda",
+                          lag=LAG, cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                          n_cli=CLI_READS, profile=True):
+    """4e, training: the streaming training CLI on the lag-``lag`` shards,
+    timed by wrapping its load, train and evaluation calls. Checks the
+    first ELBOs against train_streaming on the CPU in float64 from the same
+    initial parameters over the same shard stream, the streamed held-out
+    perplexities against the in-memory evaluation of the concatenated
+    shards on ``device``, that the mid-run state is gone and the shard
+    cache is there, and scores held-out reads with the score CLI. With
+    ``profile``, profiles one epoch of streamed training without loads."""
+    import contextlib
+    import io
+
+    import torch
+    from bear_tpu_torch.data import count_kmers, load_dense, load_files
+    from bear_tpu_torch.inference import score_cli
+    from bear_tpu_torch.models import bear_net, train_bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.checkpoint import TRAIN_STATE_FILE
+
+    cfg = stream_config(out_dir + "*", prefix, lag, cnn_kw, batch, epochs)
+    seed = int(cfg["general"]["seed"])
+    cache = os.path.join(out_dir, "shard_cache")
+    loads, spans, seen = [], {"eval": []}, {}
+    real = (train_bear_net.load_files_cached, bear_net.train_streaming,
+            bear_net.evaluation_streaming)
+
+    def timed_load(files, *args, **kw):
+        before = len(os.listdir(cache)) if os.path.isdir(cache) else 0
+        t0 = time.perf_counter()
+        out = real[0](files, *args, **kw)
+        loads.append((time.perf_counter() - t0, len(os.listdir(cache)) == before))
+        return out
+
+    def timed_train(shard_fn, **kw):
+        init = bear_net.init_params(torch.Generator().manual_seed(kw["seed"]), kw["ar_func"])
+        seen.update(kw=kw, p0=[init["h_signed"]] + init["ar"])
+        synchronize(device)
+        t0 = time.perf_counter()
+        seen["result"] = real[1](shard_fn, **kw)
+        synchronize(device)
+        spans["train"] = time.perf_counter() - t0
+        return seen["result"]
+
+    def timed_eval(*args, **kw):
+        synchronize(device)
+        t0 = time.perf_counter()
+        out = real[2](*args, **kw)
+        spans["eval"].append(time.perf_counter() - t0)
+        return out
+
+    train_bear_net.load_files_cached = timed_load
+    bear_net.train_streaming, bear_net.evaluation_streaming = timed_train, timed_eval
+    try:
+        t0 = time.perf_counter()
+        train_bear_net.main(cfg, device=device)
+        synchronize(device)
+        cli_s = time.perf_counter() - t0
+    finally:
+        train_bear_net.load_files_cached = real[0]
+        bear_net.train_streaming, bear_net.evaluation_streaming = real[1], real[2]
+    res, kw = seen["result"], seen["kw"]
+    elbos = res.elbos
+    F = len(shards)
+    n_rows = kw["num_kmers"]
+    n_batches = sum(-(-count_kmers([f]) // batch) for f in shards)
+    check(len(elbos) == n_batches * epochs and np.isfinite(elbos).all(),
+          f"{len(elbos)} ELBOs for {n_batches} batches x {epochs} epochs, or not finite")
+    check(len(loads) == F * (epochs + 2), f"{len(loads)} shard loads, expected {F * (epochs + 2)}")
+    per_epoch = [loads[e * F:(e + 1) * F] for e in range(epochs + 2)]
+    check(not any(hit for _, hit in per_epoch[0]) and all(hit for _, hit in loads[F:]),
+          "epoch 1 should parse every shard and every later load hit the cache")
+    load_in_train = sum(t for t, _ in loads[: F * epochs])
+    print(f"[stream] train_bear_net.main, streaming CNN BEAR {cnn_kw} on {F} lag-{lag} shards "
+          f"({n_rows:,} rows), batch {batch}, {epochs} epochs, shuffle, cache, checkpoint_every "
+          f"{STREAM_CHECKPOINT_EVERY}: {len(elbos)} applies in {spans['train']:.3f} s = "
+          f"{len(elbos) / spans['train']:.6g} applies/s, of which shard loads "
+          f"{load_in_train:.3f} s ({len(elbos) / (spans['train'] - load_in_train):.6g} "
+          f"applies/s without them); the CLI run {cli_s:.3f} s; ELBO {elbos[0]:.7g} -> "
+          f"{elbos[-1]:.7g} [{card}]")
+    labels = [f"epoch {e + 1}" for e in range(epochs)] + ["held-out eval", "train-as-test eval"]
+    print("[stream] shard loads: " + "; ".join(
+        f"{label} {sum(t for t, _ in part):.4f} s ({sum(h for _, h in part)}/{F} cache hits)"
+        for label, part in zip(labels, per_epoch)))
+    print(f"[stream] streamed evaluation {' + '.join(f'{t:.3f}' for t in spans['eval'])} s "
+          f"(held out, train-as-test) [{card}]")
+
+    # The first ELBOs against CPU float64: the first shard of epoch 0's file
+    # order, permuted as train_streaming permutes it, its first batches.
+    order = list(range(F))
+    np.random.default_rng([seed, 0]).shuffle(order)
+    first = load_dense(shards[order[0]], "dna", N_GROUPS)
+    perm = np.random.default_rng([seed, 0, 0]).permutation(first.num_kmers)
+    k = min(N_ELBO_CHECK, -(-first.num_kmers // batch))
+    take = perm[: k * batch]
+    ar64 = get_ar_func("cnn", lag, 4, cnn_kw, dtype=torch.float64, device="cpu")
+    ref = bear_net.train_streaming(
+        lambda: iter([(first.codes[take], first.counts[take, 0])]), num_kmers=n_rows,
+        ar_func=ar64, batch_size=batch, epochs=1, learning_rate=TRAIN_LR,
+        params_restart=seen["p0"], dtype=torch.float64, device="cpu")
+    elbo_err = float(np.max(np.abs(elbos[:k] / ref.elbos[:k] - 1)))
+    check(len(ref.elbos) == k and elbo_err <= ELBO_RTOL,
+          f"first {k} streamed ELBOs {elbos[:k]} differ from CPU float64 {ref.elbos} by "
+          f"{elbo_err:.3e}")
+    print(f"[stream] first {k} ELBOs vs train_streaming on the CPU in float64 from the same "
+          f"initial parameters and shard stream: max rel err {elbo_err:.3e} (tolerance "
+          f"{ELBO_RTOL})")
+
+    results = cfg["results"]
+    h = float(results["h"])
+    ds = load_files(shards, "dna", N_GROUPS)
+    synchronize(device)
+    t0 = time.perf_counter()
+    memory = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", h, kw["ar_func"],
+                                 res.params["ar"], VAN_REG, dtype=torch.float32, seed=seed,
+                                 device=device)
+    memory_s = time.perf_counter() - t0
+    streamed = [float(results["heldout_perplex_BEAR"]), float(results["heldout_perplex_AR"]),
+                *json.loads(results["heldout_perplex_BMM"])]
+    in_memory = [float(memory[3]), float(memory[4]), *np.asarray(memory[5]).tolist()]
+    perp_err = float(np.max(np.abs(np.array(streamed) / np.array(in_memory) - 1)))
+    check(perp_err <= EVAL_RTOL, f"streamed held-out perplexities {streamed} differ from "
+          f"the in-memory evaluation's {in_memory} by {perp_err:.3e}")
+    print(f"[stream] held-out perplexity BEAR {streamed[0]:.6f} AR {streamed[1]:.6f} BMM "
+          f"{streamed[2:]}; vs in-memory evaluation on {device} ({memory_s:.3f} s) max rel "
+          f"err {perp_err:.3e} (tolerance {EVAL_RTOL}); h {h:.6g}")
+    cached = [f for f in os.listdir(cache) if f.endswith(".npz")]
+    check(not os.path.exists(os.path.join(out_dir, TRAIN_STATE_FILE)) and len(cached) == F,
+          f"after the run: train_state.pickle present or {len(cached)} cached shards of {F}")
+
+    if profile:
+        # Where streamed training's time goes without its shard loads: one
+        # epoch over the shards held in memory, no checkpoints.
+        held = [(d.codes, d.counts[:, 0]) for d in (load_dense(f, "dna", N_GROUPS)
+                                                    for f in shards)]
+        one = {k: v for k, v in kw.items() if k not in ("checkpoint_dir", "checkpoint_every")}
+        one.update(epochs=1, writer=None)
+        label = f"streamed training, 1 epoch over {F} shards held in memory"
+        device_breakdown(label, lambda: bear_net.train_streaming(lambda: iter(held), **one),
+                         card, top=10)
+        host_breakdown(label, lambda: bear_net.train_streaming(lambda: iter(held), **one),
+                       top=10)
+
+    seqs = decode_reads(reads[np.flatnonzero(groups == 1)[:n_cli]])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = score_cli.main(["seqs", out_dir, *seqs, "--map", "--torch-device",
+                             torch.device(device).type])
+    cli_score_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    vals = np.array([[float(x) for x in l.split("\t")[1:]] for l in lines[1:]])
+    check(rc == 0 and len(lines) == len(seqs) + 1 and np.isfinite(vals).all(),
+          f"score_cli seqs on the streamed model: {lines[:2]}")
+    print(f"[stream] train_state.pickle cleared, {len(cached)} shards cached; score_cli seqs "
+          f"--map on {len(seqs)} held-out reads against the streamed model: finite, "
+          f"{cli_score_s:.3f} s (model and counts load included) [{card}]")
+    return len(elbos)
+
+
 def main() -> int:
     import torch
 
@@ -975,6 +1346,9 @@ def main() -> int:
     count_s = time.perf_counter() - t0
     expected = n_reads * (READ_LEN + 1)
     counter.validate(expected)
+    # Phase 4e's reference: the nonzero rows and their counts, read on the card.
+    p4_rows = counter.nonzero_rows(LAG)
+    p4_counts = counter.row_counts(LAG, p4_rows)
     tables = counter.tables[LAG]
     distinct = int(np.count_nonzero(tables[0].sum(axis=1)))
     print(f"[count] {n_reads:,} reads, {expected:,} transitions at lag {LAG} "
@@ -1085,6 +1459,22 @@ def main() -> int:
                                             learning_rate=TRAIN_LR, params_restart=p0,
                                             dtype=torch.float32), card, top=10)
 
+    # 4e. the on-disk workflow: reads as FASTQ -> summarize -l 13 (its
+    # count_chunk launches counted from 0 just before, read just after) ->
+    # lag-13 TSV shards -> the streaming training CLI -> scoring
+    t_4e = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        s_run = summarize_phase(reads, groups, p4_rows, p4_counts, os.path.join(tmp, "disk"),
+                                card)
+        torch.cuda.empty_cache()
+        s_chunk = summarize_chunk_timing(s_run["files"][0][0], card, dev)
+        torch.cuda.empty_cache()
+        streaming_train_phase(s_run["prefix"], s_run["shards"], reads, groups,
+                              os.path.join(tmp, "stream"), card)
+    count_err = max(count_err, int(s_chunk["max_abs_err"]))
+    print(f"[stream] phase 4e {time.perf_counter() - t_4e:.3f} s (profiles and checks "
+          f"included) [{card}]")
+
     # 5. kernels, then the device line
     print(json.dumps({"kernels": [{
         "name": "window_hist", "route": "cuda",
@@ -1097,9 +1487,12 @@ def main() -> int:
         "name": "count_chunk", "route": "cuda",
         "source": "bear_tpu_torch/csrc/count_chunk.cu",
         "replaces": "bear_tpu/counting/pallas_hist.py:81",
-        "launches": launches, "max_abs_err": float(count_err),
+        "launches": launches + s_run["launches"],
+        "launches_by_path": {"count_serve": launches, "summarize": s_run["launches"]},
+        "max_abs_err": float(count_err),
         "ms": count_ms, "plain_ms": count_plain_ms, "bound_ms": count_bound_ms,
         "bound_by": count_bound_by, "library_ms": library_ms,
+        "summarize_chunk": s_chunk,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -29,6 +29,7 @@ from bear_tpu.models import bear_net as jbn
 from bear_tpu.models import get_ar_func as jget_ar_func
 from bear_tpu.models import train_bear_net as jcli
 from bear_tpu.utils import checkpoint as jckpt
+from bear_tpu_torch.counting import summarize
 from bear_tpu_torch.data import load_dense
 from bear_tpu_torch.inference.scoring import load_bear
 from bear_tpu_torch.models import train_bear_net
@@ -136,11 +137,23 @@ def test_eval_only_restart_and_refusals(tmp_path):
     got = train_bear_net.main(cfg, device="cpu")
     want = jcli.main(jcfg)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-10)
-    for key, value in [("train__streaming", "True"), ("train__data_parallel", "True"),
-                       ("train__checkpoint_every", "10"),
+    for key, value in [("train__data_parallel", "True"),
                        ("model__compute_precision", "bfloat16")]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             RunConfig.from_configparser(_config("bear_test.cfg", tmp_path, **{key: value}))
+    run = RunConfig.from_configparser(_config(
+        "bear_test.cfg", tmp_path, train__streaming="True", train__checkpoint_every="10",
+        train__cache="False"))
+    assert run.streaming and run.checkpoint_every == 10 and not run.cache
+    reads = tmp_path / "reads.fa"
+    reads.write_text(">r\nACGTACGT\n")
+    (tmp_path / "in.csv").write_text(f"{reads},0,fa\n")
+    parser = summarize.build_parser()
+    for extra in (["--kmer-shards", "2"], ["--passes", "2"], ["-l", "16"]):
+        args = parser.parse_args([str(tmp_path / "in.csv"), str(tmp_path / "run"), *extra,
+                                  "--device", "cpu"])
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            summarize.main(args)
     with pytest.raises(NotImplementedError, match="attention"):
         train_bear_net.main(_config("bear_attn_bear.cfg", tmp_path / "attn",
                                     data__files_path="TEST"), device="cpu")

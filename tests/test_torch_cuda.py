@@ -8,6 +8,8 @@ neither JAX nor bear_tpu, so it runs where only the port is installed:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -143,3 +145,32 @@ def test_sampled_float64_on_card_equals_cpu(cuda):
     ]
     for call in calls:
         np.testing.assert_allclose(call(gpu), call(cpu), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_summarize_on_card_writes_the_cpu_bytes(cuda, tmp_path, reverse):
+    from bear_tpu_torch.counting import summarize
+
+    rng = np.random.default_rng(3)
+    rows = []
+    for fi, group in enumerate((0, 1, 0)):
+        with open(tmp_path / f"r{fi}.fq", "w") as fh:
+            for i in range(300):
+                s = "".join(rng.choice(list("ACGTN"), size=int(rng.integers(0, 200))))
+                fh.write(f"@r{i}\n{s}\n+\n{'F' * len(s)}\n")
+        rows.append(f"r{fi}.fq,{group},fq\n")
+    (tmp_path / "in.csv").write_text("".join(rows))
+    out = {}
+    for device in ("cuda", "cpu"):
+        (tmp_path / device).mkdir()
+        argv = [str(tmp_path / "in.csv"), str(tmp_path / device / "run"), "-l", "6",
+                "--shuffle", "-mf", "0.0002", "--device", device] + (["-r"] if reverse else [])
+        before = count_chunk_update.launches
+        report = {}
+        summarize.main(summarize.build_parser().parse_args(argv), report)
+        launches = count_chunk_update.launches - before
+        chunks = sum(r["stats"]["chunks"] for r in report.values())
+        assert launches == (chunks if device == "cuda" else 0)
+        out[device] = {f: (tmp_path / device / f).read_bytes()
+                       for f in sorted(os.listdir(tmp_path / device))}
+    assert len(out["cuda"]) >= 6 * 2 and out["cuda"] == out["cpu"]

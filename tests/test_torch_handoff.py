@@ -84,7 +84,9 @@ def test_resident_handoff_reads_the_device_table(chunks):
     assert not port._host_dirty
     codes, counts = port.to_device_dataset(LAG)
     assert not port._host_dirty and port._since_flush > 0  # nothing flushed
-    port.validate()
+    port.validate()  # sums the resident table on the device
+    assert not port._host_dirty
+    port.flush()
     assert port._host_dirty
     codes2, counts2 = port.to_device_dataset(LAG)
     np.testing.assert_array_equal(codes.numpy(), codes2.numpy())

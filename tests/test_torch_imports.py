@@ -42,7 +42,9 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.models.train_bear_net", "bear_tpu_torch.utils.config",
             "bear_tpu_torch.ops.keyed_random", "bear_tpu_torch.ops.loggamma",
             "bear_tpu_torch.inference.score_cli",
-            "bear_tpu_torch.utils.cli_common", "bear_tpu_torch.utils.metrics"} <= set(mods)
+            "bear_tpu_torch.utils.cli_common", "bear_tpu_torch.utils.metrics",
+            "bear_tpu_torch.counting.native", "bear_tpu_torch.counting.summarize",
+            "bear_tpu_torch.counting.check_summarize"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -100,11 +102,11 @@ def test_package_data_ships_kernel_sources_and_fixtures():
     with open(os.path.join(REPO, "pyproject.toml"), "rb") as fh:
         globs = tomllib.load(fh)["tool"]["setuptools"]["package-data"]["bear_tpu_torch"]
     wanted = []
-    for sub, patterns in (("csrc", ("*.cu", "*.cuh")), ("data/fixtures", ("*",))):
+    for sub, patterns in (("csrc", ("*.cu", "*.cuh", "*.cpp")), ("data/fixtures", ("*",))):
         for name in os.listdir(os.path.join(PKG, sub)):
             if os.path.isfile(os.path.join(PKG, sub, name)) and any(
                     fnmatch.fnmatch(name, p) for p in patterns):
                 wanted.append(f"{sub}/{name}")
-    assert "csrc/hist_add.cuh" in wanted and "data/fixtures/ysd1_lag_5_file_0_preshuf.tsv" in wanted
+    assert "csrc/hist_add.cuh" in wanted and "csrc/fastx.cpp" in wanted and "data/fixtures/ysd1_lag_5_file_0_preshuf.tsv" in wanted
     missing = [w for w in wanted if not any(fnmatch.fnmatch(w, g) for g in globs)]
     assert missing == []

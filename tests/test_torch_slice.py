@@ -182,3 +182,45 @@ def test_chip_smoke_variant_generators():
             kinds[3] += not alt and 1 <= len(ref) <= 5
     assert kinds.sum() == 2000
     np.testing.assert_allclose(kinds / 2000, [0.4, 0.2, 0.2, 0.2], atol=0.03)
+
+
+def test_chip_smoke_on_disk_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4e on the CPU at a small size: FASTQ files ->
+    # summarize CLI -> lag-5 shards (held against a TransitionCounter's
+    # rows and counts) -> streaming training CLI (first ELBOs vs float64,
+    # streamed vs in-memory perplexities, cache, cleared state) -> score
+    # CLI; its own checks raise on a fault.
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chip_smoke.read_chunks(reads, groups, rows=1024):
+        counter.add_chunk(c)
+    rows = counter.nonzero_rows(LAG)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
+                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
+                                     profile=False)
+    assert run["launches"] == 0 and run["chunks"] == 4  # 3,333 reads, 1,024 a chunk
+    assert [g for _, g, _ in run["files"]] == [0, 0, 0, 1]
+    assert run["files"][1][0].endswith(".fq.gz")
+    applies = chip_smoke.streaming_train_phase(
+        run["prefix"], run["shards"], reads, groups, str(tmp_path / "stream"), "CPU",
+        device="cpu", lag=LAG, cnn_kw={"filter_width": 3, "num_filters": 8,
+                                       "kmer_layer1_width": 6},
+        batch=256, epochs=2, n_cli=20, profile=False)
+    assert applies > 5
+    out = capsys.readouterr().out
+    for part in ("[summarize] -l 5:", "both groups' counts == phase 4's exactly",
+                 "[stream] first 5 ELBOs", "(0/1 cache hits)", "score_cli seqs"):
+        assert part in out, part
+
+
+def test_chip_smoke_stream_config_is_the_streaming_cli_config():
+    cfg = chip_smoke.stream_config("/out*", "/counts/run")
+    from bear_tpu_torch.utils.config import RunConfig
+
+    run = RunConfig.from_configparser(cfg)
+    assert run.streaming and run.shuffle and run.cache and run.checkpoint_every == 32
+    assert (run.lag, run.num_ds, run.train_column, run.test_column) == (13, 2, 0, 1)
+    assert run.start_token == "run_lag_13_file_" and run.files_path == "/counts"
+    assert run.ar_func_name == "cnn" and run.af_kwargs == chip_smoke.CNN_KW
+    assert (run.batch_size_raw, run.epochs_raw, run.learning_rate) == (32768, "3", 0.005)
+    assert run.test and run.train_test and run.precision == "float32"
