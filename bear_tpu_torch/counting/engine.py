@@ -15,7 +15,9 @@ bear_tpu/counting/engine.py).
     output: ``nonzero_rows``, ``row_counts``, ``validate`` and
             ``export_tsv`` read the device table while it holds every count
             (only the nonzero rows cross to the host), the host
-            accumulators after a flush; ``write_tsv_shards`` writes
+            accumulators after a flush; ``table`` gives one lag's counts
+            on the device (the resident table itself, not a copy);
+            ``write_tsv_shards`` writes
             bear_tpu's TSV shards byte for byte; ``save_state`` /
             ``load_state`` keep bear_tpu's ``.npz`` layout
 
@@ -343,6 +345,15 @@ class TransitionCounter:
         off = self._offsets[lag]
         return self._dev[off : off + self.n_groups * n_rows * self.A1].view(
             self.n_groups, n_rows, self.A1)
+
+    def table(self, lag: int) -> torch.Tensor:
+        """The counts of one lag, [n_groups, rows(lag), A+1], as a tensor on
+        the counter's device: while the device table holds every count, that
+        int32 table itself (a view, no copy); else the host int64
+        accumulators, uploaded."""
+        if self._resident():
+            return self._device_table(lag)
+        return torch.from_numpy(self.tables[lag]).to(resolve_device(self.device))
 
     def merge_from(self, other: "TransitionCounter"):
         """Merge partial counts (cross-process reduction point)."""

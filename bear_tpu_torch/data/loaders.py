@@ -171,6 +171,21 @@ def load_sparse(file: str, alphabet: str, num_ds: int, dtype=np.float64,
                         counts=counts, alphabet=alphabet)
 
 
+def load_dense_counts(file: str, alphabet: str, num_ds: int, dtype=np.float64,
+                      header: bool = False) -> np.ndarray:
+    """The counts [n, num_ds, A+1] of a dense count TSV alone: the native
+    parser's, without the k-mer strings and codes that :func:`load_dense`
+    also builds (files the native parser does not take go through
+    ``load_dense``'s NumPy parse)."""
+    from bear_tpu_torch.counting.native import load as load_native
+
+    parsed = load_native().parse_tsv(file, header, num_ds,
+                                     alphabets.alphabet_size(alphabet) + 1)
+    if parsed is not None:
+        return parsed[1].astype(dtype, copy=False)
+    return load_dense(file, alphabet, num_ds, dtype, header, native=False).counts
+
+
 def load_files(files: Sequence[str], alphabet: str, num_ds: int,
                sparse: bool = False, dtype=np.float64) -> CountDataset:
     """Load and concatenate count files, in order."""

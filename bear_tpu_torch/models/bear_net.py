@@ -24,11 +24,15 @@ Semantics kept from bear_tpu:
   ``default_rng([seed, e, p])``, and checkpoints count optimizer applies
   (rounded up to whole ``block_steps`` blocks), so they fall where
   bear_tpu's do. A resume fast-forwards past the applies already done.
+- Reference counts (``ref_counts``, or a third element of every shard):
+  the prepared reference column of the reference-guided model
+  (:mod:`bear_tpu_torch.models.bear_ref`), stacked and permuted with the
+  same batches as the codes and counts and given to the AR module as its
+  third input.
 
 The step loop never waits for the device: ELBOs stay on the device until
-the run ends (or a checkpoint is written). Not ported yet: ``mesh``,
-``ref_counts`` (and three-element shards), and optimizers other than Adam
-and SGD (ROADMAP.md).
+the run ends (or a checkpoint is written). Not ported yet: ``mesh`` and
+optimizers other than Adam and SGD (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -257,10 +261,18 @@ def _start(ar_func, params_restart, opt_state_restart, seed, dtype, dev,
     return params, leaves, optimizer, applies_done
 
 
-def _batch_loss(params, ar_func, train_ar, codes_b, counts_b, scale):
+def _ar_probs(ar_func, codes_b, ar_params, ref_b):
+    """The AR module's probabilities of a batch; the reference-guided
+    module takes the batch's reference counts as its third input."""
+    if ref_b is None:
+        return ar_func.apply_codes(codes_b, ar_params)
+    return ar_func.apply_codes(codes_b, ar_params, ref_b)
+
+
+def _batch_loss(params, ar_func, train_ar, codes_b, counts_b, scale, ref_b=None):
     """-scale * the batch's summed log-likelihood (scale = num_kmers /
     actual batch size: the unbiased ELBO, reference bear_net.py:187-191)."""
-    ar_probs = ar_func.apply_codes(codes_b, params["ar"])
+    ar_probs = _ar_probs(ar_func, codes_b, params["ar"], ref_b)
     if train_ar:
         ll = ar_log_prob(counts_b, ar_probs)
     else:
@@ -342,6 +354,9 @@ def train(
     writer : optional object with ``scalar(tag, value, step)``, given each
         apply's ELBO after training.
     device : where training runs; "cuda" (default) raises without a card.
+    ref_counts : optional [N, alphabet_size+1] prepared reference counts
+        (``bear_ref.prepare_ref_counts``), for an AR module that takes them
+        as its third input (``bear_ref.RefAR``).
     checkpoint_dir : resume from its ``train_state.pickle`` when there is
         one (the ELBOs returned are those of the applies run now); with
         ``checkpoint_every > 0`` also write that state every
@@ -349,18 +364,20 @@ def train(
         function of its index, so a resumed run ends on a bit-identical
         trajectory.
     """
-    _not_ported(mesh=mesh, ref_counts=ref_counts)
+    _not_ported(mesh=mesh)
     dev = resolve_device(device)
     params, leaves, optimizer, applies_done = _start(
         ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
         learning_rate, checkpoint_dir)
 
     codes, counts = _to_device(codes, counts, dtype, dev)
+    ref = _ref_to_device(ref_counts, dtype, dev)
     if shuffle:
         perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(codes)),
                                device=dev)
-        codes, counts = codes[perm], counts[perm]
+        codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
     codes_s, counts_s, sizes = _stack_batches(codes, counts, batch_size)
+    ref_s = None if ref is None else _stack_one(ref, batch_size)
     steps_per_epoch = codes_s.shape[0]
     total_steps = steps_per_epoch * int(epochs)
     acc_steps = int(acc_steps)
@@ -372,7 +389,7 @@ def train(
 
     def loss_of(idx):
         return lambda: _batch_loss(params, ar_func, train_ar, codes_s[idx], counts_s[idx],
-                                   scales[idx])
+                                   scales[idx], _at(ref_s, idx))
 
     start_apply = applies_done
     elbos = torch.empty(max(0, n_apply - start_apply), dtype=dtype, device=dev)
@@ -397,12 +414,31 @@ def _shards_takes_epoch(shards) -> bool:
         return False
 
 
-def _two_element(shard):
-    if len(shard) > 2:
-        raise NotImplementedError(
-            "shards carrying reference counts (bear_ref) are not ported to PyTorch "
-            "yet; see ROADMAP.md Queue 1")
-    return shard[0], shard[1]
+def _ref_to_device(ref, dtype, dev):
+    """Reference counts as a ``dtype`` tensor on ``dev``, or None."""
+    return None if ref is None else torch.as_tensor(ref).to(device=dev, dtype=dtype)
+
+
+def _at(x, i):
+    """x[i], or None where there is no tensor (no reference counts, no
+    training column)."""
+    return None if x is None else x[i]
+
+
+class _RefAgreement:
+    """Every shard of one stream carries reference counts, or none does."""
+
+    def __init__(self):
+        self.with_ref = None
+
+    def split(self, shard):
+        """(codes, counts, ref or None) of a two- or three-element shard."""
+        ref = shard[2] if len(shard) > 2 else None
+        if self.with_ref is None:
+            self.with_ref = ref is not None
+        elif self.with_ref != (ref is not None):
+            raise ValueError("all shards must agree on carrying reference counts")
+        return shard[0], shard[1], ref
 
 
 def train_streaming(
@@ -433,7 +469,8 @@ def train_streaming(
     (bear_tpu's ``train_streaming``, apply for apply).
 
     shards : callable returning an iterable of (codes [n, lag], counts
-        [n, A+1]) pairs, numpy or tensors; called once per epoch, with the
+        [n, A+1]) pairs, or (codes, counts, prepared reference counts [n,
+        A+1]) triples, numpy or tensors; called once per epoch, with the
         epoch number when it takes an argument (the hook for a per-epoch
         shard order). Each shard's last batch may be partial: batches never
         span shards, while accumulation groups of ``acc_steps`` batches do;
@@ -459,27 +496,33 @@ def train_streaming(
         learning_rate, checkpoint_dir)
     acc_steps, K, bsz = int(acc_steps), int(block_steps), int(batch_size)
     takes_epoch = _shards_takes_epoch(shards)
+    agree = _RefAgreement()
     lag_w = None
 
     def batch_stream():
-        """(codes, counts, scale) of every batch, over epochs and shards."""
+        """(codes, counts, scale, ref or None) of every batch, over epochs
+        and shards."""
         nonlocal lag_w
         pos = 0  # position in the stream: the in-shard shuffle's seed index
         for epoch in range(int(epochs)):
             for shard in (shards(epoch) if takes_epoch else shards()):
-                codes, counts = _to_device(*_two_element(shard), dtype, dev)
+                codes, counts, ref = agree.split(shard)
+                codes, counts = _to_device(codes, counts, dtype, dev)
+                ref = _ref_to_device(ref, dtype, dev)
                 if shuffle:  # the permutation gathers on the device
                     perm = np.random.default_rng([seed, epoch, pos]).permutation(len(codes))
                     perm = torch.as_tensor(perm, device=dev)
-                    codes, counts = codes[perm], counts[perm]
+                    codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
                 pos += 1
                 codes_s, counts_s, sizes = _stack_batches(codes, counts, bsz)
+                ref_s = None if ref is None else _stack_one(ref, bsz)
                 if lag_w is None:
                     lag_w = codes_s.shape[2]
                 elif codes_s.shape[2] != lag_w:
                     raise ValueError(f"shard lag {codes_s.shape[2]} != first shard's {lag_w}")
                 for t in range(codes_s.shape[0]):
-                    yield codes_s[t], counts_s[t], float(num_kmers) / float(sizes[t])
+                    yield (codes_s[t], counts_s[t], float(num_kmers) / float(sizes[t]),
+                           _at(ref_s, t))
 
     def save():
         if checkpoint_dir is not None:
@@ -499,8 +542,8 @@ def train_streaming(
         if applies_seen <= applies_done:
             continue  # resume: applied before the interruption
         loss_sum = _apply(optimizer, [
-            (lambda c=c, n=n, sc=sc: _batch_loss(params, ar_func, train_ar, c, n, sc))
-            for c, n, sc in group])
+            (lambda c=c, n=n, sc=sc, r=r: _batch_loss(params, ar_func, train_ar, c, n, sc, r))
+            for c, n, sc, r in group])
         elbos.append(-loss_sum / acc_steps)
         applies_done += 1
         n_in_block += 1
@@ -582,19 +625,21 @@ class _Evaluator:
         self.ar_params = [_tensor(p, dev, dtype) for p in ar_params]
         self.generator = torch.Generator(device=dev)
 
-    def stacks(self, codes, counts, batch_size):
-        """(codes, test counts, train counts or None) stacked to [steps, B,
-        ...] on the device."""
+    def stacks(self, codes, counts, batch_size, ref=None):
+        """(codes, test counts, train counts or None, reference counts or
+        None) stacked to [steps, B, ...] on the device."""
         codes, counts = _to_device(codes, counts, self.dtype, self.dev)
         codes_s, test_s, _ = _stack_batches(codes, counts[:, self.loc_test, :], batch_size)
         train_s = (_stack_one(counts[:, self.loc_train, :], batch_size)
                    if self.use_train else None)
-        return codes_s, test_s, train_s
+        ref = _ref_to_device(ref, self.dtype, self.dev)
+        ref_s = None if ref is None else _stack_one(ref, batch_size)
+        return codes_s, test_s, train_s, ref_s
 
-    def batch(self, codes_b, test_b, train_b, step):
+    def batch(self, codes_b, test_b, train_b, step, ref_b=None):
         state = np.random.SeedSequence([self.seed, step]).generate_state(2, np.uint32)
         self.generator.manual_seed((int(state[0]) << 31) | (int(state[1]) >> 1))
-        ar_probs = self.ar_func.apply_codes(codes_b, self.ar_params)
+        ar_probs = _ar_probs(self.ar_func, codes_b, self.ar_params, ref_b)
         out = _evaluation_step(test_b, ar_probs, self.h, self.van_reg, self.generator,
                                counts_train=train_b)
         return [o.to(torch.float64) for o in out]
@@ -638,16 +683,18 @@ def evaluation(
     Exact ties of the most likely transition are broken with a
     ``torch.Generator`` on the device seeded from (``seed``, batch index)
     (the draws differ from bear_tpu's, so tied rows may count differently).
+    ``ref_counts``: prepared reference counts [N, A+1] for a
+    reference-guided AR module, as in :func:`train`.
     """
-    _not_ported(mesh=mesh, ref_counts=ref_counts)
+    _not_ported(mesh=mesh)
     dev = resolve_device(device)
     ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
                     seed, dev)
-    codes_s, test_s, train_s = ev.stacks(codes, counts, batch_size)
+    codes_s, test_s, train_s, ref_s = ev.stacks(codes, counts, batch_size, ref_counts)
     sums = None
     for step in range(codes_s.shape[0]):
-        out = ev.batch(codes_s[step], test_s[step],
-                       None if train_s is None else train_s[step], step)
+        out = ev.batch(codes_s[step], test_s[step], _at(train_s, step), step,
+                       _at(ref_s, step))
         sums = out if sums is None else [s + o for s, o in zip(sums, out)]
     return tuple(m.cpu().numpy() for m in _metrics(*sums, exp=torch.exp))
 
@@ -673,7 +720,8 @@ def evaluation_streaming(
     """Shard-streamed evaluation, memory bounded by one shard (bear_tpu's
     ``evaluation_streaming``): the same contract and 9-tuple as
     :func:`evaluation`. ``shards`` is a callable returning an iterable of
-    (codes, counts [n, num_ds, A+1]) pairs, consumed once. Batches never
+    (codes, counts [n, num_ds, A+1]) pairs, or triples whose third element
+    is the shard's prepared reference counts, consumed once. Batches never
     span shards; the tie-break draws are keyed by the global batch index.
     The metrics of each block of ``block_steps`` batches are summed in
     float64 on the device, and the blocks in float64 on the host."""
@@ -682,11 +730,13 @@ def evaluation_streaming(
     ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
                     seed, dev)
     K = int(block_steps)
+    agree = _RefAgreement()
     totals = None
     lag_w = None
     step = 0
     for shard in shards():
-        codes_s, test_s, train_s = ev.stacks(*_two_element(shard), batch_size)
+        codes, counts, ref = agree.split(shard)
+        codes_s, test_s, train_s, ref_s = ev.stacks(codes, counts, batch_size, ref)
         if lag_w is None:
             lag_w = codes_s.shape[2]
         elif codes_s.shape[2] != lag_w:
@@ -695,8 +745,8 @@ def evaluation_streaming(
         for s0 in range(0, steps, K):
             block = None
             for t in range(s0, min(s0 + K, steps)):
-                out = ev.batch(codes_s[t], test_s[t],
-                               None if train_s is None else train_s[t], step + t)
+                out = ev.batch(codes_s[t], test_s[t], _at(train_s, t), step + t,
+                               _at(ref_s, t))
                 block = out if block is None else [b + o for b, o in zip(block, out)]
             block = [b.cpu().numpy() for b in block]
             totals = block if totals is None else [a + b for a, b in zip(totals, block)]

@@ -17,9 +17,11 @@ Semantics kept:
   folder for later epochs; checkpoint_every > 0 writes the mid-run train
   state every N optimizer applies and resumes from it.
 
+- [data] reference_column (default -1) is the reference column of the
+  reference-guided CLI (train_bear_ref).
+
 Not ported yet, and refused when asked for (ROADMAP.md, Queue 1):
-``data_parallel`` and any ``compute_precision``. ``[data]
-reference_column`` is read by nothing.
+``data_parallel`` and any ``compute_precision``.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ class RunConfig:
     alphabet: str
     train_column: int
     test_column: int
+    reference_column: int
     # [hyperp]
     lag: int
     # [train]
@@ -102,6 +105,7 @@ class RunConfig:
             alphabet=d["alphabet"],
             train_column=int(d["train_column"]),
             test_column=int(d["test_column"]),
+            reference_column=int(d.get("reference_column", "-1")),
             lag=int(hp["lag"]),
             train=tr["train"] == "True",
             epochs_raw=tr["epochs"],

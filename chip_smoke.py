@@ -54,6 +54,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float64 from the same start and stream, streamed held-out perplexities
    against the in-memory evaluation on the card) and the score CLI on the
    trained model directory;
+4f. generation and the other models, in 4e's directory: (H) the reads as
+   groups 0 and 1 and the genome's unmutated template as reference group 2,
+   counted at lag 13 (3 groups), handed off on the card, the
+   reference-guided CNN BEAR trained (first ELBOs against CPU float64) and
+   evaluated, then the reference-guided CLI on YSD1 (BMM against
+   bmm_likelihood); (I) vBEAR on YSD1, 3,000 applies (h and sigma against
+   the published scale); (J) lag selection at lags 1..13 over (G) by the
+   resident table of a recount, the TSV shards and both CLI routes (all
+   agree); (K) the assembly CLI on (G)'s reads with 4e's streamed CNN, 64
+   seeds x 16 samples, 500 letters each side, sampled and MAP, with one
+   profiler window of the sampler's share, and a float64 rollout on the card
+   held against the CPU sequence for sequence;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -131,6 +143,21 @@ CLI_READS = 64
 N_TRAIN_FILES = 3
 STREAM_CHECKPOINT_EVERY = 32
 EVAL_RTOL = 1e-5
+# Phase 4f: generation and the other models. (H) the reference-guided CNN BEAR
+# on count -> serve's reads with the genome's template counted as the
+# reference group; (I) vBEAR on YSD1 (docs/usage.md:176-185); (J) lag
+# selection over (G) by every route (float64 sums: the routes agree to
+# reassociation); (K) the assembly CLI on (G)'s reads with the streamed CNN,
+# and a float64 rollout on the card against the CPU from a small table,
+# where only a Gumbel near-tie may pick another letter.
+N_REF_GROUPS = 3
+VBEAR_APPLIES = 3000
+YSD1_VBEAR_H, VBEAR_H_RTOL, VBEAR_SIGMA_MAX = 0.0433, 0.25, 0.25
+LAG_SELECT_RTOL = 1e-10
+ASM_SEEDS, ASM_NUM, ASM_FLANK, ASM_SEED_BP = 64, 16, 500, 150
+ASM_CHECK = (8, 4, 8, 50)  # seeds, samples, lag, letters each side
+ASM_PROFILE_FLANK = 8
+ASM_MARGIN = 1e-12
 
 
 def ysd1_config(out_folder):
@@ -949,7 +976,7 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
                        lambda: write_tsv_shards(out, lag, want_rows, want_counts,
                                                 int(np.log2(n_bins))), top=10)
     return dict(launches=launches, chunks=stats["chunks"], prefix=prefix, files=files,
-                shards=shards)
+                shards=shards, csv=csv)
 
 
 def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20):
@@ -1183,6 +1210,427 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
           f"--map on {len(seqs)} held-out reads against the streamed model: finite, "
           f"{cli_score_s:.3f} s (model and counts load included) [{card}]")
     return len(elbos)
+
+
+def reference_template(genome_mb=GENOME_MB, seed=SEED, template_len=100_000):
+    """The genome's unmutated template: the first draw of synth_genome's rng
+    (make_reads' genome is this template tiled, with ~1% substitutions),
+    tiled to the genome's length."""
+    template = np.random.default_rng(seed).integers(0, 4, template_len, dtype=np.int8)
+    G = int(genome_mb * 1e6)
+    return np.tile(template, -(-G // template_len))[:G]
+
+
+def reference_phase(reads, chunks, out_dir, card, device="cuda", lag=LAG,
+                    genome_mb=GENOME_MB, cnn_kw=CNN_KW, batch=TRAIN_BATCH,
+                    epochs=TRAIN_EPOCHS):
+    """4f (H): count -> serve's reads as groups 0 (train) and 1 (held out)
+    and the genome's template, counted as one long sequence, as group 2 (the
+    reference), at ``lag``; the counts handed off on the device; the
+    reference-guided CNN BEAR trained and evaluated (test column 1,
+    reference column 2); then the reference-guided CLI on YSD1 with
+    bear_test.cfg's values in float32. Checks conservation, the first
+    ELBOs against the CPU in float64 from the same initial parameters, and
+    the CLI's BMM perplexities against bmm_likelihood in float64. Returns
+    the recount's count_chunk launches."""
+    import torch
+    from bear_tpu_torch.counting import engine
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.data import bmm_likelihood, load_dense
+    from bear_tpu_torch.models import bear_ref, train_bear_ref
+    from bear_tpu_torch.ops.distributions import EPSILON
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    ref = reference_template(genome_mb)
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    counter = engine.TransitionCounter(lags=[lag], n_groups=N_REF_GROUPS, device=device)
+    for chunk in chunks:
+        counter.add_chunk(chunk)
+    for chunk in engine.chunk_reads(iter([(ref, 2)]), lag):
+        counter.add_chunk(chunk)
+    counter.sync()
+    launches = count_chunk_update.launches
+    count_s = time.perf_counter() - t0
+    counter.validate(len(reads) * (reads.shape[1] + 1) + len(ref) + 1)
+    t0 = time.perf_counter()
+    codes, counts = counter.to_device_dataset(lag)
+    synchronize(device)
+    handoff_s = time.perf_counter() - t0
+    n_rows, table_bytes = codes.shape[0], 4 * counter.table_size
+    del counter
+    print(f"[ref] reads (groups 0, 1) and the {len(ref):,} bp template (group 2) counted at "
+          f"lag {lag} into {table_bytes:,} bytes ({launches} count_chunk launches, "
+          f"{count_s:.4f} s), conserved; handed off on {device}: {n_rows:,} rows in "
+          f"{handoff_s:.4f} s [{card}]")
+
+    gen = torch.Generator().manual_seed(SEED)
+    ar = bear_ref.make_ref_ar("cnn", lag, 4, cnn_kw, device=device)
+    p0 = [torch.zeros(())] + ar.init(gen)
+    kw = dict(lag=lag, batch_size=batch, learning_rate=TRAIN_LR, params_restart=p0)
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bear_ref.train(codes, counts[:, 0], counts[:, 2], n_rows, "cnn", cnn_kw,
+                         epochs=epochs, dtype=torch.float32, device=device, **kw)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+    elbos = res.elbos
+    steps = -(-n_rows // batch)
+    check(np.isfinite(elbos).all() and len(elbos) == epochs * steps,
+          f"reference-guided ELBOs not finite or of the wrong count: {len(elbos)}")
+    print(f"[ref] reference-guided CNN BEAR {cnn_kw}, batch {batch}, {epochs} epochs, lr "
+          f"{TRAIN_LR}, float32: {len(elbos)} applies in {train_s:.3f} s = "
+          f"{len(elbos) / train_s:.6g} applies/s; h {res.h:.6g}, error_rate "
+          f"{bear_ref.error_rate(res.params):.6g}, stop_rate "
+          f"{bear_ref.stop_rate_inverse(res.params):.6g}; ELBO {elbos[0]:.7g} -> "
+          f"{elbos[-1]:.7g} [{card}]")
+    k = min(N_ELBO_CHECK, steps)
+    t0 = time.perf_counter()
+    cpu = bear_ref.train(codes[: k * batch].cpu(), counts[: k * batch, 0].cpu(),
+                         counts[: k * batch, 2].cpu(), n_rows, "cnn", cnn_kw, epochs=1,
+                         dtype=torch.float64, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    elbo_err = float(np.max(np.abs(elbos[:k] / cpu.elbos[:k] - 1)))
+    check(len(cpu.elbos) == k and elbo_err <= ELBO_RTOL,
+          f"first {k} reference-guided ELBOs {elbos[:k]} differ from CPU float64 "
+          f"{cpu.elbos} by {elbo_err:.3e}")
+    print(f"[ref] first {k} ELBOs vs CPU float64 from the same initial parameters: max rel "
+          f"err {elbo_err:.3e} (tolerance {ELBO_RTOL}); the CPU run {cpu_s:.3f} s")
+    synchronize(device)
+    t0 = time.perf_counter()
+    out = bear_ref.evaluation(codes, counts, 0, 1, 2, "dna", res.h, ar, res.params["ar"],
+                              VAN_REG, dtype=torch.float32, device=device)
+    eval_s = time.perf_counter() - t0
+    check(all(np.isfinite(np.asarray(o)).all() for o in out), "reference-guided evaluation "
+          "not finite")
+    print(f"[ref] evaluation {eval_s:.3f} s: held-out perplexity BEAR {float(out[3]):.6f} AR "
+          f"{float(out[4]):.6f} BMM {np.asarray(out[5]).tolist()}; accuracy BEAR "
+          f"{float(out[6]):.6f} AR {float(out[7]):.6f} [{card}]")
+    del codes, counts, res, ar
+
+    cfg = ysd1_config(os.path.join(out_dir, "ysd1_ref") + "*")
+    cfg["train"].update(epochs="1", train_ar="True")  # bear_test.cfg's values
+    t0 = time.perf_counter()
+    _, ll_van, perp_van = train_bear_ref.main(cfg, device=device)
+    cli_s = time.perf_counter() - t0
+    ds = load_dense(bundled_ysd1_path(), "dna", 3)
+    calc = bmm_likelihood(ds.counts, np.array(VAN_REG) + EPSILON, device="cpu")[0]
+    want = np.exp(-calc / ds.counts[:, 0].sum())
+    bmm_err = float(np.max(np.abs(np.asarray(perp_van) / want - 1)))
+    check(bmm_err <= BMM_RTOL, f"train_bear_ref BMM perplexities {perp_van} differ from "
+          f"bmm_likelihood's {want} by {bmm_err:.3e}")
+    res = cfg["results"]
+    print(f"[ref] train_bear_ref.main on YSD1, bear_test.cfg's values in float32: {cli_s:.3f} "
+          f"s; h {float(res['h']):.6g}, error_rate {float(res['error_rate']):.6g}, stop_rate "
+          f"{float(res['stop_rate']):.6g}, held-out perplexity BEAR "
+          f"{float(res['heldout_perplex_BEAR']):.6f}; BMM vs bmm_likelihood float64 max rel "
+          f"err {bmm_err:.3e} (tolerance {BMM_RTOL}) [{card}]")
+    return launches
+
+
+def vbear_phase(card, device="cuda", applies=VBEAR_APPLIES, gate=True, profile=True):
+    """4f (I): vBEAR on YSD1 (docs/usage.md:176-185): linear, batch 1,500,
+    ``applies`` applies, lr 0.01, seed 10, float32. With ``gate``, checks
+    the posterior median h within 25% of the published 0.0433 and sigma
+    below 0.25; with ``profile``, profiles 50 applies."""
+    import torch
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import vbear
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    ds = load_dense(bundled_ysd1_path(), "dna", 3)
+    ar = get_ar_func("linear", 5, 4, dtype=torch.float32, device=device)
+    kw = dict(batch_size=1500, learning_rate=0.01, seed=10, dtype=torch.float32, device=device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    vb = vbear.train_variational_h(ds.codes, ds.counts[:, 0], ds.num_kmers, ar,
+                                   epochs=applies, **kw)
+    synchronize(device)
+    sec = time.perf_counter() - t0
+    mu, sigma = vb.h_posterior
+    check(np.isfinite(vb.losses).all() and len(vb.losses) == applies, "vBEAR losses")
+    print(f"[vbear] YSD1 linear, batch 1500, lr 0.01, seed 10, float32: {applies:,} applies in "
+          f"{sec:.3f} s = {applies / sec:.6g} applies/s; h {vb.h:.6g} (published EB 0.0433), "
+          f"mu {mu:.6g}, sigma {sigma:.6g} [{card}]")
+    if gate:
+        check(abs(vb.h - YSD1_VBEAR_H) / YSD1_VBEAR_H < VBEAR_H_RTOL and sigma < VBEAR_SIGMA_MAX,
+              f"vBEAR h {vb.h} not within 25% of {YSD1_VBEAR_H}, or sigma {sigma} >= 0.25")
+    if profile:
+        device_breakdown("vBEAR YSD1, 50 applies", lambda: vbear.train_variational_h(
+            ds.codes, ds.counts[:, 0], ds.num_kmers, ar, epochs=50, **kw), card, top=8)
+
+
+def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
+    """4f (J): lag selection over (G) by every route: select_lag on a
+    recount of the reads at lags 1..lag (the summarize counter is gone),
+    select_lag_from_tsvs on summarize's shards, and the CLI's counting and
+    --counts routes with --json. Checks that all four agree at
+    LAG_SELECT_RTOL and on the best lag. Returns the count_chunk launches
+    of the recount and of the CLI's counting route."""
+    import contextlib
+    import io
+
+    import torch
+    from bear_tpu_torch.counting import summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.models import lag_select_cli, lag_selection
+
+    lags = range(1, lag + 1)
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    counter = summarize.run_counting(csv, lags, device=device)
+    counter.sync()
+    launches = {"lag_select": count_chunk_update.launches}
+    count_s = time.perf_counter() - t0
+    table_s = []
+    for _ in range(2):  # the first call loads the sweep's kernels
+        t0 = time.perf_counter()
+        table = lag_selection.select_lag(counter)
+        table_s.append(time.perf_counter() - t0)
+    del counter
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tsv = lag_selection.select_lag_from_tsvs(prefix, lags, device=device)
+    tsv_s = time.perf_counter() - t0
+
+    def cli(argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            best = lag_select_cli.main(lag_select_cli.build_parser().parse_args(
+                argv + ["-l", str(lag), "--json", "--device", torch.device(device).type]))
+        payload = json.loads(buf.getvalue())
+        check(best == payload["best_lag"], "lag_select_cli's best lag")
+        return np.array(payload["log_marginals"]), payload["best_lag"], time.perf_counter() - t0
+
+    count_chunk_update.launches = 0
+    counted, counted_best, counted_s = cli([csv])
+    launches["lag_select_cli"] = count_chunk_update.launches
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    from_tsv, tsv_best, tsv_cli_s = cli([prefix, "--counts"])
+    err = max(float(np.max(np.abs(m / table.log_marginals - 1)))
+              for m in (tsv.log_marginals, counted, from_tsv))
+    check(err <= LAG_SELECT_RTOL and table.best == tsv.best == counted_best == tsv_best,
+          f"lag selection routes disagree: max rel err {err:.3e}, best lags {table.best}, "
+          f"{tsv.best}, {counted_best}, {tsv_best}")
+    print(f"[lag] lags 1..{lag}, alphas {table.alphas.tolist()}: best lag {table.best} (alpha "
+          f"{table.best_alpha(table.best):g}); the four routes agree to {err:.3e} (tolerance "
+          f"{LAG_SELECT_RTOL}); log marginals at the best alpha "
+          f"{[round(float(v), 1) for v in table.log_marginals.max(axis=-1)]}")
+    print(f"[lag] recount {count_s:.3f} s ({launches['lag_select']} count_chunk launches) + "
+          f"select_lag on the resident table {table_s[0]:.3f} s, again {table_s[1]:.3f} s; "
+          f"select_lag_from_tsvs {tsv_s:.3f} s; lag_select_cli counting route {counted_s:.3f} s "
+          f"({launches['lag_select_cli']} launches), --counts route {tsv_cli_s:.3f} s [{card}]")
+    return launches
+
+
+def assembly_margin(gen, seed_s, index, direction, step, table, lag, prior, seed, n_seqs,
+                    flank, get_map):
+    """The CPU float64 Gumbel-max margin (best score minus the runner-up) at
+    one step of one generated sequence, replayed from its keys: how close
+    the pick was to another letter. ``prior`` maps the step's window codes
+    [lag] to the concentration added to its counts (van, or ar / h)."""
+    import torch
+    from bear_tpu_torch.inference import assemble
+    from bear_tpu_torch.ops import keyed_random as kr
+    from bear_tpu_torch.ops.loggamma import log_dirichlet_draw_keyed
+
+    if direction == 0:  # the left flank extends the seed's reverse complement
+        prefix = assemble._revcomp(gen)[: flank + len(seed_s) + step]
+    else:
+        prefix = gen[: flank + len(seed_s) + step]
+    window = ["ACGT".index(c) for c in prefix[-lag:]]
+    row = (4**lag - 1) // 3 + int("".join(str(c) for c in window), 4)
+    batch_key = kr.fold_in(kr.key(seed), direction * assemble.DIRECTION_STRIDE)
+    conc = prior(torch.tensor(window)) + torch.as_tensor(table[row], dtype=torch.float64)
+    conc[-1] = 0.0
+    if get_map:
+        lp = torch.log(torch.clamp_min(conc, 1e-30) / conc[:4].sum())
+    else:
+        key = kr.fold_in(kr.fold_in(batch_key, index), row)
+        lg = log_dirichlet_draw_keyed(key, conc, n_iter=assemble.DRAW_ITERS)
+        lp = lg - torch.logsumexp(lg, dim=-1)
+    g = assemble._gumbel(batch_key, range(step, step + 1), n_seqs, torch.float64, "cpu")
+    top = torch.sort(g[0, index] + lp[:4], descending=True).values
+    return float(top[0] - top[1])
+
+
+def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
+    """One torch.profiler window over a short sampled rollout with the CLI's
+    table and model: the device time of the keyed draws (the kernels under
+    assemble's DRAW_SPAN) against that of all kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from bear_tpu_torch.inference import assemble
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        assemble.assemble_no_ends(seeds, [[ASM_PROFILE_FLANK] * 2] * len(seeds), num, lag=lag,
+                                  counter_table=table, h=h, ar_apply=ar_apply, seed=SEED,
+                                  device=device)
+        synchronize(device)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = draw_us = 0.0
+    for e in prof.key_averages():
+        if e.key == assemble.DRAW_SPAN and e.device_type == DeviceType.CPU:
+            draw_us += getattr(e, "device_time_total", 0)
+        elif e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            busy += getattr(e, "self_device_time_total", 0)
+    letters = 2 * ASM_PROFILE_FLANK * len(seeds) * num
+    if busy == 0:
+        print(f"[assemble] sampler share not measured: the profiler recorded no device time "
+              f"({letters:,} letters) [{card}]")
+        return
+    print(f"[assemble] one torch.profiler window, {letters:,} sampled letters: keyed draws "
+          f"{draw_us / 1e3:.3f} ms of {busy / 1e3:.3f} ms of kernels = "
+          f"{100 * draw_us / busy:.1f}% of device time; the window's wall (profiled) "
+          f"{wall_us / 1e3:.3f} ms, the device busy {100 * busy / wall_us:.1f}% of it [{card}]")
+
+
+def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", lag=LAG,
+                   genome_mb=GENOME_MB, n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
+                   check_cfg=ASM_CHECK, profile=True):
+    """4f (K): the assembly CLI on (G)'s reads (counted with reverse=True at
+    ``lag``) with the streamed CNN of ``model_dir``: ``n_seeds`` seeded 150
+    bp windows of the genome, ``num`` samples each, ``flank`` letters left
+    and right, sampled and --map, timed whole with its FASTA checked (count,
+    lengths, letters, the seed in place). Its count and its generation are
+    timed apart by calling ``run_counting`` and ``assemble_no_ends`` the way
+    the CLI does, and must give the CLI's sequences. With ``profile``, one
+    torch.profiler window of a short sampled rollout gives the keyed
+    sampler's share of device time. Then float64 rollouts on ``device`` of
+    ``check_cfg`` = (seeds, samples, lag, flank letters) from a small table,
+    BMM and BEAR (a small linear AR), are held against the same on the CPU,
+    sequence for sequence (a flip is allowed only at a Gumbel margin below
+    ASM_MARGIN). Returns the count_chunk launches of the CLI and of the
+    direct count."""
+    import torch
+    from bear_tpu_torch.counting import engine, fastx
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.counting.summarize import run_counting
+    from bear_tpu_torch.inference import assemble, assemble_cli
+    from bear_tpu_torch.inference.scoring import load_bear
+    from bear_tpu_torch.models.ar_funcs import LinearAR
+
+    G = int(genome_mb * 1e6)
+    genome = synth_genome(np.random.default_rng(SEED), G)
+    starts = np.random.default_rng(SEED + 1).integers(0, G - ASM_SEED_BP, n_seeds)
+    seeds = decode_reads(genome[starts[:, None] + np.arange(ASM_SEED_BP)[None, :]])
+    os.makedirs(out_dir, exist_ok=True)
+    seeds_fa = os.path.join(out_dir, "seeds.fa")
+    with open(seeds_fa, "w") as fh:
+        fh.writelines(f">s{i}\n{s}\n" for i, s in enumerate(seeds))
+    dev_type = torch.device(device).type
+    argv = [seeds_fa, "--counts-csv", csv, "--model-dir", model_dir, "--left", str(flank),
+            "--right", str(flank), "--num", str(num), "--seed", str(SEED), "--device", dev_type]
+    launches = {"assemble_cli": 0}
+    cli = {}
+    for mode in ("sampled", "map"):
+        out = os.path.join(out_dir, mode)
+        count_chunk_update.launches = 0
+        t0 = time.perf_counter()
+        rc = assemble_cli.main(argv + ["--out", out] + (["--map"] if mode == "map" else []))
+        synchronize(device)
+        cli_s = time.perf_counter() - t0
+        launches["assemble_cli"] += count_chunk_update.launches
+        gen = [s for _, s in fastx.iter_fasta(os.path.join(out, "seqs.fa"))]
+        L = ASM_SEED_BP + 2 * flank
+        ok = (rc == 0 and len(gen) == n_seeds * num and all(
+            len(s) == L and set(s) <= set("ACGT") and s[flank:flank + ASM_SEED_BP]
+            == seeds[i // num] for i, s in enumerate(gen)))
+        check(ok, f"assemble_cli {mode}: {len(gen)} sequences, or wrong lengths/letters")
+        cli[mode] = (gen, cli_s, count_chunk_update.launches)
+
+    # the CLI's count and generation, called apart with its arguments
+    lag_m, _, h, ar_apply, _ = load_bear(model_dir, device=device)
+    check(lag_m == lag, f"the model directory's lag {lag_m} is not {lag}")
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    counter = run_counting(csv, lags=[lag], reverse=True, alphabet="dna", device=device)
+    counter.sync()
+    count_s = time.perf_counter() - t0
+    launches["assemble"] = count_chunk_update.launches
+    table = counter.table(lag)[0]
+    for mode in ("sampled", "map"):
+        synchronize(device)
+        t0 = time.perf_counter()
+        gen, _ = assemble.assemble_no_ends(
+            seeds, [[flank, flank]] * n_seeds, num, lag=lag, counter_table=table, h=h,
+            ar_apply=ar_apply, get_map=mode == "map", seed=SEED, device=device)
+        synchronize(device)
+        gen_s = time.perf_counter() - t0
+        cli_gen, cli_s, cli_launches = cli[mode]
+        same = int(np.sum(gen.reshape(-1) == np.array(cli_gen)))
+        check(same == len(cli_gen), f"assemble_no_ends {mode} called apart gives {same} of "
+              f"{len(cli_gen)} of the CLI's sequences")
+        n_letters = 2 * flank * n_seeds * num
+        print(f"[assemble] assemble_cli {mode}, lag {lag}, {n_seeds} seeds x {num}, "
+              f"--left {flank} --right {flank}: the CLI {cli_s:.3f} s ({cli_launches} count_chunk "
+              f"launches), {len(set(cli_gen))} distinct sequences; its generation called apart "
+              f"{n_letters:,} letters in {gen_s:.3f} s = {n_letters / gen_s:.6g} letters/s, the "
+              f"same {same} sequences; its reverse count called apart {count_s:.3f} s "
+              f"({launches['assemble']} count_chunk launches) [{card}]")
+    if profile:
+        assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device)
+    del counter, table
+    if dev_type == "cuda":
+        torch.cuda.empty_cache()
+
+    # float64 on the device against the CPU, from the same seed, small table
+    c_seeds, c_num, c_lag, c_flank = check_cfg
+    counter = engine.TransitionCounter(lags=[c_lag], n_groups=1, device=device)
+    for chunk in read_chunks(reads[:20_000], np.zeros(min(20_000, len(reads)), np.int32),
+                             rows=4096):
+        counter.add_chunk(chunk)
+    table = counter.table(c_lag)[0]
+    cpu_table = table.cpu()
+    # a small linear AR, scaled so that ar / h is of the counts' size here
+    ar_cpu = LinearAR(c_lag, 4, dtype=torch.float64, device="cpu",
+                      generator=torch.Generator().manual_seed(SEED))
+    ar_cpu.load_params([40.0 * p for p in ar_cpu.params_list()])
+    ar_cpu.requires_grad_(False)
+    ar_dev = LinearAR(c_lag, 4, dtype=torch.float64, device=device)
+    ar_dev.load_params(ar_cpu.params_list())
+    ar_dev.requires_grad_(False)
+    bear_h = 0.02
+    models = {
+        "BMM": (dict(van=0.5), dict(van=0.5),
+                lambda w: torch.full((5,), 0.5, dtype=torch.float64)),
+        "BEAR": (dict(h=bear_h, ar_apply=ar_dev), dict(h=bear_h, ar_apply=ar_cpu),
+                 lambda w: ar_cpu(torch.eye(5, dtype=torch.float64)[w]) / bear_h),
+    }
+    lengths = [[c_flank, c_flank]] * c_seeds
+    for name, (dev_kw, cpu_kw, prior) in models.items():
+        for get_map in (False, True):
+            kw = dict(lag=c_lag, seed=3, dtype=torch.float64, get_map=get_map)
+            on_dev, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num,
+                                                  counter_table=table, device=device,
+                                                  **kw, **dev_kw)
+            on_cpu, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num,
+                                                  counter_table=cpu_table, device="cpu",
+                                                  **kw, **cpu_kw)
+            flat_d, flat_c = on_dev.reshape(-1), on_cpu.reshape(-1)
+            flips = []
+            for i in np.flatnonzero(flat_d != flat_c):
+                diff = [p for p, (a, b) in enumerate(zip(flat_d[i], flat_c[i])) if a != b]
+                left = [p for p in diff if p < c_flank]  # generated first, outward
+                direction, step = ((0, c_flank - 1 - max(left)) if left
+                                   else (1, min(diff) - c_flank - ASM_SEED_BP))
+                margin = assembly_margin(flat_c[i], seeds[i // c_num], i, direction, step,
+                                         cpu_table.numpy(), c_lag, prior, 3, len(flat_c),
+                                         c_flank, get_map)
+                flips.append((int(i), direction, step, margin))
+            check(all(m < ASM_MARGIN for *_, m in flips),
+                  f"assembly {name} float64 {device} differs from the CPU beyond a Gumbel tie: "
+                  f"{flips}")
+            print(f"[assemble] {name} float64 {device} vs CPU, lag {c_lag}, {c_seeds} seeds x "
+                  f"{c_num}, {c_flank} letters each side, {'MAP' if get_map else 'sampled'}: "
+                  f"{len(flat_d) - len(flips)} of {len(flat_d)} sequences identical; flips "
+                  f"(sequence, direction, step, margin): {flips}")
+    return launches
 
 
 def main() -> int:
@@ -1471,9 +1919,33 @@ def main() -> int:
         torch.cuda.empty_cache()
         streaming_train_phase(s_run["prefix"], s_run["shards"], reads, groups,
                               os.path.join(tmp, "stream"), card)
+        print(f"[stream] phase 4e {time.perf_counter() - t_4e:.3f} s (profiles and checks "
+              f"included) [{card}]")
+
+        # 4f. generation and the other models, in 4e's directory: each path's
+        # count_chunk launches counted from 0 just before it, read just after
+        t_4f = [time.perf_counter()]
+        ref_launches = reference_phase(reads, chunks, os.path.join(tmp, "ref"), card)
+        torch.cuda.empty_cache()
+        t_4f.append(time.perf_counter())
+        vbear_phase(card)
+        t_4f.append(time.perf_counter())
+        lag_launches = lag_select_phase(s_run["csv"], s_run["prefix"], card)
+        torch.cuda.empty_cache()
+        t_4f.append(time.perf_counter())
+        asm_launches = assembly_phase(reads, groups, s_run["csv"], os.path.join(tmp, "stream"),
+                                      os.path.join(tmp, "assemble"), card)
+        torch.cuda.empty_cache()
+        t_4f.append(time.perf_counter())
     count_err = max(count_err, int(s_chunk["max_abs_err"]))
-    print(f"[stream] phase 4e {time.perf_counter() - t_4e:.3f} s (profiles and checks "
-          f"included) [{card}]")
+    by_path = {"count_serve": launches, "summarize": s_run["launches"],
+               "ref_recount": ref_launches, **lag_launches, **asm_launches}
+    check(all(n > 0 for n in by_path.values()),
+          f"a path ran without launching count_chunk: {by_path}")
+    spans_4f = np.diff(t_4f)
+    print(f"[4f] phase 4f {t_4f[-1] - t_4f[0]:.3f} s: (H) {spans_4f[0]:.3f} s, (I) "
+          f"{spans_4f[1]:.3f} s, (J) {spans_4f[2]:.3f} s, (K) {spans_4f[3]:.3f} s (checks, CPU "
+          f"references and profiles included); count_chunk launches by path {by_path} [{card}]")
 
     # 5. kernels, then the device line
     print(json.dumps({"kernels": [{
@@ -1487,8 +1959,8 @@ def main() -> int:
         "name": "count_chunk", "route": "cuda",
         "source": "bear_tpu_torch/csrc/count_chunk.cu",
         "replaces": "bear_tpu/counting/pallas_hist.py:81",
-        "launches": launches + s_run["launches"],
-        "launches_by_path": {"count_serve": launches, "summarize": s_run["launches"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": float(count_err),
         "ms": count_ms, "plain_ms": count_plain_ms, "bound_ms": count_bound_ms,
         "bound_by": count_bound_by, "library_ms": library_ms,

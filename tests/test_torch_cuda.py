@@ -174,3 +174,73 @@ def test_summarize_on_card_writes_the_cpu_bytes(cuda, tmp_path, reverse):
         out[device] = {f: (tmp_path / device / f).read_bytes()
                        for f in sorted(os.listdir(tmp_path / device))}
     assert len(out["cuda"]) >= 6 * 2 and out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("get_map", [False, True])
+def test_assembly_float64_on_card_equals_cpu(cuda, get_map):
+    # The keys and Gumbel words are the same integers on both devices; the
+    # float64 draws may differ in the last bits, which could flip a pick
+    # only at a Gumbel near-tie (expected in none of these sequences).
+    from bear_tpu_torch.inference.assemble import assemble_no_ends
+
+    rng = np.random.default_rng(4)
+    reads = rng.integers(0, 4, size=(2000, 80)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[6], device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(2000, np.int32), rows=512):
+        tc.add_chunk(c)
+    table = tc.table(6)[0]
+    assert table.is_cuda and table.dtype == torch.int32
+    seeds = chip_smoke.decode_reads(reads[:6, :20])
+    kw = dict(lag=6, van=0.4, seed=9, get_map=get_map, dtype=torch.float64)
+    gpu, gpu_ent = assemble_no_ends(seeds, [[40, 60]] * 6, 5, counter_table=table, **kw)
+    cpu, cpu_ent = assemble_no_ends(seeds, [[40, 60]] * 6, 5, counter_table=table.cpu(),
+                                    device="cpu", **kw)
+    np.testing.assert_array_equal(gpu, cpu)
+    for a, b in zip(gpu_ent, cpu_ent):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("get_map", [False, True])
+def test_bear_assembly_float64_on_card_equals_cpu(cuda, get_map):
+    # BEAR mode: a window-dependent linear AR whose ar / h is of the counts'
+    # size, the same parameters on both devices.
+    from bear_tpu_torch.inference.assemble import assemble_no_ends
+
+    rng = np.random.default_rng(6)
+    reads = rng.integers(0, 4, size=(2000, 80)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[6], device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(2000, np.int32), rows=512):
+        tc.add_chunk(c)
+    table = tc.table(6)[0]
+    cpu_ar = LinearAR(6, 4, dtype=torch.float64, device="cpu",
+                      generator=torch.Generator().manual_seed(1))
+    cpu_ar.load_params([40.0 * p for p in cpu_ar.params_list()])
+    gpu_ar = LinearAR(6, 4, dtype=torch.float64, device=cuda)
+    gpu_ar.load_params(cpu_ar.params_list())
+    seeds = chip_smoke.decode_reads(reads[:6, :20])
+    kw = dict(lag=6, h=0.1, seed=9, get_map=get_map, dtype=torch.float64)
+    with torch.no_grad():
+        gpu, _ = assemble_no_ends(seeds, [[40, 60]] * 6, 5, counter_table=table, ar_apply=gpu_ar,
+                                  **kw)
+        cpu, _ = assemble_no_ends(seeds, [[40, 60]] * 6, 5, counter_table=table.cpu(),
+                                  ar_apply=cpu_ar, device="cpu", **kw)
+    np.testing.assert_array_equal(gpu, cpu)
+
+
+def test_select_lag_on_card_equals_cpu(cuda):
+    from bear_tpu_torch.models.lag_selection import select_lag
+
+    rng = np.random.default_rng(5)
+    reads = rng.integers(0, 4, size=(3000, 100)).astype(np.int8)
+    reads[::3, 50:] = reads[::3, :50]  # some repeated structure
+    groups = (np.arange(3000) % 2).astype(np.int32)
+    gpu = engine.TransitionCounter(lags=range(1, 10), n_groups=2, device=cuda)
+    cpu = engine.TransitionCounter(lags=range(1, 10), n_groups=2, device="cpu")
+    for c in chip_smoke.read_chunks(reads, groups, rows=1024):
+        gpu.add_chunk(c)
+        cpu.add_chunk(c)
+    for group in (0, 1):
+        got = select_lag(gpu, group=group, batch_size=1000)
+        want = select_lag(cpu, group=group)
+        np.testing.assert_allclose(got.log_marginals, want.log_marginals, rtol=1e-12)
+        assert got.best == want.best

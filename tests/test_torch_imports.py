@@ -44,7 +44,11 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.inference.score_cli",
             "bear_tpu_torch.utils.cli_common", "bear_tpu_torch.utils.metrics",
             "bear_tpu_torch.counting.native", "bear_tpu_torch.counting.summarize",
-            "bear_tpu_torch.counting.check_summarize"} <= set(mods)
+            "bear_tpu_torch.counting.check_summarize",
+            "bear_tpu_torch.models.bear_ref", "bear_tpu_torch.models.train_bear_ref",
+            "bear_tpu_torch.models.vbear", "bear_tpu_torch.models.lag_selection",
+            "bear_tpu_torch.models.lag_select_cli", "bear_tpu_torch.inference.assemble",
+            "bear_tpu_torch.inference.assemble_cli"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"

@@ -212,3 +212,45 @@ def test_bmm_scores_match_bear_tpu_on_the_toy_counts(branch):
         scoring.get_bear_probs_seqs(None, ["TT"], 0, device="cpu", **common, **kw)
     with pytest.raises(ValueError, match="without a model directory"):
         scoring.get_bear_probs_seqs(None, ["TTTT"], 0, vans=VANS, device="cpu", **kw)
+
+
+def test_protein_table_counter_and_map_scores_match_bear_tpu():
+    # tests/test_protein.py:241's dense case: lag-4 protein random access
+    # for every window of the chunk (exact counts against bear_tpu's
+    # TableCounter and a brute-force oracle), and whole-sequence BMM MAP
+    # scores through the counter.
+    from collections import Counter as PyCounter
+
+    from bear_tpu.counting.engine import ReadChunk as JChunk
+
+    rng = np.random.default_rng(55)
+    letters = alphabets.input_letters("prot")[:-1]
+    out_letters = alphabets.output_letters("prot")
+    B, L, lag = 40, 18, 4
+    codes = rng.integers(0, 20, (B, L)).astype(np.int8)
+    rows = (codes, np.full(B, L, np.int32), np.zeros(B, np.int32), np.ones(B, bool),
+            np.zeros(B, np.int32))
+    jtc = JCounter(lags=[lag], n_groups=1, alphabet="prot", method="scatter")
+    jtc.add_chunk(JChunk(*rows))
+    tc = engine.TransitionCounter(lags=[lag], n_groups=1, alphabet="prot", device="cpu")
+    tc.add_chunk(engine.ReadChunk(*rows))
+    seqs = ["".join(letters[c] for c in r) for r in codes]
+    oracle = PyCounter()
+    for s in seqs:
+        padded = "[" * lag + s
+        for j in range(L + 1):
+            oracle[(padded[j:j + lag], s[j] if j < L else "]")] += 1
+    ctxs = np.array(sorted(set(k for k, _ in oracle)))
+    got = scoring.TableCounter(tc, lag)(ctxs)
+    np.testing.assert_array_equal(got, jscoring.TableCounter(jtc, lag)(ctxs))
+    want = np.array([[oracle.get((c, sym), 0) for sym in out_letters] for c in ctxs])
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(scoring.TableCounter(tc, lag).rows(ctxs),
+                                  jscoring.TableCounter(jtc, lag).rows(ctxs))
+    kw = dict(get_map=True, vans=[0.5, 2.0], lag=lag, alphabet_name="prot")
+    scores = scoring.get_bear_probs_seqs(None, seqs[:8], 0, device="cpu",
+                                         counter=scoring.TableCounter(tc, lag), **kw)
+    jscores = jscoring.get_bear_probs_seqs(None, seqs[:8], 0,
+                                           counter=jscoring.TableCounter(jtc, lag), **kw)
+    assert scores.shape == (8, 2) and np.isfinite(scores).all() and (scores < 0).all()
+    np.testing.assert_allclose(scores, jscores, **TOL)

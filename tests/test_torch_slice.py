@@ -224,3 +224,50 @@ def test_chip_smoke_stream_config_is_the_streaming_cli_config():
     assert run.ar_func_name == "cnn" and run.af_kwargs == chip_smoke.CNN_KW
     assert (run.batch_size_raw, run.epochs_raw, run.learning_rate) == (32768, "3", 0.005)
     assert run.test and run.train_test and run.precision == "float32"
+
+
+def test_chip_smoke_other_models_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4f on the CPU at a small size, on 4e's outputs:
+    # (H) the reference-guided CNN BEAR with the template as group 2 and the
+    # reference-guided CLI on YSD1, (I) vBEAR, (J) lag selection by all four
+    # routes, (K) the assembly CLI sampled and MAP with the streamed model,
+    # and the float64 rollout check; their own checks raise on a fault.
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chunks:
+        counter.add_chunk(c)
+    rows = counter.nonzero_rows(LAG)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
+                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
+                                     profile=False)
+    cnn_kw = {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}
+    chip_smoke.streaming_train_phase(run["prefix"], run["shards"], reads, groups,
+                                     str(tmp_path / "stream"), "CPU", device="cpu", lag=LAG,
+                                     cnn_kw=cnn_kw, batch=512, epochs=1, n_cli=4,
+                                     profile=False)
+    assert chip_smoke.reference_phase(reads, chunks, str(tmp_path / "ref"), "CPU",
+                                      device="cpu", lag=LAG, genome_mb=0.05, cnn_kw=cnn_kw,
+                                      batch=256, epochs=2) == 0
+    chip_smoke.vbear_phase("CPU", device="cpu", applies=100, gate=False, profile=False)
+    assert chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU", device="cpu",
+                                       lag=LAG) == {"lag_select": 0, "lag_select_cli": 0}
+    assert chip_smoke.assembly_phase(reads, groups, run["csv"], str(tmp_path / "stream"),
+                                     str(tmp_path / "asm"), "CPU", device="cpu", lag=LAG,
+                                     genome_mb=0.05, n_seeds=4, num=3, flank=20,
+                                     check_cfg=(2, 2, 4, 10), profile=False) == {
+                                         "assemble_cli": 0, "assemble": 0}
+    out = capsys.readouterr().out
+    for part in ("[ref] first 5 ELBOs vs CPU float64", "[ref] train_bear_ref.main on YSD1",
+                 "[vbear] YSD1 linear", "the four routes agree", "assemble_cli sampled",
+                 "assemble_cli map", "BMM float64 cpu vs CPU", "BEAR float64 cpu vs CPU",
+                 "4 of 4 sequences identical", "the same 12 sequences"):
+        assert part in out, part
+
+
+def test_chip_smoke_reference_template_is_the_genome_unmutated():
+    genome = chip_smoke.synth_genome(np.random.default_rng(chip_smoke.SEED), 250_000)
+    ref = chip_smoke.reference_template(genome_mb=0.25)
+    assert ref.shape == genome.shape and ref.dtype == np.int8
+    np.testing.assert_array_equal(ref[:100_000], ref[100_000:200_000])
+    assert 0.005 < np.mean(ref != genome) < 0.015  # the ~1% substitutions

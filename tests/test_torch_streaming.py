@@ -250,15 +250,19 @@ def test_h_scan_streaming_matches_bear_tpu(ysd1, trained):
 def test_streaming_refusals(ysd1):
     _, ar, p0 = _models("linear")
     kw = dict(num_kmers=ysd1.num_kmers, batch_size=100, device="cpu")
-    three = lambda: iter([(ysd1.codes, ysd1.counts[:, 0], ysd1.counts[:, 1])])  # noqa: E731
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # Shards carrying reference counts are ported (bear_ref); a stream must
+    # not mix shards with and without them.
+    three = lambda: iter([(ysd1.codes, ysd1.counts[:, 0]),  # noqa: E731
+                          (ysd1.codes, ysd1.counts[:, 0], ysd1.counts[:, 1])])
+    with pytest.raises(ValueError, match="agree"):
         bear_net.train_streaming(three, ar_func=ar, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bear_net.train_streaming(_shards(ysd1), ar_func=ar, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="agree"):
         bear_net.evaluation_streaming(
-            lambda: iter([(ysd1.codes, ysd1.counts, ysd1.counts[:, 0])]), 0, 1, "dna", 0.1,
-            ar, p0[1:], VAN, device="cpu")
+            lambda: iter([(ysd1.codes, ysd1.counts), (ysd1.codes, ysd1.counts,
+                                                      ysd1.counts[:, 0])]), 0, 1, "dna",
+            0.1, ar, p0[1:], VAN, device="cpu")
     with pytest.raises(ValueError, match="no shards"):
         bear_net.train_streaming(lambda: iter([]), ar_func=ar, **kw)
     with pytest.raises(ValueError, match="acc_steps"):

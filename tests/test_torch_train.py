@@ -184,11 +184,14 @@ def test_arguments_not_ported_raise(ysd1):
     _, ar, p0 = _models("linear")
     kw = dict(num_kmers=ysd1.num_kmers, batch_size=700, device="cpu")
     c, n = ysd1.codes, ysd1.counts[:, 0]
-    for arg in ({"mesh": object()}, {"ref_counts": n}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bear_net.train(c, n, ar_func=ar, **kw, **arg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # three-element shards
-        bear_net.train_streaming(lambda: iter([(c, n, n)]), ar_func=ar, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bear_net.train(c, n, ar_func=ar, mesh=object(), **kw)
+    # Reference counts are ported (bear_ref): a plain AR module takes none,
+    # and a stream must not mix shards with and without them.
+    with pytest.raises(TypeError):
+        bear_net.train(c, n, ar_func=ar, ref_counts=n, **kw)
+    with pytest.raises(ValueError, match="agree"):
+        bear_net.train_streaming(lambda: iter([(c, n), (c, n, n)]), ar_func=ar, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bear_net.train_streaming(lambda: iter([(c, n)]), ar_func=ar, mesh=object(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
