@@ -24,11 +24,22 @@ Row meta
 A chunk's rows travel as one int32 [B, 4] array (:func:`pack_meta`):
 length, skip, group and flags (bit 0 ``stopped``, bit 1 ``fresh``).
 
-``count_chunk_update(table, codes, meta, lags, n_groups, A)`` adds every
-counted transition of the chunk into ``table`` in place. On a CUDA tensor
-the hand-written kernel ``csrc/count_chunk.cu`` is launched (built with nvcc
-at first use) or an error is raised; on a CPU tensor the plain version
-:func:`count_chunk_plain` runs: :func:`chunk_keys`, then
+Row ranges
+----------
+``shard=(idx, per_lag)`` with ``per_lag = {lag: (stride, local_rows,
+local_offset)}`` counts into a table that holds only the context rows
+``[idx * stride, idx * stride + local_rows)`` of every group of each lag, at
+``local_offset + (group * local_rows + rloc) * (A+1) + next`` with ``rloc =
+row - idx * stride``; transitions of other rows are dropped (bear_tpu's
+``_count_chunk_kernel(shard=...)``, engine.py:356-363, which multipass.py
+and parallel/counting.py drive). The whole table stays below 2^31 entries
+while the global one (lags 14-15) need not.
+
+``count_chunk_update(table, codes, meta, lags, n_groups, A, shard=None)``
+adds every counted transition of the chunk into ``table`` in place. On a
+CUDA tensor the hand-written kernel ``csrc/count_chunk.cu`` is launched
+(built with nvcc at first use) or an error is raised; on a CPU tensor the
+plain version :func:`count_chunk_plain` runs: :func:`chunk_keys`, then
 ``window_update_plain``. ``count_chunk_update.launches`` counts kernel
 launches.
 """
@@ -79,13 +90,20 @@ def lag_offsets(lags, n_groups, A: int = 4):
     return offsets, total
 
 
+def shard_size(per_lag, n_groups: int, A: int) -> int:
+    """Entries of a row-range table: sum over lags of n_groups * local_rows
+    * (A+1)."""
+    return sum(n_groups * local_rows * (A + 1) for _, local_rows, _ in per_lag.values())
+
+
 def chunk_keys(codes, lengths, skip, stopped, groups, lags, n_groups: int,
-               A: int, sentinel: int, fresh=None) -> torch.Tensor:
+               A: int, sentinel: int, fresh=None, shard=None) -> torch.Tensor:
     """Flat int32 table indices of every transition of one chunk, for every
-    lag: [n_lags * B * (L+1)], lag-major. Masked positions carry
-    ``sentinel``. All tensors lie on one device; ``stopped`` and ``fresh``
-    are bool. The index math of bear_tpu's ``_count_chunk_kernel``
-    (engine.py:296-367), int32-exact under TransitionCounter's guards."""
+    lag: [n_lags * B * (L+1)], lag-major. Masked positions, and with
+    ``shard`` the rows outside its range, carry ``sentinel``. All tensors
+    lie on one device; ``stopped`` and ``fresh`` are bool. The index math
+    of bear_tpu's ``_count_chunk_kernel`` (engine.py:296-367), int32-exact
+    under the counters' guards."""
     B, L = codes.shape
     P = L + 1  # transition positions 0..L (the stop can land at j == L)
     dev = codes.device
@@ -120,7 +138,14 @@ def chunk_keys(codes, lengths, skip, stopped, groups, lags, n_groups: int,
         mask_l = mask if fresh_col is None else mask & (fresh_col | (j >= l))
         row_off = torch.as_tensor(pad_offset(l, np.maximum(0, l - jj), A),
                                   dtype=torch.int32, device=dev)[None, :]
-        flat = offsets[l] + (groups32 * table_rows(l, A) + row_off + code_acc) * A1 + nxt
+        if shard is None:
+            flat = offsets[l] + (groups32 * table_rows(l, A) + row_off + code_acc) * A1 + nxt
+        else:
+            idx, per_lag = shard
+            stride, local_rows, local_offset = per_lag[l]
+            rloc = row_off + code_acc - idx * stride
+            mask_l = mask_l & (rloc >= 0) & (rloc < local_rows)
+            flat = local_offset + (groups32 * local_rows + rloc.clamp(0, local_rows - 1)) * A1 + nxt
         keys.append(torch.where(mask_l, flat, sentinel).reshape(-1))
     return torch.cat(keys)
 
@@ -162,6 +187,7 @@ def tile_positions(row_len: int) -> int:
 class _Lag(ctypes.Structure):
     _fields_ = [("lag", ctypes.c_int32), ("offset", ctypes.c_int32),
                 ("rows", ctypes.c_int32), ("modulus", ctypes.c_uint32),
+                ("stride", ctypes.c_int32), ("local_rows", ctypes.c_int32),
                 ("pad", ctypes.c_int32 * (MAX_LAG + 1))]
 
 
@@ -174,21 +200,26 @@ class LagTable(ctypes.Structure):
 
 
 @functools.lru_cache(maxsize=64)
-def lag_table(lags: tuple, n_groups: int, A: int) -> LagTable:
-    """The lag table of ``lags`` (ascending) for the kernel. Shared between
-    callers: never mutated."""
+def lag_table(lags: tuple, n_groups: int, A: int, per_lag: tuple | None = None) -> LagTable:
+    """The lag table of ``lags`` (ascending) for the kernel: the dense
+    layout, or with ``per_lag`` (sorted ``(lag, (stride, local_rows,
+    local_offset))`` items) a row range's. Shared between callers: never
+    mutated."""
     offsets, _ = lag_offsets(lags, n_groups, A)
     t = LagTable(n_lags=len(lags), max_lag=max(lags), A=A,
                  top_power=A ** (max(lags) - 1))
+    ranges = dict(per_lag) if per_lag is not None else {
+        l: (table_rows(l, A), table_rows(l, A), offsets[l]) for l in lags}
     for k, l in enumerate(lags):
         lag = t.lag[k]
-        lag.lag, lag.offset, lag.rows, lag.modulus = l, offsets[l], table_rows(l, A), A**l
+        lag.lag, lag.rows, lag.modulus = l, table_rows(l, A), A**l
+        lag.stride, lag.local_rows, lag.offset = ranges[l]
         for n_pad in range(l + 1):
             lag.pad[n_pad] = pad_offset(l, n_pad, A)
     return t
 
 
-def _check(table, codes, meta, lags, n_groups, A) -> tuple:
+def _check(table, codes, meta, lags, n_groups, A, shard=None) -> tuple:
     """Raise on what the kernel does not take; return the lags, ascending."""
     if table.dtype != torch.int32 or codes.dtype != torch.int8 or meta.dtype != torch.int32:
         raise TypeError(
@@ -212,7 +243,19 @@ def _check(table, codes, meta, lags, n_groups, A) -> tuple:
         raise ValueError(f"count_chunk takes lags in 1..{MAX_LAG}, got {lags}")
     if A < 2 or A ** lags[-1] > _INT32_MAX:
         raise ValueError(f"lag {lags[-1]} context codes exceed int32 for A = {A}")
-    _, total = lag_offsets(lags, n_groups, A)
+    if shard is None:
+        _, total = lag_offsets(lags, n_groups, A)
+    else:
+        idx, per_lag = shard
+        if sorted(per_lag) != list(lags):
+            raise ValueError(f"the row ranges cover lags {sorted(per_lag)}, not {lags}")
+        total = shard_size(per_lag, n_groups, A)
+        for l, (stride, local_rows, local_offset) in per_lag.items():
+            if not (1 <= stride and 1 <= local_rows
+                    and 0 <= local_offset <= total - n_groups * local_rows * (A + 1)
+                    and 0 <= idx * stride <= _INT32_MAX):
+                raise ValueError(f"row range {idx} of lag {l}: stride {stride}, "
+                                 f"{local_rows} rows at {local_offset} do not fit")
     if table.numel() != total or total > _INT32_MAX:
         raise ValueError(
             f"table has {table.numel():,} entries; lags {lags} x {n_groups} groups "
@@ -222,12 +265,12 @@ def _check(table, codes, meta, lags, n_groups, A) -> tuple:
 
 
 def count_chunk_plain(table: torch.Tensor, codes: torch.Tensor, meta: torch.Tensor,
-                      lags, n_groups: int, A: int) -> torch.Tensor:
+                      lags, n_groups: int, A: int, shard=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same contract, in place):
     :func:`chunk_keys` of the unpacked meta, then ``window_update_plain``."""
     lengths, skip, stopped, groups, fresh = unpack_meta(meta)
     keys = chunk_keys(codes, lengths, skip, stopped, groups, tuple(sorted(set(lags))),
-                      n_groups, A, sentinel=table.numel(), fresh=fresh)
+                      n_groups, A, sentinel=table.numel(), fresh=fresh, shard=shard)
     return window_update_plain(table, keys)
 
 
@@ -237,21 +280,23 @@ def _library() -> ctypes.CDLL:
     fn = lib.count_chunk_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.POINTER(LagTable), ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(LagTable),
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
 def count_chunk_update(table: torch.Tensor, codes: torch.Tensor, meta: torch.Tensor,
-                       lags, n_groups: int, A: int) -> torch.Tensor:
+                       lags, n_groups: int, A: int, shard=None) -> torch.Tensor:
     """Add every counted transition of one chunk into ``table`` (updated in
     place and returned). ``codes`` int8 [B, L] must hold residues in [0, A)
     at every position < length; group ids must lie in [0, n_groups)
-    (TransitionCounter checks both on the host). CUDA tensors launch the
-    kernel; CPU tensors run :func:`count_chunk_plain`."""
-    lags = _check(table, codes, meta, lags, n_groups, A)
+    (the counters check both on the host). ``shard=(idx, per_lag)`` counts
+    one row range (module docstring). CUDA tensors launch the kernel; CPU
+    tensors run :func:`count_chunk_plain`."""
+    lags = _check(table, codes, meta, lags, n_groups, A, shard)
     if table.device.type == "cpu":
-        return count_chunk_plain(table, codes, meta, lags, n_groups, A)
+        return count_chunk_plain(table, codes, meta, lags, n_groups, A, shard)
     if table.device.type != "cuda":
         raise ValueError(f"count_chunk has no path for device {table.device}")
     for name, t in (("codes", codes), ("meta", meta)):
@@ -261,12 +306,13 @@ def count_chunk_update(table: torch.Tensor, codes: torch.Tensor, meta: torch.Ten
     if B == 0:
         return table
     lib = _library()
+    idx, per_lag = (0, None) if shard is None else (int(shard[0]), tuple(sorted(shard[1].items())))
+    lt = lag_table(lags, n_groups, A, per_lag)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         rc = lib.count_chunk_launch(
             table.data_ptr(), table.numel(), codes.data_ptr(), meta.data_ptr(),
-            B, L, tile_positions(L), ctypes.byref(lag_table(lags, n_groups, A)),
-            stream)
+            B, L, tile_positions(L), idx, ctypes.byref(lt), stream)
     if rc != 0:
         raise RuntimeError(f"count_chunk kernel launch failed: CUDA error {rc}")
     count_chunk_update.launches += 1

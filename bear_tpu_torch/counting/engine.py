@@ -216,7 +216,9 @@ class TransitionCounter:
         if self.A ** max(self.lags) > _INT32_MAX:
             raise ValueError(
                 f"lag {max(self.lags)} context codes exceed int32 for a "
-                f"{self.A}-letter alphabet; the dense counter cannot hold it"
+                f"{self.A}-letter alphabet — use "
+                "bear_tpu_torch.counting.sparse.SparseTransitionCounter (no dense "
+                "table, DNA lag <= 30 / protein lag <= 13)"
             )
         self.n_groups = n_groups
         self.reverse = reverse
@@ -230,7 +232,8 @@ class TransitionCounter:
             raise ValueError(
                 f"concatenated count table has {self._total_size:,} entries, "
                 "beyond int32 indexing — split the lags across multiple "
-                "TransitionCounters or reduce n_groups"
+                "TransitionCounters, reduce n_groups or count in row-range passes "
+                "(counting.multipass)"
             )
         # Host int64 accumulators, 8 bytes per table entry; np.zeros leaves
         # the pages untouched until a flush writes them.
@@ -300,15 +303,8 @@ class TransitionCounter:
         if self._since_flush + new_transitions > self.FLUSH_EVERY:
             self.flush()
         self._ensure_dev()
-        if self._dev.is_cuda:
-            if not self._staging:
-                self._staging = [_Staging(), _Staging()]
-            self._staging.reverse()  # alternate between the two sets
-            codes_t, meta_t = self._staging[0].upload(
-                self._dev.device, codes, lengths, skip, stopped, groups, fresh)
-        else:
-            codes_t = torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8))
-            meta_t = torch.from_numpy(pack_meta(lengths, skip, stopped, groups, fresh))
+        codes_t, meta_t = upload_chunk(self._staging, self._dev.device, codes, lengths,
+                                       skip, stopped, groups, fresh)
         count_chunk_update(self._dev, codes_t, meta_t, self.lags, self.n_groups,
                            self.A)
         self._since_flush += new_transitions
@@ -547,6 +543,23 @@ def write_tsv_shards(out_prefix: str, lag: int, rows: np.ndarray,
                     for g in range(per_row_counts.shape[1])) + "]]"
                 fh.write(f"{kmers[i]}\t{mat}\n")
     return paths
+
+
+def upload_chunk(staging: list, device: torch.device, codes, lengths, skip, stopped,
+                 groups, fresh=None):
+    """(codes int8 [B, L], meta int32 [B, 4]) of a chunk's rows on
+    ``device``. On the card they go through ``staging``, the caller's list
+    of two pinned :class:`_Staging` sets (made at the first call), used in
+    turn, so one chunk's copies overlap the previous chunk's kernel; on the
+    CPU they are plain tensors."""
+    if device.type != "cuda":
+        return (torch.from_numpy(np.ascontiguousarray(codes, dtype=np.int8)),
+                torch.from_numpy(pack_meta(lengths, skip, stopped, groups, fresh)))
+    if not staging:
+        staging += [_Staging(), _Staging()]
+    staging.reverse()  # alternate between the two sets
+    return staging[0].upload(device, np.asarray(codes), lengths, skip, stopped, groups,
+                             fresh)
 
 
 class _Staging:

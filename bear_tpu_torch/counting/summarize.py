@@ -17,13 +17,18 @@ counts],...]``; ``-r`` adds a reverse-complement pass written to
         window crosses one
 --shuffle  shuffle rows within each shard
 --checkpoint PATH  checkpoint counts after every input file; a rerun resumes
+--passes N  count in N sequential row-range passes on one card, re-reading
+        the input each pass (lags 14-15: the table is too large for one
+        card; count_chunk's row-range form, one launch per chunk and pass)
 -mk/-p/-pr/-t/-s12/-s3  accepted for compatibility; no-ops
 --method  accepted and ignored: the port has one counting kernel
 --device {cuda,cpu}  where the table lives and the kernel runs (default cuda)
 
-Not ported yet (ROADMAP.md, Queue 1): ``--kmer-shards``, ``--passes`` and
-``--data-shards`` above 1, and lags beyond the dense int32 range (sparse
-counting); each raises NotImplementedError.
+Lags beyond the dense int32 range (DNA >= 16, protein >= 8) route
+themselves to the sparse-first counter (counting/sparse.py: key buffers
+sorted on the card, no dense table). ``--kmer-shards`` and ``--data-shards``
+above 1 need several cards and raise NotImplementedError (ROADMAP.md Queue 1
+item 13).
 """
 
 from __future__ import annotations
@@ -38,7 +43,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from bear_tpu_torch.counting import engine, fastx
+from bear_tpu_torch.counting.multipass import count_multipass
+from bear_tpu_torch.counting.sparse import SparseTransitionCounter
 from bear_tpu_torch.ops import alphabets as _alpha
+from bear_tpu_torch.parallel.counting import not_ported_multi_card
 
 
 def iter_chunks(entries, max_lag: int, batch_size: int = 1024,
@@ -112,45 +120,73 @@ def iter_chunks(entries, max_lag: int, batch_size: int = 1024,
                                       reverse=reverse)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported to PyTorch yet; see ROADMAP.md Queue 1")
-
-
 def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 1024,
                  segment_len: int = 1 << 16, method: str = "auto", kmer_shards: int = 1,
                  alphabet: str = "dna", checkpoint: str | None = None,
                  stats: dict | None = None, ambig: str = "a", passes: int = 1,
                  data_shards: int = 1, device="cuda", native: bool = True):
-    """Count transitions for all requested lags over the input file set into
-    one engine.TransitionCounter on ``device``.
+    """Count transitions for all requested lags over the input file set on
+    ``device``. Returns an engine.TransitionCounter; with ``passes`` > 1 a
+    multipass.MultiPassTransitionCounter (each pass re-reads every file;
+    ``stats`` cover one traversal); beyond the dense int32 range (DNA lag >=
+    16, protein >= 8) a sparse.SparseTransitionCounter. The last two share
+    the sparse host surface (nonzero_rows, counts_for_rows, export_tsv,
+    validate, ...).
 
     method: accepted for bear_tpu's signature and ignored (one kernel).
     checkpoint: optional path; counts are saved after every completed input
     file (write + atomic rename) and a rerun resumes after the last finished
-    file. ambig: "a" folds unknown bases to A; "skip" drops transitions
-    whose window crosses one. kmer_shards, passes and data_shards above 1
-    and lags beyond the dense int32 range raise NotImplementedError."""
-    del method  # one counting kernel
+    file (not with ``passes``). ambig: "a" folds unknown bases to A; "skip"
+    drops transitions whose window crosses one. kmer_shards and data_shards
+    above 1 need several cards and raise NotImplementedError."""
     if reverse and alphabet not in ("dna", "rna"):
         raise ValueError("-r (reverse complement) requires a 4-letter alphabet")
-    if kmer_shards > 1:
-        _not_ported("--kmer-shards above 1 (count tables sharded over cards)")
-    if passes > 1:
-        _not_ported("--passes above 1 (multi-pass counting)")
-    if data_shards > 1:
-        _not_ported("--data-shards above 1 (sparse counting over cards)")
+    if data_shards > 1 and (passes > 1 or kmer_shards > 1):
+        raise ValueError("--data-shards is mutually exclusive with --passes and "
+                         "--kmer-shards (row-parallel vs table-split scaling)")
     lags = sorted(set(int(l) for l in lags))
-    if _alpha.alphabet_size(alphabet) ** max(lags) > np.iinfo(np.int32).max:
-        _not_ported(f"lag {max(lags)} for the {alphabet!r} alphabet (beyond the dense "
-                    "int32 table: sparse counting)")
     entries = fastx.read_input_csv(input_csv)
     n_groups = max(group for _, group, _ in entries) + 1
     # The reverse complement is emitted in the read stream (each read also
     # as its RC, before segmentation); the counter stays forward-only.
-    counter = engine.TransitionCounter(lags=lags, n_groups=n_groups,
-                                       alphabet=alphabet, device=device)
     chunk_kw = dict(batch_size=batch_size, segment_len=segment_len, reverse=reverse,
-                    alphabet=alphabet, stats=stats, ambig=ambig, native=native)
+                    alphabet=alphabet, ambig=ambig, native=native)
+    if passes > 1:
+        if kmer_shards > 1:
+            raise ValueError("--passes and --kmer-shards are mutually exclusive "
+                             "(row-split in time vs over devices)")
+        if checkpoint is not None:
+            raise ValueError("--checkpoint is not supported with --passes "
+                             "(each pass re-reads every file)")
+        first_pass = [stats]
+
+        def factory():
+            # Parse and read stats cover ONE traversal: every pass re-reads
+            # the same bytes.
+            s = first_pass.pop() if first_pass else None
+            chunks = iter_chunks(entries, max(lags), stats=s, **chunk_kw)
+            return chunks if s is None else _counted(chunks, s)
+
+        return count_multipass(factory, lags=lags, n_groups=n_groups, passes=passes,
+                               alphabet=alphabet, device=device)
+    if kmer_shards > 1:
+        not_ported_multi_card(f"--kmer-shards {kmer_shards}")
+    if _alpha.alphabet_size(alphabet) ** max(lags) > np.iinfo(np.int32).max:
+        # Beyond the dense int32 range: the sparse-first counter sorts key
+        # buffers on the card (KMC's design) and shares save/load_state, so
+        # the file-granular checkpoint below works unchanged.
+        if data_shards > 1:
+            not_ported_multi_card(f"--data-shards {data_shards}")
+        counter = SparseTransitionCounter(lags=lags, n_groups=n_groups, alphabet=alphabet,
+                                          device=device)
+    elif data_shards > 1:
+        raise ValueError(
+            "--data-shards applies to sparse-first counting (DNA lag >= 16 / protein "
+            "lag >= 8); dense-range lags scale with --kmer-shards or --passes")
+    else:
+        counter = engine.TransitionCounter(lags=lags, n_groups=n_groups,
+                                           alphabet=alphabet, device=device)
+    chunk_kw["stats"] = stats
     if checkpoint is None:
         _count(counter, iter_chunks(entries, counter.max_lag, **chunk_kw), stats)
         return counter
@@ -159,12 +195,17 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
     files_json = ckpt + ".files.json"
     done: set[str] = set()
     if os.path.exists(ckpt) and os.path.exists(files_json):
-        counter = engine.TransitionCounter.load_state(ckpt, device=device)
-        if (tuple(counter.lags) != tuple(lags) or counter.n_groups != n_groups
-                or counter.reverse or counter.alphabet != alphabet):
-            raise ValueError(
-                f"checkpoint {ckpt} was written with different counting parameters "
-                "(lags/groups/reverse/alphabet); delete it or use a fresh path")
+        if isinstance(counter, SparseTransitionCounter):
+            # Restore into the counter built above (its load_state checks
+            # lags, groups, reverse and alphabet).
+            counter.load_state(ckpt)
+        else:
+            counter = engine.TransitionCounter.load_state(ckpt, device=device)
+            if (tuple(counter.lags) != tuple(lags) or counter.n_groups != n_groups
+                    or counter.reverse or counter.alphabet != alphabet):
+                raise ValueError(
+                    f"checkpoint {ckpt} was written with different counting parameters "
+                    "(lags/groups/reverse/alphabet); delete it or use a fresh path")
         with open(files_json) as fh:
             done = set(json.load(fh))
         print(f"resuming from {ckpt}: {len(done)} files already counted")
@@ -187,10 +228,16 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
 
 
 def _count(counter, chunks, stats):
-    for chunk in chunks:
+    for chunk in _counted(chunks, stats):
         counter.add_chunk(chunk)
+
+
+def _counted(chunks, stats):
+    """The chunks, each counted in ``stats["chunks"]`` (when stats is a dict)."""
+    for chunk in chunks:
         if stats is not None:
             stats["chunks"] = stats.get("chunks", 0) + 1
+        yield chunk
 
 
 def compute_n_bin_bits(total_rows: int, n_groups: int, mf_gb: float) -> int:
@@ -205,7 +252,8 @@ def run(args, report: dict | None = None) -> int:
     ``report`` (optional dict) receives the pass's ``stats`` (bases, reads,
     chunks, seconds inside the parser, the parser of each file), the
     seconds of counting (to the last kernel finished) and of export, the
-    nonzero rows per lag and the table's bytes on the device."""
+    nonzero rows per lag, the bytes of the counter's device table or key
+    buffers, and the counter itself."""
     print("Counting...", datetime.datetime.now())
     ckpt = args.checkpoint
     if ckpt and args.r:
@@ -242,7 +290,7 @@ def run(args, report: dict | None = None) -> int:
     if report is not None:
         report.update(stats=stats, count_s=t1 - t0, export_s=time.perf_counter() - t1,
                       rows={l: len(r) for l, r in rows_by_lag.items()},
-                      table_bytes=4 * counter.table_size)
+                      table_bytes=4 * counter.table_size, counter=counter)
     print("Finished.", datetime.datetime.now())
     return 2**n_bin_bits
 
@@ -296,7 +344,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Residue alphabet.")
     parser.add_argument("--kmer-shards", default=1, type=int, dest="kmer_shards",
                         help="Shard count tables over this many cards (not ported "
-                             "yet: only 1).")
+                             "yet: only 1; --passes splits them in time on one card).")
     parser.add_argument("--checkpoint", default=None,
                         help="Checkpoint counts after every completed input file; a "
                              "rerun with the same flag resumes after the last "
@@ -305,7 +353,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Sparse counting over this many cards (not ported yet: "
                              "only 1).")
     parser.add_argument("--passes", default=1, type=int,
-                        help="Multi-pass counting (not ported yet: only 1).")
+                        help="Count in this many sequential row-range passes on one "
+                             "card, re-reading the input each pass (lag 14-15 tables "
+                             "beyond one card).")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="Where the count table lives and the kernel runs "
                              "(default: cuda).")

@@ -11,16 +11,27 @@
 // leave registers: each valid key is one fire-and-forget atomicAdd in L2
 // (hist_add.cuh, the update window_hist.cu also uses).
 //
+// The row-range form is the same launch with a shard index: it replaces the
+// TPU kernel where bear_tpu drives it with engine._count_chunk_kernel(
+// shard=(pass_idx, per_lag)) from counting/multipass.py:45-51 (one pass of
+// a lag-14/15 table too large for one card) and parallel/counting.py:240-247.
+// Each lag then has a row stride and a local row count: the table holds only
+// the context rows [shard * stride, shard * stride + local_rows) of every
+// group, and keys of other rows are dropped. The dense table is the case
+// shard = 0, stride = local_rows = rows(l).
+//
 // Contract (equal, bit for bit, to window_update_plain(table, chunk_keys(...))
-// on codes in [0, A) at every position < length):
+// on codes in [0, A) at every position < length and groups in [0, n_groups)):
 //   position j of row b, 0 <= j <= L, is counted iff j >= skip and either
 //   j < length, or j == length and the row is stopped; for a row that is not
 //   fresh, lag l also drops j < l. The next symbol is codes[b, j] for
 //   j < length and '$' (value A) at j == length. Context digits before the
-//   read start read 0 and the row offset is pad_offset(l, max(0, l - j)).
-//   The key is offset(l) + (group * rows(l) + pad + code) * (A + 1) + next,
-//   in 32-bit wrapping arithmetic as the torch version computes it; keys
-//   outside [0, n_table) are dropped.
+//   read start read 0; the context row is grow = pad_offset(l, max(0, l - j))
+//   + code (below rows(15) < 2^31) and its local row rloc = grow - shard *
+//   stride(l). A key with 0 <= rloc < local_rows(l) is
+//   offset(l) + (group * local_rows(l) + rloc) * (A + 1) + next, in 64-bit
+//   arithmetic (group multiplies local_rows, never rows: rows(15) times 2
+//   groups times 5 overflows 32 bits); keys outside [0, n_table) are dropped.
 //
 // What bounds it: bytes. The codes (1 byte per position) and meta (16 bytes
 // per row) are read once; every 32-byte table sector a valid key touches is
@@ -69,9 +80,11 @@ static_assert(kCodeBytes % 16 == 0 && kCodeBytes >= kTile + kMaxLag + 30,
 // One counted lag. Mirrored by ctypes in bear_tpu_torch/counting/count_chunk.py.
 struct CountLag {
   int32_t lag;
-  int32_t offset;             // the lag's table offset in the flat buffer
+  int32_t offset;             // the lag's (local) table offset in the flat buffer
   int32_t rows;               // table_rows(lag)
   uint32_t modulus;           // A^lag
+  int32_t stride;             // context rows per shard (rows for the dense table)
+  int32_t local_rows;         // context rows the table holds per group
   int32_t pad[kMaxLag + 1];   // pad_offset(lag, n_pad), n_pad = 0..lag
 };
 
@@ -156,8 +169,8 @@ __device__ void stage_tile(Stage& s, const Tile& g, const Shape& sh,
 
 // Count this thread's run of positions of the staged tile g.
 __device__ void count_run(const Stage& s, const Tile& g, const Shape& sh,
-                          const CountLags& lags, int* __restrict__ table,
-                          int64_t n_table) {
+                          const CountLags& lags, int64_t shard,
+                          int* __restrict__ table, int64_t n_table) {
   const int64_t fs = g.f0 + static_cast<int64_t>(threadIdx.x) * kRun;
   if (fs >= g.f1) {
     return;
@@ -194,7 +207,7 @@ __device__ void count_run(const Stage& s, const Tile& g, const Shape& sh,
     const bool live = j >= m.y && (j < length || (j == length && (m.w & kStopped)));
     if (live) {
       const uint32_t next = j < length ? (j < L ? digit(j) : 0u) : A;
-      const uint32_t group = static_cast<uint32_t>(m.z);
+      const int64_t group = m.z;
       const bool fresh = (m.w & kFresh) != 0;
       for (int k = 0; k < lags.n_lags; ++k) {
         const CountLag& lg = lags.lag[k];
@@ -203,10 +216,14 @@ __device__ void count_run(const Stage& s, const Tile& g, const Shape& sh,
         }
         const uint32_t c = lg.lag == M ? code : code % lg.modulus;
         const int n_pad = lg.lag > j ? lg.lag - j : 0;
-        const uint32_t row =
-            group * static_cast<uint32_t>(lg.rows) + static_cast<uint32_t>(lg.pad[n_pad]) + c;
-        const uint32_t key = static_cast<uint32_t>(lg.offset) + row * A1 + next;
-        hist_add(table, static_cast<int>(key), n_table);
+        const int64_t rloc = static_cast<int64_t>(lg.pad[n_pad]) + c - shard * lg.stride;
+        if (rloc < 0 || rloc >= lg.local_rows) {
+          continue;  // another shard's row
+        }
+        const int64_t key = lg.offset + (group * lg.local_rows + rloc) * A1 + next;
+        if (key >= 0 && key < n_table) {  // int32 once in range
+          hist_add(table, static_cast<int>(key), n_table);
+        }
       }
     }
     if (j < L) {
@@ -220,7 +237,7 @@ __global__ void __launch_bounds__(kThreads)
 count_chunk_kernel(int* __restrict__ table, int64_t n_table,
                    const signed char* __restrict__ codes,
                    const int4* __restrict__ meta, Shape sh, int64_t n_tiles,
-                   const __grid_constant__ CountLags lags) {
+                   int64_t shard, const __grid_constant__ CountLags lags) {
   __shared__ Stage stage[2];
   // The lag table is indexed per thread (lag k, n_pad); in shared memory
   // those reads neither serialise as divergent constant reads nor force a
@@ -246,7 +263,7 @@ count_chunk_kernel(int* __restrict__ table, int64_t n_table,
     cp_async_commit();  // possibly empty: keeps one group per tile
     cp_async_wait_all_but_last();
     __syncthreads();
-    count_run(stage[cur], tile_at(t, sh, lags.max_lag), sh, s_lags, table,
+    count_run(stage[cur], tile_at(t, sh, lags.max_lag), sh, s_lags, shard, table,
               n_table);
     __syncthreads();  // stage[cur] is refilled in the next iteration
   }
@@ -260,7 +277,8 @@ bool lags_ok(const CountLags& lags) {
   }
   for (int k = 0; k < lags.n_lags; ++k) {
     const int l = lags.lag[k].lag;
-    if (l < 1 || (k > 0 && l <= lags.lag[k - 1].lag) || lags.lag[k].modulus == 0) {
+    if (l < 1 || (k > 0 && l <= lags.lag[k - 1].lag) || lags.lag[k].modulus == 0 ||
+        lags.lag[k].stride < 1 || lags.lag[k].local_rows < 1 || lags.lag[k].offset < 0) {
       return false;
     }
   }
@@ -273,17 +291,20 @@ bool lags_ok(const CountLags& lags) {
 // aligned; meta: int32 [n_rows, 4] (length, skip, group, flags: bit 0
 // stopped, bit 1 fresh), contiguous, 16-byte aligned; all on the current
 // device. tile: positions per tile, 1..2048 and at most 31 * (row_len + 1),
-// so a tile spans at most 32 rows. stream: a cudaStream_t. Returns
+// so a tile spans at most 32 rows. shard: the row range's index, 0 for the
+// dense table (0 <= shard * stride < 2^31 for every lag). stream: a
+// cudaStream_t. Returns
 // cudaErrorInvalidValue for arguments the kernel does not take, else
 // cudaGetLastError() after the launch (0 on success). Does not synchronise.
 extern "C" int count_chunk_launch(void* table, int64_t n_table,
                                   const void* codes, const void* meta,
                                   int64_t n_rows, int64_t row_len,
-                                  int64_t tile, const CountLags* lags,
-                                  void* stream) {
+                                  int64_t tile, int64_t shard,
+                                  const CountLags* lags, void* stream) {
   const int64_t P = row_len + 1;
   if (n_rows < 0 || row_len < 0 || row_len > (1 << 30) || lags == nullptr ||
-      !lags_ok(*lags) || tile < 1 || tile > kTile ||
+      !lags_ok(*lags) || tile < 1 || tile > kTile || shard < 0 ||
+      shard > 0x7fffffff || n_table > 0x7fffffff ||
       tile > (kMaxRows - 1) * P ||
       reinterpret_cast<uintptr_t>(codes) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(meta) % 16 != 0) {
@@ -308,6 +329,6 @@ extern "C" int count_chunk_launch(void* table, int64_t n_table,
   const int blocks = static_cast<int>(n_tiles < cap ? n_tiles : cap);
   count_chunk_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int*>(table), n_table, static_cast<const signed char*>(codes),
-      static_cast<const int4*>(meta), sh, n_tiles, *lags);
+      static_cast<const int4*>(meta), sh, n_tiles, shard, *lags);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,6 +4,7 @@ variant Δ-scores), posterior-predictive scoring and assembly."""
 from bear_tpu_torch.inference.assemble import assemble_no_ends
 from bear_tpu_torch.inference.scoring import (
     DatasetCounter,
+    SparseTableIndex,
     TableCounter,
     get_bear_probs,
     get_bear_probs_seqs,
@@ -21,5 +22,6 @@ from bear_tpu_torch.inference.serving import (
 
 __all__ = ["BearServer", "assemble_no_ends", "DatasetCounter", "TableCounter", "contexts_to_rows",
            "get_bear_probs", "get_bear_probs_seqs", "get_pdf", "load_bear",
+           "SparseTableIndex",
            "load_bear_dataset", "model_column_names", "parse_var",
            "table_from_dataset"]

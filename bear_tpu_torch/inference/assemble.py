@@ -6,7 +6,10 @@ reverse complement, for a batch of sequences at once on the device:
 
 - the transition counts of a sequence's context are a gather from the
   dense count table at row ``offset0 + ctx`` (the table stays where it is,
-  int32 on the card when it comes from the counter);
+  int32 on the card when it comes from the counter), or, from a sparse
+  table (a ``SparseTableIndex``: sorted nonzero rows and their counts, lags
+  up to 30), a ``torch.searchsorted`` lookup on the device where absent
+  rows count zero;
 - concentrations are ``ar_apply(one_hot(window)) / h + counts`` (BEAR) or
   ``van + counts`` (BMM), the stop column set to 0 (no ends), no epsilon;
 - MAP mode takes ``log(max(conc, 1e-30) / sum(conc[:4]))``; sampled mode a
@@ -20,8 +23,9 @@ The host loop runs ``max(lengths)`` steps per batch; a sequence stops
 moving once it has its length. Keys come from the port's Philox generator
 (:mod:`bear_tpu_torch.ops.keyed_random`), so sampled sequences match
 bear_tpu's in distribution and deterministic tables give the same
-sequences. A sparse ``counter_table`` (``SparseTableIndex``) is not ported
-yet and raises (ROADMAP.md Queue 1 item 12).
+sequences. Rows and context codes are int64 (4^30 < 2^63) and
+``fold_in`` takes int64 data, so the same-row-same-draw contract holds at
+every lag without bear_tpu's two-fold split of rows beyond 32 bits.
 """
 
 from __future__ import annotations
@@ -61,15 +65,37 @@ def _gumbel(batch_key, steps: range, B: int, dtype, dev) -> torch.Tensor:
     return -torch.log(kr.exponential(words, dtype))
 
 
+def _sparse_gather(rows_sorted: torch.Tensor, counts: torch.Tensor):
+    """rows -> [len(rows), A+1] counts of a sparse table (sorted int64 rows
+    and aligned counts, on one device); absent rows, and every row of an
+    empty table, count zero."""
+    n = rows_sorted.numel()
+    if n == 0:
+        return lambda rows: counts.new_zeros((rows.numel(), counts.shape[1]))
+
+    def gather(rows):
+        slot = torch.searchsorted(rows_sorted, rows).clamp_max(n - 1)
+        hit = rows_sorted[slot] == rows
+        return torch.where(hit[:, None], counts[slot], 0)
+
+    return gather
+
+
 def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, get_map,
              max_steps, dtype):
     """Generate ``max_steps`` letters for a batch of sequences.
 
-    table : [rows(lag), A+1] transition counts on the device.
+    table : [rows(lag), A+1] transition counts on the device, or a
+        (sorted int64 rows [n], counts [n, A+1]) pair of a sparse table.
     seed_codes : [B, lag] int64 codes of the seeds' last lag residues.
     lengths : [B] letters to generate per sequence (the rest is padding).
     Returns [B, max_steps] int64 letters 0..3 on the device."""
-    dev = table.device
+    if isinstance(table, tuple):
+        gather = _sparse_gather(*table)
+        dev = table[0].device
+    else:
+        gather = table.__getitem__
+        dev = table.device
     B = seed_codes.shape[0]
     offset0 = (4**lag - 1) // 3
     pow4 = 4 ** torch.arange(lag - 1, -1, -1, dtype=torch.int64, device=dev)
@@ -84,7 +110,7 @@ def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, ge
         gumbel = _gumbel(batch_key, steps, B, dtype, dev)
         for t in steps:
             rows = offset0 + ctx
-            counts = table[rows].to(dtype)
+            counts = gather(rows).to(dtype)
             if ar_apply is not None:
                 conc = ar_apply(alphabets.one_hot(window, 5, dtype)).to(dtype) / h + counts
             else:
@@ -120,8 +146,10 @@ def assemble_no_ends(seeds, lengths_to_gen, num_to_gen: int, *, lag: int, counte
     num_to_gen : generated samples per seed.
     counter_table : [table_rows(lag), A+1] transition counts, a tensor (kept
         on its device when that is ``device``; e.g. a group of
-        ``TransitionCounter(...).table(lag)``) or a numpy array (uploaded).
-        The reference counts with reverse=True.
+        ``TransitionCounter(...).table(lag)``) or a numpy array (uploaded);
+        or a sparse table, any object with sorted int64 ``.rows`` and
+        aligned ``.counts`` [n, A+1] (``scoring.SparseTableIndex``; lags up
+        to 30), both uploaded. The reference counts with reverse=True.
     h, ar_apply : a BEAR model (ar_apply: one-hot [B, lag, A+1] on
         ``device`` -> probabilities); or van : a BMM prior.
     get_map : extend with the MAP model rather than sampled AR models.
@@ -135,21 +163,21 @@ def assemble_no_ends(seeds, lengths_to_gen, num_to_gen: int, *, lag: int, counte
         raise ValueError("specify exactly one of van / ar_apply+h")
     if ar_apply is not None and h is None:
         raise ValueError("ar_apply requires h (concentrations are ar_probs / h)")
-    if hasattr(counter_table, "rows") and hasattr(counter_table, "counts"):
-        raise NotImplementedError(
-            "assembly from a sparse table (SparseTableIndex) is not ported to PyTorch yet; "
-            "see ROADMAP.md Queue 1 item 12")
     dev = resolve_device(device)
     seeds = [str(s) for s in seeds]
     for s in seeds:
         if len(s) < lag:
             raise ValueError("seeds must be at least lag long")
     lengths_to_gen = np.asarray(lengths_to_gen).reshape(len(seeds), 2)
-    table = (counter_table if isinstance(counter_table, torch.Tensor)
-             else torch.from_numpy(np.asarray(counter_table))).to(dev)
-    if table.shape[0] != table_rows(lag):
-        raise ValueError(f"counter_table has {table.shape[0]} rows, lag {lag} needs "
-                         f"{table_rows(lag)}")
+    if hasattr(counter_table, "rows") and hasattr(counter_table, "counts"):
+        table = (torch.as_tensor(np.asarray(counter_table.rows, np.int64)).to(dev),
+                 torch.as_tensor(np.asarray(counter_table.counts)).to(dev))
+    else:
+        table = (counter_table if isinstance(counter_table, torch.Tensor)
+                 else torch.from_numpy(np.asarray(counter_table))).to(dev)
+        if table.shape[0] != table_rows(lag):
+            raise ValueError(f"counter_table has {table.shape[0]} rows, lag {lag} needs "
+                             f"{table_rows(lag)}")
 
     fwd_seqs = np.repeat(np.array(seeds), num_to_gen)
     lengths_rep = np.repeat(lengths_to_gen, num_to_gen, axis=0)  # [B, 2]

@@ -9,8 +9,9 @@ float64.
 
 Model stacking order matches the reference (get_var_probs.py:136-153):
 [raw AR (MAP mode only)] + [BEAR at each h] + [BMM at each van].
-A row-sharded counter (``counts_for_rows``, bear_tpu's SparseTableIndex)
-is not ported yet (ROADMAP.md).
+A counter with a sparse host accumulator (``counts_for_rows``: multi-pass
+and sparse-first counting, lags 14-30) is read through a
+:class:`SparseTableIndex`.
 """
 
 from __future__ import annotations
@@ -39,10 +40,58 @@ STOP = "]"
 # --- counters: kmer strings -> transition counts --------------------------
 
 
+class SparseTableIndex:
+    """Row -> counts index over a sparse-backed counter's nonzero rows
+    (bear_tpu's, scoring.py:32-88): built once from one consolidation of
+    the accumulator, then each query is a binary search and a gather, the
+    random access behind TableCounter's sparse backend and sparse-table
+    assembly (the py_kmc_api role at lags 14-30).
+
+    Queries stay live: each ``gather`` checks whether the counter merged
+    new counts since the index was built (an identity probe on its
+    consolidated key array, no work while the counter is idle) and
+    rebuilds if so. The ``rows`` / ``counts`` arrays are a snapshot of the
+    last (re)build.
+
+    rows : sorted [n] int64 nonzero table rows.
+    counts : [n, A+1] int64 counts aligned with ``rows`` (one group).
+    """
+
+    def __init__(self, counter, lag: int, group: int = 0):
+        self.lag = lag
+        self._counter = counter
+        self._group = group
+        self._build()
+
+    def _build(self):
+        self.rows = np.asarray(self._counter.nonzero_rows(self.lag), np.int64)
+        self.counts = np.ascontiguousarray(
+            self._counter.counts_for_rows(self.lag, self.rows)[:, self._group, :])
+        # The counter's consolidation returns the SAME key array until new
+        # counts merge: an `is` check detects any counting since the build.
+        self._keys_probe = self._counter._consolidated(self.lag)[0]
+
+    def gather(self, rows) -> np.ndarray:
+        """[len(rows), A+1] counts; rows absent from the table count zero
+        (prior-only scoring, the DatasetCounter convention)."""
+        if self._counter._consolidated(self.lag)[0] is not self._keys_probe:
+            self._build()
+        rows = np.asarray(rows, np.int64)
+        out = np.zeros((len(rows), self.counts.shape[1]), self.counts.dtype)
+        if len(self.rows) == 0 or len(rows) == 0:
+            return out
+        pos = np.minimum(np.searchsorted(self.rows, rows), len(self.rows) - 1)
+        hit = self.rows[pos] == rows
+        out[hit] = self.counts[pos[hit]]
+        return out
+
+
 class TableCounter:
-    """Transition counts of context strings from a TransitionCounter's
-    dense table (the reference's KMC random-access queries,
-    get_var_probs.py:210-289, as gathers).
+    """Transition counts of context strings from a counter's table (the
+    reference's KMC random-access queries, get_var_probs.py:210-289, as
+    gathers): a TransitionCounter's dense host table, or for a counter
+    with a sparse accumulator (``counts_for_rows``: multi-pass and sparse
+    counting) a :class:`SparseTableIndex` — the dense table is never built.
 
     For reverse-strand inclusion, count over {s} and {revcomp(s)}
     (TransitionCounter(reverse=True)). no_end=True zeroes the stop column
@@ -51,16 +100,16 @@ class TableCounter:
     base-A)."""
 
     def __init__(self, counter, lag: int, group: int = 0, no_end: bool = False):
-        if hasattr(counter, "counts_for_rows"):
-            raise NotImplementedError(
-                "row-sharded counters (SparseTableIndex) are not ported yet; "
-                "see ROADMAP.md"
-            )
         self._alphabet = getattr(counter, "alphabet", "dna")
         self._A = getattr(counter, "A", 4)
-        table = counter.tables[lag][group]
-        self._table = table
-        self._width = table.shape[-1]
+        if hasattr(counter, "counts_for_rows"):
+            self._index = SparseTableIndex(counter, lag, group)
+            self._width = counter.A1
+            self._gather = self._index.gather
+        else:
+            table = counter.tables[lag][group]
+            self._width = table.shape[-1]
+            self._gather = table.__getitem__
         self._lag = lag
         self._no_end = no_end
 
@@ -86,7 +135,7 @@ class TableCounter:
     def __call__(self, kmers) -> np.ndarray:
         kmers = np.asarray(kmers)
         rows = self.rows(kmers).reshape(-1)
-        out = self._table[rows].astype(np.float64)
+        out = self._gather(rows).astype(np.float64)
         if self._no_end:
             out[:, -1] = 0.0
         return out.reshape(kmers.shape + (self._width,))

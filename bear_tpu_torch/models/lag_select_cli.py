@@ -6,9 +6,11 @@ bear_tpu/models/lag_select_cli.py).
 
 Either counts every lag 1..l of a FILE,GROUP,TYPE csv in one pass on the
 card (summarize's ``run_counting``, one ``count_chunk`` launch per chunk)
-and sweeps the resident tables, or reads summarized count TSVs. ``--device
-cpu`` runs both on the CPU. ``--passes`` and ``--kmer-shards`` above 1 are
-not ported yet and raise (ROADMAP.md Queue 1 items 12, 13).
+and sweeps the resident tables, or reads summarized count TSVs. ``--passes
+N`` counts in N row-range passes (lags 14-15) and lags beyond 15 count
+sparse-first; the sweep then streams the sparse rows. ``--device cpu``
+runs all of it on the CPU. ``--kmer-shards`` above 1 needs several cards
+and raises (ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -42,7 +44,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-ds", type=int, default=None,
                    help="Dataset columns in the TSVs (--counts mode; default: sniff).")
     p.add_argument("--passes", type=int, default=1,
-                   help="Multi-pass counting (not ported yet: only 1).")
+                   help="Count in N sequential row-range passes on one card (lag "
+                        "14-15 tables beyond one card; the marginal sweep then "
+                        "streams the sparse rows).")
     p.add_argument("--kmer-shards", type=int, default=1,
                    help="Count tables sharded over cards (not ported yet: only 1).")
     p.add_argument("--json", action="store_true",
@@ -55,10 +59,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(args) -> int:
     from bear_tpu_torch.models.lag_selection import select_lag, select_lag_from_tsvs
 
-    if args.passes > 1 or args.kmer_shards > 1:
-        raise NotImplementedError(
-            "--passes and --kmer-shards above 1 are not ported to PyTorch yet; see "
-            "ROADMAP.md Queue 1 items 12 and 13")
     lags = range(args.min_lag, args.l + 1)
     if args.counts:
         sel = select_lag_from_tsvs(args.input, lags, alphas=args.alphas, group=args.group,
@@ -68,7 +68,8 @@ def main(args) -> int:
         from bear_tpu_torch.counting.summarize import run_counting
 
         counter = run_counting(args.input, lags=lags, reverse=args.r, alphabet=args.alphabet,
-                               ambig=args.ambig, device=args.device)
+                               ambig=args.ambig, passes=args.passes,
+                               kmer_shards=args.kmer_shards, device=args.device)
         sel = select_lag(counter, alphas=args.alphas, group=args.group)
 
     best = sel.best

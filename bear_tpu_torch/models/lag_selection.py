@@ -10,8 +10,9 @@ totals, the nonzero rows, one gather per block of rows) and takes
 the tables is ever made. Only nonzero rows contribute (a zero-count row's
 term is exactly 0).
 
-``select_lag_sparse`` (sparse and multi-pass counters) is not ported yet
-and raises (ROADMAP.md Queue 1 item 12).
+``select_lag_sparse`` sweeps a counter with a sparse host accumulator
+(multi-pass and sparse-first counting, lags 14-30): its nonzero rows go to
+the counter's device in blocks and the same float64 sums run there.
 """
 
 from __future__ import annotations
@@ -100,10 +101,22 @@ def select_lag(counter, alphas: Sequence[float] = (0.01, 0.1, 1.0), group: int =
 
 def select_lag_sparse(counter, alphas: Sequence[float] = (0.01, 0.1, 1.0), group: int = 0,
                       batch_size: int = 1 << 20) -> LagSelection:
-    """select_lag over a sparse or multi-pass counter: not ported yet."""
-    raise NotImplementedError(
-        "select_lag over sparse counters (counts_for_rows) is not ported to PyTorch yet; "
-        "see ROADMAP.md Queue 1 item 12")
+    """select_lag over a counter with a sparse host accumulator
+    (MultiPassTransitionCounter, SparseTransitionCounter): its nonzero rows
+    stream through ``counts_for_rows`` in ``batch_size`` blocks, each
+    uploaded to the counter's device for the float64 sums, so lag 14-30
+    selection never builds a dense table. Rows absent from the sparse set
+    contribute exactly 0: the result equals the dense sweep."""
+    dev = resolve_device(counter.device)
+    a = _alphas(alphas, dev)
+    out = torch.zeros((len(counter.lags), len(a)), dtype=torch.float64, device=dev)
+    for i, lag in enumerate(counter.lags):
+        rows = counter.nonzero_rows(lag)
+        for start in range(0, len(rows), batch_size):
+            counts = counter.counts_for_rows(lag, rows[start : start + batch_size])[:, group]
+            out[i] += _marginal(torch.from_numpy(counts).to(dev), a)
+    return LagSelection(lags=tuple(counter.lags), log_marginals=out.cpu().numpy(),
+                        alphas=a.cpu().numpy())
 
 
 def select_lag_from_tsvs(prefix: str, lags: Sequence[int],

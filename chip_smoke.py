@@ -66,6 +66,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    seeds x 16 samples, 500 letters each side, sampled and MAP, with one
    profiler window of the sampler's share, and a float64 rollout on the card
    held against the CPU sequence for sequence;
+4g. counting beyond the dense table, in 4e's directory: count_chunk's
+   row-range form held against its plain version on a summarize chunk in
+   every pass and timed; (L) the summarize CLI at -l 15 in the fewest
+   row-range passes the int32 guard takes (9: one count_chunk launch per
+   chunk and pass); (M) the summarize CLI at -l 20, which routes itself to
+   the sparse-first counter (key buffers sorted on the card, no
+   count_chunk), then 200 linear-BEAR applies on its lag-20 rows; the
+   nonzero rows of every lag against a plain torch.unique recount, and the
+   shards of lags 1..13 byte for byte against 4e's and of lags 14-15
+   against each other; (N) select_lag over (M)'s counter (lags 1..13
+   against (J)) and lag_select_cli -l 15 --passes 9; (O) the held-out reads
+   scored at lag 20 through TableCounter on (M)'s counter, and BMM
+   assembly at lag 20 from a reverse sparse count's SparseTableIndex with
+   (K)'s seeds and sizes, float64 card against CPU, and at lag 13 the
+   sparse index against the dense table;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -158,6 +173,20 @@ ASM_SEEDS, ASM_NUM, ASM_FLANK, ASM_SEED_BP = 64, 16, 500, 150
 ASM_CHECK = (8, 4, 8, 50)  # seeds, samples, lag, letters each side
 ASM_PROFILE_FLANK = 8
 ASM_MARGIN = 1e-12
+# Phase 4g: counting beyond the dense table, in 4e's directory on (G)'s FASTQ
+# files. (L) summarize -l 15 in the fewest row-range passes the int32 guard
+# takes; (M) summarize -l 20 (the sparse-first counter), then linear-BEAR
+# applies on its lag-20 rows; (N) lag selection over (M)'s counter and the
+# CLI's --passes route; (O) scoring and BMM generation at lag 20 from the
+# sparse table. count_chunk's row-range form is held against its plain
+# version on each SHARD_CASES input split over that many passes, on a
+# poly-T lag-15 chunk and on an (L) chunk in every pass.
+PASSES_LAG = 15
+SPARSE_LAG = 20
+SHARD_CASES = [("multi_lag_1_4_7", 3), ("reverse", 2), ("ambig_not_fresh", 5),
+               ("segmented_skip", 7), ("zero_length_rows", 2), ("protein_lag6", 4)]
+SPARSE_CHECK_CHUNKS = 4
+SPARSE_APPLIES = 200
 
 
 def ysd1_config(out_folder):
@@ -517,6 +546,32 @@ def ysd1_phase(out_dir, card, device="cuda"):
     return ds, kw
 
 
+def write_model_dir(out_dir, res, lag, ar_name, af_kwargs, epochs, batch, lr=TRAIN_LR):
+    """A model directory of a bear_net.train result (config.cfg in float32
+    and the parameters), and its copy that loads in float64, for the CPU
+    references. Returns the copy's path."""
+    import shutil
+
+    from bear_tpu_torch.utils.checkpoint import save_results
+    from bear_tpu_torch.utils.cli_common import write_config
+
+    cfg = ysd1_config(out_dir + "*")
+    cfg["hyperp"]["lag"] = str(lag)
+    cfg["data"]["num_ds"] = str(N_GROUPS)
+    cfg["model"]["ar_func_name"] = ar_name
+    cfg["model"]["af_kwargs"] = json.dumps(af_kwargs)
+    cfg["train"].update(epochs=str(epochs), batch_size=str(batch), learning_rate=str(lr))
+    cfg["results"]["h"] = str(res.h)
+    os.makedirs(out_dir, exist_ok=True)
+    write_config(cfg, out_dir)
+    save_results(out_dir, res.params_list, extra={"torch_opt_state": res.opt_state})
+    dir64 = out_dir.rstrip("/") + "_float64"
+    shutil.copytree(out_dir, dir64, dirs_exist_ok=True)
+    cfg["general"]["precision"] = "float64"
+    write_config(cfg, dir64)
+    return dir64
+
+
 def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=LAG,
                       cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
                       n_score=N_SCORE):
@@ -526,16 +581,12 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     conservation of the handoff, the first applies' ELBOs against CPU
     float64 and the trained model's scores against CPU float64. Returns
     what the profiles reuse."""
-    import shutil
-
     import torch
     from bear_tpu_torch.counting import engine
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
     from bear_tpu_torch.inference import BearServer, load_bear
     from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import get_ar_func
-    from bear_tpu_torch.utils.checkpoint import save_results
-    from bear_tpu_torch.utils.cli_common import write_config
 
     count_chunk_update.launches = 0
     t_first_read = time.perf_counter()
@@ -610,20 +661,7 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     check(all(np.isfinite(np.asarray(o)).all() for o in out), "evaluation not finite")
 
     # Write the model directory, reload it, and serve with the trained CNN.
-    cfg = ysd1_config(out_dir + "*")
-    cfg["hyperp"]["lag"] = str(lag)
-    cfg["data"]["num_ds"] = str(N_GROUPS)
-    cfg["model"]["ar_func_name"] = "cnn"
-    cfg["model"]["af_kwargs"] = json.dumps(cnn_kw)
-    cfg["train"].update(epochs=str(epochs), batch_size=str(batch), learning_rate=str(TRAIN_LR))
-    cfg["results"]["h"] = str(res.h)
-    os.makedirs(out_dir, exist_ok=True)
-    write_config(cfg, out_dir)
-    save_results(out_dir, res.params_list, extra={"torch_opt_state": res.opt_state})
-    dir64 = out_dir.rstrip("/") + "_float64"
-    shutil.copytree(out_dir, dir64, dirs_exist_ok=True)
-    cfg["general"]["precision"] = "float64"
-    write_config(cfg, dir64)
+    dir64 = write_model_dir(out_dir, res, lag, "cnn", cnn_kw, epochs, batch)
 
     tables = counter.tables[lag]
     del counter
@@ -912,24 +950,13 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
 
     import torch
     from bear_tpu_torch.counting import summarize
-    from bear_tpu_torch.counting.count_chunk import count_chunk_update
     from bear_tpu_torch.data import load_files
 
     t0 = time.perf_counter()
     csv, files = write_fastq(reads, groups, os.path.join(work, "reads"))
     write_s = time.perf_counter() - t0
     prefix = os.path.join(work, "counts", "run")
-    os.makedirs(os.path.dirname(prefix))
-    args = summarize.build_parser().parse_args(
-        [csv, prefix, "-l", str(lag), "--device", torch.device(device).type])
-    report = {}
-    count_chunk_update.launches = 0
-    t0 = time.perf_counter()
-    n_bins, _ = summarize.main(args, report)
-    synchronize(device)
-    wall_s = time.perf_counter() - t0
-    launches = count_chunk_update.launches
-    run = report["forward"]
+    n_bins, run, launches, wall_s = summarize_run(csv, prefix, ["-l", str(lag)], device)
     stats = run["stats"]
     per_lag = stats["bases"] + stats["reads"]
     on_card = torch.device(device).type == "cuda"
@@ -976,19 +1003,24 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
                        lambda: write_tsv_shards(out, lag, want_rows, want_counts,
                                                 int(np.log2(n_bins))), top=10)
     return dict(launches=launches, chunks=stats["chunks"], prefix=prefix, files=files,
-                shards=shards, csv=csv)
+                shards=shards, csv=csv, n_bins=n_bins)
 
 
-def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20):
+def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20, passes=None):
     """count_chunk at the summarize geometry: the first chunk that
     chunks_from_packed makes of ``first_file`` (1,024 reads, padded), over
     lags 1..lag, held against its plain version (exact) and timed like
     phase 3. The byte bound counts the distinct 32-byte sectors the chunk's
     keys touch over all the lag tables; the library call is index_put_ on
-    those keys. Returns the kernel's JSON fields for this geometry."""
+    those keys. With ``passes``, count_chunk's row-range form in
+    MultiPassTransitionCounter's layout: the chunk is held against its
+    plain version in every pass's row range and timed in pass 0, its bound
+    and library call on that pass's keys. Returns the kernel's JSON fields
+    for this geometry."""
     import torch
     from bear_tpu_torch.counting import count_chunk, engine, native
     from bear_tpu_torch.counting.count_chunk import count_chunk_plain, count_chunk_update
+    from bear_tpu_torch.counting.multipass import MultiPassTransitionCounter
 
     codes_flat, offsets = native.load().parse(first_file, "fq")
     chunk = next(iter(engine.chunks_from_packed(codes_flat, offsets, 0, lag)))
@@ -997,39 +1029,61 @@ def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20):
                                     chunk.fresh)
     codes = torch.from_numpy(chunk.codes).to(dev)
     meta = torch.from_numpy(meta_np).to(dev)
-    _, total = count_chunk.lag_offsets(lags, N_GROUPS)
+    if passes is None:
+        shards = [None]
+        _, total = count_chunk.lag_offsets(lags, N_GROUPS)
+    else:
+        layout = MultiPassTransitionCounter(lags, n_groups=N_GROUPS, passes=passes, device=dev)
+        shards = [(d, layout._per_lag) for d in range(passes)]
+        total = layout.table_size
     a = torch.zeros(total, dtype=torch.int32, device=dev)
     b = torch.zeros(total, dtype=torch.int32, device=dev)
-    count_chunk_update(a, codes, meta, lags, N_GROUPS, 4)
-    count_chunk_plain(b, codes, meta, lags, N_GROUPS, 4)
-    torch.cuda.synchronize()
-    err = int((a.long() - b.long()).abs().max())
-    check(torch.equal(a, b), f"count_chunk differs from plain on the summarize chunk: {err}")
-    del b
+    err = 0
+    for shard in shards:
+        a.zero_()
+        b.zero_()
+        count_chunk_update(a, codes, meta, lags, N_GROUPS, 4, shard=shard)
+        count_chunk_plain(b, codes, meta, lags, N_GROUPS, 4, shard=shard)
+        torch.cuda.synchronize()
+        differ = a != b
+        if bool(differ.any()):
+            err = int((a[differ].long() - b[differ].long()).abs().max())
+        where = "" if shard is None else f" in pass {shard[0]} of {passes}"
+        check(err == 0, f"count_chunk differs from plain on the summarize chunk{where}: {err}")
+    del b, differ
+    shard = shards[0]
     lengths, skip, stopped, grp, fresh = count_chunk.unpack_meta(meta)
     keys = count_chunk.chunk_keys(codes, lengths, skip, stopped, grp, lags, N_GROUPS, 4,
-                                  sentinel=total, fresh=fresh)
+                                  sentinel=total, fresh=fresh, shard=shard)
     valid = keys[(keys >= 0) & (keys < total)].long()
     ones = torch.ones_like(valid, dtype=torch.int32)
     sectors = int(torch.unique(valid // 8).numel())
     l2_flush = torch.empty(32 << 20, dtype=torch.int32, device=dev)
-    ms = timed_ms(lambda: count_chunk_update(a, codes, meta, lags, N_GROUPS, 4), reps, l2_flush)
-    plain_ms = timed_ms(lambda: count_chunk_plain(a, codes, meta, lags, N_GROUPS, 4), reps,
-                        l2_flush)
+
+    def kernel(fn):
+        return lambda: fn(a, codes, meta, lags, N_GROUPS, 4, shard=shard)
+
+    ms = timed_ms(kernel(count_chunk_update), reps, l2_flush)
+    plain_ms = timed_ms(kernel(count_chunk_plain), reps, l2_flush)
     library_ms = timed_ms(lambda: a.index_put_((valid,), ones, accumulate=True), reps, l2_flush)
     n_pos = codes.shape[0] * (codes.shape[1] + 1)
     bytes_ms = (codes.numel() + 4 * meta.numel() + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
     ops_ms = n_pos * (ROLL_OPS + KEY_OPS * len(lags)) / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[kernel] count_chunk at the summarize chunk: {codes.shape[0]:,} x {codes.shape[1]} "
-          f"codes over lags 1..{lag} ({valid.numel():,} keys counted, {sectors:,} table "
-          f"sectors of {total:,} int32): == plain, max_abs_err {err}; ms {ms:.6f} plain_ms "
-          f"{plain_ms:.6f} bound_ms {bound_ms:.6f} ({bound_by}) library_ms {library_ms:.6f} "
-          f"(index_put_ on the chunk's keys) [{card}]")
-    return {"shape": list(codes.shape), "lags": len(lags), "max_abs_err": float(err),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    form = ("" if passes is None else
+            f" in row-range form, held in all {passes} passes, timed in pass 0")
+    print(f"[kernel] count_chunk at the summarize chunk{form}: {codes.shape[0]:,} x "
+          f"{codes.shape[1]} codes over lags 1..{lag} ({valid.numel():,} keys counted, "
+          f"{sectors:,} table sectors of {total:,} int32): == plain, max_abs_err {err}; ms "
+          f"{ms:.6f} plain_ms {plain_ms:.6f} bound_ms {bound_ms:.6f} ({bound_by}) library_ms "
+          f"{library_ms:.6f} (index_put_ on the chunk's keys) [{card}]")
+    out = {"shape": list(codes.shape), "lags": len(lags), "max_abs_err": float(err),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    if passes is not None:
+        out.update(passes=passes, timed_pass=0, table_entries=total, keys=valid.numel())
+    return out
 
 
 def stream_config(out_folder, counts_prefix, lag=LAG, cnn_kw=CNN_KW, batch=TRAIN_BATCH,
@@ -1367,7 +1421,8 @@ def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
     select_lag_from_tsvs on summarize's shards, and the CLI's counting and
     --counts routes with --json. Checks that all four agree at
     LAG_SELECT_RTOL and on the best lag. Returns the count_chunk launches
-    of the recount and of the CLI's counting route."""
+    of the recount and of the CLI's counting route, and the recount's
+    LagSelection."""
     import contextlib
     import io
 
@@ -1424,7 +1479,7 @@ def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
           f"select_lag on the resident table {table_s[0]:.3f} s, again {table_s[1]:.3f} s; "
           f"select_lag_from_tsvs {tsv_s:.3f} s; lag_select_cli counting route {counted_s:.3f} s "
           f"({launches['lag_select_cli']} launches), --counts route {tsv_cli_s:.3f} s [{card}]")
-    return launches
+    return launches, table
 
 
 def assembly_margin(gen, seed_s, index, direction, step, table, lag, prior, seed, n_seqs,
@@ -1515,10 +1570,7 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     from bear_tpu_torch.inference.scoring import load_bear
     from bear_tpu_torch.models.ar_funcs import LinearAR
 
-    G = int(genome_mb * 1e6)
-    genome = synth_genome(np.random.default_rng(SEED), G)
-    starts = np.random.default_rng(SEED + 1).integers(0, G - ASM_SEED_BP, n_seeds)
-    seeds = decode_reads(genome[starts[:, None] + np.arange(ASM_SEED_BP)[None, :]])
+    seeds = assembly_seeds(genome_mb, n_seeds)
     os.makedirs(out_dir, exist_ok=True)
     seeds_fa = os.path.join(out_dir, "seeds.fa")
     with open(seeds_fa, "w") as fh:
@@ -1633,6 +1685,411 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     return launches
 
 
+def shard_case(name):
+    """(lags, n_groups, A, [(codes, meta)], passes, [pass indices]): the
+    host inputs of one row-range edge case of count_chunk and the row
+    ranges it is held in. The count_case inputs split over a few passes,
+    and a poly-T lag-15 chunk (whole and shorter-than-the-lag reads) in the
+    first and last of phase 4g (L)'s passes: its '['-padded rows lie in
+    pass 0, the all-T context at the last row, 1,431,655,764."""
+    from bear_tpu_torch.counting import count_chunk, engine
+    from bear_tpu_torch.counting.multipass import min_passes
+
+    if name != "poly_t_lag15":
+        passes = dict(SHARD_CASES)[name]
+        return (*count_case(name), passes, list(range(passes)))
+    lags = tuple(range(1, PASSES_LAG + 1))
+    items = [(np.full(n, 3, np.int8), i % 2) for i, n in enumerate([150] * 8 + list(range(15)))]
+    chunks = engine.chunk_reads(iter(items), PASSES_LAG, batch_size=64)
+    passes = min_passes(lags, N_GROUPS)
+    return lags, N_GROUPS, 4, [
+        (np.ascontiguousarray(c.codes, np.int8),
+         count_chunk.pack_meta(c.lengths, c.skip, c.stopped, c.groups, c.fresh))
+        for c in chunks], passes, [0, passes - 1]
+
+
+def shard_vs_plain(dev, lags, n_groups, A, inputs, passes, pass_idx):
+    """One row range's table counted on the card by count_chunk's row-range
+    form and by its plain version, each over every (codes, meta) input, in
+    MultiPassTransitionCounter's layout for ``passes``."""
+    import torch
+    from bear_tpu_torch.counting.count_chunk import count_chunk_plain, count_chunk_update
+    from bear_tpu_torch.counting.multipass import MultiPassTransitionCounter
+
+    layout = MultiPassTransitionCounter(lags, n_groups=n_groups, passes=passes,
+                                        alphabet="dna" if A == 4 else "prot", device=dev)
+    shard = (pass_idx, layout._per_lag)
+    a = torch.zeros(layout.table_size, dtype=torch.int32, device=dev)
+    b = torch.zeros_like(a)
+    for codes, meta in inputs:
+        c = torch.from_numpy(codes).to(dev)
+        m = torch.from_numpy(meta).to(dev)
+        count_chunk_update(a, c, m, lags, n_groups, A, shard=shard)
+        count_chunk_plain(b, c, m, lags, n_groups, A, shard=shard)
+    torch.cuda.synchronize()
+    return a, b
+
+
+def distinct_rows(reads, max_lag, dev):
+    """{lag: distinct context rows} at lags 1..max_lag over whole, stopped
+    reads (positions 0..L, '['-padded prefixes): a plain torch.unique
+    recount on ``dev``, independent of the counters."""
+    import torch
+
+    r = torch.from_numpy(reads).to(dev, torch.int64)
+    L = r.shape[1]
+    padded = torch.nn.functional.pad(r, (max_lag, 0))
+    code = torch.zeros((r.shape[0], L + 1), dtype=torch.int64, device=dev)
+    out = {}
+    for lag in range(1, max_lag + 1):
+        code += padded[:, max_lag - lag : max_lag - lag + L + 1] * 4 ** (lag - 1)
+        suffix = np.minimum(np.arange(L + 1), lag)
+        offset = torch.as_tensor((4**suffix - 1) // 3, device=dev)
+        out[lag] = int(torch.unique(code + offset).numel())
+    return out
+
+
+def mf_for(rows, n_bins):
+    """summarize's -mf that makes ``rows`` nonzero rows (all lags, N_GROUPS
+    dataset columns) into ``n_bins`` shards per lag (compute_n_bin_bits)."""
+    return repr(rows * N_GROUPS * 32 / (0.75 * n_bins * 1e9))
+
+
+def same_shards(prefix_a, prefix_b, lags):
+    """Check that two summarize runs wrote the same shards, byte for byte,
+    at ``lags``; returns the number of files compared."""
+    import filecmp
+    import glob
+
+    n = 0
+    for lag in lags:
+        a = sorted(glob.glob(f"{prefix_a}_lag_{lag}_file_*.tsv"))
+        b = sorted(glob.glob(f"{prefix_b}_lag_{lag}_file_*.tsv"))
+        check(len(a) == len(b) > 0 and [os.path.basename(p) for p in a]
+              == [os.path.basename(p) for p in b], f"lag {lag}: shards {a} vs {b}")
+        for x, y in zip(a, b):
+            check(filecmp.cmp(x, y, shallow=False), f"{y} differs from {x}")
+        n += len(a)
+    return n
+
+
+def summarize_run(csv, prefix, argv, device):
+    """summarize.main through its parser, its count_chunk launches counted
+    from 0 just before and read just after. Returns (shards per lag, the
+    forward pass's report, launches, wall s)."""
+    import torch
+    from bear_tpu_torch.counting import summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+
+    os.makedirs(os.path.dirname(prefix))
+    args = summarize.build_parser().parse_args(
+        [csv, prefix, *argv, "--device", torch.device(device).type])
+    report = {}
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    n_bins, _ = summarize.main(args, report)
+    synchronize(device)
+    return n_bins, report["forward"], count_chunk_update.launches, time.perf_counter() - t0
+
+
+def passes_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG, lag=PASSES_LAG,
+                 passes=None):
+    """4g (L): summarize -l ``lag`` in ``passes`` row-range passes (by
+    default the fewest the int32 guard accepts) on 4e's FASTQ files, -mf set
+    for 4e's shard count. Checks one count_chunk launch per chunk and pass,
+    conservation at every lag (summarize's own check), the nonzero rows of
+    every lag against the plain recount, and lags 1..dense_lag byte for
+    byte against 4e's shards. Returns what (M) and (N) use."""
+    from bear_tpu_torch.counting.multipass import min_passes
+
+    lags = range(1, lag + 1)
+    passes = passes or min_passes(lags, N_GROUPS)
+    prefix = os.path.join(work, "passes", "run")
+    mf = mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"])
+    n_bins, run, launches, wall_s = summarize_run(
+        s_run["csv"], prefix, ["-l", str(lag), "--passes", str(passes), "-mf", mf], device)
+    stats = run["stats"]
+    on_card = device != "cpu"
+    check(launches == (passes * stats["chunks"] if on_card else 0),
+          f"summarize --passes {passes} launched count_chunk {launches} times for "
+          f"{stats['chunks']} chunks")
+    check(run["rows"] == {l: ref_rows[l] for l in lags},
+          f"nonzero rows per lag {run['rows']} differ from the plain recount's")
+    check(n_bins == s_run["n_bins"], f"{n_bins} shards per lag, 4e wrote {s_run['n_bins']}")
+    n_files = same_shards(s_run["prefix"], prefix, range(1, dense_lag + 1))
+    per_lag = stats["bases"] + stats["reads"]
+    print(f"[passes] summarize -l {lag} --passes {passes} (-mf {mf}): {stats['chunks']} chunks "
+          f"per pass, {launches} count_chunk launches, a {run['table_bytes']:,}-byte row range "
+          f"on {device}; {per_lag:,} transitions per lag x {lag} lags conserved; count "
+          f"{run['count_s']:.3f} s (every pass re-reads the files) = "
+          f"{passes * lag * per_lag / run['count_s']:.6g} transitions/s counted over the passes, "
+          f"export {run['export_s']:.3f} s; whole CLI {wall_s:.3f} s [{card}]")
+    print(f"[passes] nonzero rows per lag == the plain torch.unique recount's; lags "
+          f"1..{dense_lag}: {n_files} shards byte-identical to 4e's; rows at lags "
+          f"{dense_lag + 1}..{lag}: {[run['rows'][l] for l in range(dense_lag + 1, lag + 1)]}")
+    return dict(passes=passes, prefix=prefix, launches=launches, chunks=stats["chunks"])
+
+
+def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
+                 passes_lag=PASSES_LAG, lag=SPARSE_LAG, applies=SPARSE_APPLIES,
+                 batch=TRAIN_BATCH, check_chunks=SPARSE_CHECK_CHUNKS):
+    """4g (M): summarize -l ``lag`` on 4e's files, which routes itself to
+    the sparse-first counter (key buffers sorted on the card; no
+    count_chunk), -mf set for 4e's shard count. Checks no count_chunk
+    launch, conservation at every lag, the nonzero rows against the plain
+    recount, lags 1..dense_lag byte for byte against 4e's shards and lags
+    dense_lag+1..passes_lag against (L)'s, and exact counts of the first
+    ``check_chunks`` chunks on the card against the CPU. Then
+    ``to_dataset(lag)`` and ``applies`` linear-BEAR applies (first ELBOs
+    against CPU float64), written as a model directory. Returns (the
+    counter, the model directory)."""
+    import itertools
+
+    import torch
+    from bear_tpu_torch.counting import engine, native
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    lags = range(1, lag + 1)
+    prefix = os.path.join(work, "sparse", "run")
+    mf = mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"])
+    n_bins, run, launches, wall_s = summarize_run(s_run["csv"], prefix,
+                                                  ["-l", str(lag), "-mf", mf], device)
+    counter = run["counter"]
+    stats = run["stats"]
+    check(isinstance(counter, SparseTransitionCounter) and launches == 0,
+          f"-l {lag} ran {type(counter).__name__} with {launches} count_chunk launches")
+    check(run["rows"] == {l: ref_rows[l] for l in lags},
+          f"nonzero rows per lag {run['rows']} differ from the plain recount's")
+    check(n_bins == s_run["n_bins"], f"{n_bins} shards per lag, 4e wrote {s_run['n_bins']}")
+    n_dense = same_shards(s_run["prefix"], prefix, range(1, dense_lag + 1))
+    n_passes = same_shards(p_run["prefix"], prefix, range(dense_lag + 1, passes_lag + 1))
+    per_lag = stats["bases"] + stats["reads"]
+    print(f"[sparse] summarize -l {lag} (-mf {mf}) -> SparseTransitionCounter: "
+          f"{stats['chunks']} chunks, 0 count_chunk launches, key buffers "
+          f"{run['table_bytes']:,} bytes on {device}; {per_lag:,} transitions per lag x {lag} "
+          f"lags conserved; count {run['count_s']:.3f} s = "
+          f"{lag * per_lag / run['count_s']:.6g} transitions/s over all {lag} lags, export "
+          f"{run['export_s']:.3f} s; whole CLI {wall_s:.3f} s [{card}]")
+    print(f"[sparse] nonzero rows per lag == the plain recount's; {n_dense} shards of lags "
+          f"1..{dense_lag} == 4e's and {n_passes} of lags {dense_lag + 1}..{passes_lag} == "
+          f"(L)'s, byte for byte; rows at lags {passes_lag + 1}..{lag}: "
+          f"{[run['rows'][l] for l in range(passes_lag + 1, lag + 1)]}")
+
+    first = s_run["files"][0][0]
+    codes_flat, offsets = native.load().parse(first, "fq")
+    some = list(itertools.islice(engine.chunks_from_packed(codes_flat, offsets, 0, lag),
+                                 check_chunks))
+    on = {}
+    for where in (device, "cpu"):
+        on[where] = SparseTransitionCounter(lags, n_groups=N_GROUPS, device=where)
+        for chunk in some:
+            on[where].add_chunk(chunk)
+    for l in lags:
+        (ka, va), (kb, vb) = on[device]._consolidated(l), on["cpu"]._consolidated(l)
+        check(np.array_equal(ka, kb) and np.array_equal(va, vb),
+              f"sparse counts of {len(some)} chunks at lag {l} on {device} differ from the CPU")
+    print(f"[sparse] {len(some)} chunks of {os.path.basename(first)} counted on {device} and "
+          f"on the CPU: the same keys and counts at all {lag} lags "
+          f"({sum(len(on['cpu']._consolidated(l)[0]) for l in lags):,} keys)")
+    del on
+
+    t0 = time.perf_counter()
+    ds = counter.to_dataset(lag)
+    dataset_s = time.perf_counter() - t0
+    n_rows = len(ds.kmers)
+    n_use = min(n_rows, applies * batch)
+    per_epoch = -(-n_use // batch)
+    epochs = -(-applies // per_epoch)
+    codes = torch.as_tensor(ds.codes[:n_use], device=device)
+    counts = torch.as_tensor(ds.counts[:n_use, 0], dtype=torch.float32, device=device)
+    gen = torch.Generator().manual_seed(SEED)
+    ar = get_ar_func("linear", lag, 4, device=device)
+    init = bear_net.init_params(gen, ar)
+    p0 = [init["h_signed"]] + init["ar"]
+    kw = dict(num_kmers=n_rows, batch_size=batch, learning_rate=0.01, params_restart=p0)
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bear_net.train(codes, counts, ar_func=ar, epochs=epochs, dtype=torch.float32,
+                         device=device, **kw)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+    elbos = res.elbos
+    check(np.isfinite(elbos).all(), "lag-20 ELBOs not finite")
+    k = min(N_ELBO_CHECK, per_epoch)
+    ar64 = get_ar_func("linear", lag, 4, dtype=torch.float64, device="cpu")
+    cpu = bear_net.train(codes[: k * batch].cpu(), counts[: k * batch].cpu().double(),
+                         ar_func=ar64, epochs=1, dtype=torch.float64, device="cpu", **kw)
+    elbo_err = float(np.max(np.abs(elbos[:k] / cpu.elbos[:k] - 1)))
+    check(elbo_err <= ELBO_RTOL, f"first {k} lag-{lag} ELBOs {elbos[:k]} differ from CPU "
+          f"float64 {cpu.elbos} by {elbo_err:.3e}")
+    model_dir = os.path.join(work, f"linear_lag{lag}")
+    write_model_dir(model_dir, res, lag, "linear", {}, epochs, batch, lr=0.01)
+    print(f"[sparse] to_dataset({lag}): {n_rows:,} rows in {dataset_s:.3f} s; linear BEAR on "
+          f"{n_use:,} of them, batch {batch}: {len(elbos)} applies in {train_s:.3f} s = "
+          f"{len(elbos) / train_s:.6g} applies/s, h {res.h:.6g}; first {k} ELBOs vs CPU "
+          f"float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL}) [{card}]")
+    return counter, model_dir
+
+
+def sparse_lag_phase(counter, dense, csv, passes, chunks, card, device="cuda", dense_lag=LAG,
+                     passes_lag=PASSES_LAG):
+    """4g (N): select_lag over (M)'s counter (lags 1..counter's max), which
+    routes to select_lag_sparse, against (J)'s dense sweep ``dense`` at lags
+    1..dense_lag; then lag_select_cli -l passes_lag --passes ``passes``
+    against select_lag_sparse's lags (one count_chunk launch per chunk and
+    pass). Returns the CLI's count_chunk launches."""
+    import contextlib
+    import io
+
+    import torch
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.models import lag_select_cli, lag_selection
+
+    t0 = time.perf_counter()
+    sel = lag_selection.select_lag(counter)
+    sel_s = time.perf_counter() - t0
+    err = float(np.max(np.abs(sel.log_marginals[:dense_lag] / dense.log_marginals - 1)))
+    check(sel.lags == tuple(counter.lags) and err <= LAG_SELECT_RTOL,
+          f"select_lag_sparse differs from (J)'s dense sweep at lags 1..{dense_lag}: {err:.3e}")
+    buf = io.StringIO()
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        best = lag_select_cli.main(lag_select_cli.build_parser().parse_args(
+            [csv, "-l", str(passes_lag), "--passes", str(passes), "--json", "--device",
+             torch.device(device).type]))
+    cli_s = time.perf_counter() - t0
+    launches = count_chunk_update.launches
+    payload = json.loads(buf.getvalue())
+    cli_err = float(np.max(np.abs(np.array(payload["log_marginals"])
+                                  / sel.log_marginals[:passes_lag] - 1)))
+    check(best == payload["best_lag"] and cli_err <= LAG_SELECT_RTOL,
+          f"lag_select_cli --passes differs from select_lag_sparse: {cli_err:.3e}")
+    check(launches == (passes * chunks if device != "cpu" else 0),
+          f"lag_select_cli --passes {passes} launched count_chunk {launches} times")
+    print(f"[lag] select_lag over the sparse counter, lags 1..{max(counter.lags)}: "
+          f"{sel_s:.3f} s, best lag {sel.best} (alpha {sel.best_alpha(sel.best):g}); lags "
+          f"1..{dense_lag} vs (J)'s dense sweep max rel err {err:.3e}; lag_select_cli -l "
+          f"{passes_lag} --passes {passes}: {cli_s:.3f} s, {launches} count_chunk launches, "
+          f"best lag {best}, vs select_lag_sparse {cli_err:.3e} (tolerance {LAG_SELECT_RTOL}) "
+          f"[{card}]")
+    return launches
+
+
+def assembly_seeds(genome_mb=GENOME_MB, n_seeds=ASM_SEEDS):
+    """(K)'s seeds: ``n_seeds`` 150 bp windows of the genome."""
+    G = int(genome_mb * 1e6)
+    genome = synth_genome(np.random.default_rng(SEED), G)
+    starts = np.random.default_rng(SEED + 1).integers(0, G - ASM_SEED_BP, n_seeds)
+    return decode_reads(genome[starts[:, None] + np.arange(ASM_SEED_BP)[None, :]])
+
+
+def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cuda",
+                            lag=SPARSE_LAG, dense_lag=LAG, genome_mb=GENOME_MB,
+                            n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
+                            check_cfg=ASM_CHECK, n_score=N_SCORE):
+    """4g (O): the held-out reads scored through TableCounter on (M)'s
+    counter at ``lag`` (get_bear_probs_seqs, MAP: AR, BEAR and BMM columns,
+    (M)'s model on the card in float32 against its float64 copy on the
+    CPU); then a reverse sparse count of the train reads at ``lag``, its
+    SparseTableIndex, and BMM assembly from it, (K)'s seeds and sizes,
+    sampled and MAP; float64 generation of ``check_cfg`` = (seeds, samples,
+    -, letters each side) on the card against the CPU, and at ``dense_lag``
+    a sparse index against the dense table of the same reads."""
+    import torch
+    from bear_tpu_torch.counting import engine
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+    from bear_tpu_torch.inference import assemble
+    from bear_tpu_torch.inference.scoring import (SparseTableIndex, TableCounter,
+                                                  get_bear_probs_seqs)
+
+    test = np.flatnonzero(groups == 1)[:n_score]
+    seqs = decode_reads(reads[test])
+    t0 = time.perf_counter()
+    table_counter = TableCounter(counter, lag)
+    index_s = time.perf_counter() - t0
+    kw = dict(vans=VAN_REG, get_map=True, counter=table_counter)
+    t0 = time.perf_counter()
+    scores = get_bear_probs_seqs(model_dir, seqs, 0, device=device, **kw)
+    score_s = time.perf_counter() - t0
+    ref = get_bear_probs_seqs(model_dir + "_float64", seqs, 0, device="cpu", **kw)
+    diff = np.abs(scores - ref)
+    check(scores.shape == (len(seqs), 2 + len(VAN_REG)) and np.isfinite(scores).all()
+          and bool((diff <= SCORE_ATOL + SCORE_RTOL * np.abs(ref)).all()),
+          f"lag-{lag} scores through the sparse index differ from CPU float64: max "
+          f"{diff.max()}")
+    print(f"[sparse] {len(seqs)} held-out reads scored at lag {lag} through TableCounter on "
+          f"the sparse counter (index {index_s:.3f} s): get_bear_probs_seqs MAP, AR + BEAR + "
+          f"{len(VAN_REG)} BMM columns, {score_s:.3f} s = {len(seqs) / score_s:.6g} "
+          f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e} [{card}]")
+    del table_counter
+
+    train = np.flatnonzero(groups == 0)
+    t0 = time.perf_counter()
+    sp = SparseTransitionCounter([lag], reverse=True, device=device)
+    for chunk in read_chunks(reads[train], np.zeros(len(train), np.int32)):
+        sp.add_chunk(chunk)
+    index = SparseTableIndex(sp, lag)
+    count_s = time.perf_counter() - t0
+    seeds = assembly_seeds(genome_mb, n_seeds)
+    van = VAN_REG[0]
+    for mode in ("sampled", "map"):
+        synchronize(device)
+        t0 = time.perf_counter()
+        gen, _ = assemble.assemble_no_ends(seeds, [[flank, flank]] * n_seeds, num, lag=lag,
+                                           counter_table=index, van=van,
+                                           get_map=mode == "map", seed=SEED, device=device)
+        synchronize(device)
+        gen_s = time.perf_counter() - t0
+        flat = gen.reshape(-1)
+        check(len(flat) == n_seeds * num and all(
+            len(s) == ASM_SEED_BP + 2 * flank and set(s) <= set("ACGT")
+            and s[flank:flank + ASM_SEED_BP] == seeds[i // num] for i, s in enumerate(flat)),
+            f"lag-{lag} sparse assembly {mode}: wrong count, lengths or letters")
+        n_letters = 2 * flank * n_seeds * num
+        print(f"[sparse] assembly at lag {lag} from a SparseTableIndex ({len(index.rows):,} "
+              f"rows; reverse count of {len(train):,} reads and index {count_s:.3f} s), BMM "
+              f"van {van}, {mode}, {n_seeds} seeds x {num}, {flank} letters each side: "
+              f"{n_letters:,} letters in {gen_s:.3f} s = {n_letters / gen_s:.6g} letters/s, "
+              f"{len(set(flat))} distinct sequences [{card}]")
+
+    c_seeds, c_num, _, c_flank = check_cfg
+    lengths = [[c_flank, c_flank]] * c_seeds
+    for get_map in (False, True):
+        kw = dict(lag=lag, van=van, seed=3, dtype=torch.float64, get_map=get_map)
+        on_dev, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num,
+                                              counter_table=index, device=device, **kw)
+        on_cpu, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num,
+                                              counter_table=index, device="cpu", **kw)
+        same = int(np.sum(on_dev.reshape(-1) == on_cpu.reshape(-1)))
+        check(same == on_cpu.size, f"lag-{lag} sparse assembly float64 {device} vs CPU: "
+              f"{same} of {on_cpu.size} sequences identical")
+        print(f"[sparse] BMM float64 {device} vs CPU from the lag-{lag} sparse index, "
+              f"{'MAP' if get_map else 'sampled'}: {same} of {on_cpu.size} sequences identical")
+    del sp, index
+
+    small = read_chunks(reads[train], np.zeros(len(train), np.int32))
+    sp = SparseTransitionCounter([dense_lag], reverse=True, device=device)
+    dense = engine.TransitionCounter([dense_lag], reverse=True, device=device)
+    for chunk in small:
+        sp.add_chunk(chunk)
+        dense.add_chunk(chunk)
+    index, table = SparseTableIndex(sp, dense_lag), dense.table(dense_lag)[0]
+    for get_map in (False, True):
+        kw = dict(lag=dense_lag, van=van, seed=5, get_map=get_map, device=device)
+        a, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num, counter_table=index,
+                                         **kw)
+        b, _ = assemble.assemble_no_ends(seeds[:c_seeds], lengths, c_num, counter_table=table,
+                                         **kw)
+        check(np.array_equal(a, b), f"lag-{dense_lag} assembly from the sparse index differs "
+              f"from the dense table's ({'MAP' if get_map else 'sampled'})")
+    print(f"[sparse] lag {dense_lag}: a SparseTableIndex ({len(index.rows):,} rows) and the "
+          f"dense table of the same reverse count give the same {a.size} sequences, sampled "
+          f"and MAP")
+
+
 def main() -> int:
     import torch
 
@@ -1691,6 +2148,27 @@ def main() -> int:
 
     for name in COUNT_CASES:
         hold_count_chunk(name, *count_case(name))
+
+    # count_chunk's row-range form (phase 4g's passes) on the same inputs
+    for name in [n for n, _ in SHARD_CASES] + ["poly_t_lag15"]:
+        lags, n_groups, A, inputs, passes, pass_ids = shard_case(name)
+        totals = []
+        for d in pass_ids:
+            a, b = shard_vs_plain(dev, lags, n_groups, A, inputs, passes, d)
+            differ = a != b
+            err = int((a[differ].long() - b[differ].long()).abs().max()) if bool(
+                differ.any()) else 0
+            count_err = max(count_err, err)
+            check(err == 0, f"count_chunk's row-range form differs from plain on {name}, "
+                  f"pass {d} of {passes}: {err}")
+            totals.append(int(a.sum()))
+            del a, b, differ
+        check(all(totals) if name == "poly_t_lag15" else sum(totals) > 0,
+              f"row-range case {name} counted nothing in a pass: {totals}")
+        print(f"[kernel] count_chunk row-range form == plain on {name}: {len(inputs)} "
+              f"launches in each of passes {pass_ids} of {passes}, transitions per pass "
+              f"{totals}, max_abs_err 0")
+    torch.cuda.empty_cache()
 
     reads, groups = make_reads()
     n_reads = len(reads)
@@ -1930,22 +2408,55 @@ def main() -> int:
         t_4f.append(time.perf_counter())
         vbear_phase(card)
         t_4f.append(time.perf_counter())
-        lag_launches = lag_select_phase(s_run["csv"], s_run["prefix"], card)
+        lag_launches, lag_table = lag_select_phase(s_run["csv"], s_run["prefix"], card)
         torch.cuda.empty_cache()
         t_4f.append(time.perf_counter())
         asm_launches = assembly_phase(reads, groups, s_run["csv"], os.path.join(tmp, "stream"),
                                       os.path.join(tmp, "assemble"), card)
         torch.cuda.empty_cache()
         t_4f.append(time.perf_counter())
-    count_err = max(count_err, int(s_chunk["max_abs_err"]))
+
+        # 4g. counting beyond the dense table, in 4e's directory: each path's
+        # count_chunk launches counted from 0 just before it, read just after
+        # (the sparse-first path sorts keys and launches none)
+        t_4g = [time.perf_counter()]
+        work = os.path.join(tmp, "beyond")
+        ref_rows = distinct_rows(reads, SPARSE_LAG, dev)
+        torch.cuda.empty_cache()
+        print(f"[4g] plain torch.unique recount: distinct context rows at lags 1..{SPARSE_LAG} "
+              f"{[ref_rows[l] for l in range(1, SPARSE_LAG + 1)]} in "
+              f"{time.perf_counter() - t_4g[0]:.3f} s [{card}]")
+        p_run = passes_phase(s_run, ref_rows, work, card)
+        torch.cuda.empty_cache()
+        shard_chunk = summarize_chunk_timing(s_run["files"][0][0], card, dev, lag=PASSES_LAG,
+                                             passes=p_run["passes"])
+        torch.cuda.empty_cache()
+        t_4g.append(time.perf_counter())
+        sparse_counter, model_dir = sparse_phase(s_run, p_run, ref_rows, work, card)
+        torch.cuda.empty_cache()
+        t_4g.append(time.perf_counter())
+        cli_passes = sparse_lag_phase(sparse_counter, lag_table, s_run["csv"], p_run["passes"],
+                                      p_run["chunks"], card)
+        torch.cuda.empty_cache()
+        t_4g.append(time.perf_counter())
+        sparse_generation_phase(sparse_counter, model_dir, reads, groups, card)
+        del sparse_counter
+        torch.cuda.empty_cache()
+        t_4g.append(time.perf_counter())
+    count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
-               "ref_recount": ref_launches, **lag_launches, **asm_launches}
+               "ref_recount": ref_launches, **lag_launches, **asm_launches,
+               "multipass": p_run["launches"], "lag_select_cli_passes": cli_passes}
     check(all(n > 0 for n in by_path.values()),
           f"a path ran without launching count_chunk: {by_path}")
-    spans_4f = np.diff(t_4f)
+    spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)
     print(f"[4f] phase 4f {t_4f[-1] - t_4f[0]:.3f} s: (H) {spans_4f[0]:.3f} s, (I) "
           f"{spans_4f[1]:.3f} s, (J) {spans_4f[2]:.3f} s, (K) {spans_4f[3]:.3f} s (checks, CPU "
           f"references and profiles included); count_chunk launches by path {by_path} [{card}]")
+    print(f"[4g] phase 4g {t_4g[-1] - t_4g[0]:.3f} s: recount + (L) + the row-range chunk "
+          f"{spans_4g[0]:.3f} s, (M) {spans_4g[1]:.3f} s, (N) {spans_4g[2]:.3f} s, (O) "
+          f"{spans_4g[3]:.3f} s (checks and CPU references included); the sparse-first path "
+          f"launched no count_chunk, as designed [{card}]")
 
     # 5. kernels, then the device line
     print(json.dumps({"kernels": [{
@@ -1965,6 +2476,7 @@ def main() -> int:
         "ms": count_ms, "plain_ms": count_plain_ms, "bound_ms": count_bound_ms,
         "bound_by": count_bound_by, "library_ms": library_ms,
         "summarize_chunk": s_chunk,
+        "shard_chunk": shard_chunk,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -436,12 +436,14 @@ def test_refusals():
     with pytest.raises(ValueError, match="rows"):
         _gen(["ACG"], [[0, 2]], 1, lag=3, counter_table=table, van=1.0)
 
-    class SparseTableIndex:
+    class SparseTableIndex:  # an empty sparse table: prior-only generation
         rows = np.zeros(0, np.int64)
-        counts = np.zeros((0, 5))
+        counts = np.zeros((0, 5), np.int64)
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _gen(["ACG"], [[0, 2]], 1, lag=2, counter_table=SparseTableIndex(), van=1.0)
+    empty, _ = _gen(["ACG"], [[2, 4]], 3, lag=2, counter_table=SparseTableIndex(), van=1.0)
+    zeros, _ = _gen(["ACG"], [[2, 4]], 3, lag=2, counter_table=np.zeros((21, 5), np.int64),
+                    van=1.0)
+    np.testing.assert_array_equal(empty, zeros)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             assemble_no_ends(["ACG"], [[0, 2]], 1, lag=2, counter_table=table, van=1.0)
@@ -492,3 +494,83 @@ def test_cli_model_dir_route(tmp_path):
     assert jcli.main([str(seeds), "--counts-csv", str(tmp_path / "in.csv"), "--model-dir",
                       str(tmp_path / "model"), "--right", "10", "--out",
                       str(tmp_path / "jgen")]) == 0
+
+
+def _sparse_counters(chunk_rows, lag):
+    """(the port's dense counter, its sparse counter, bear_tpu's sparse
+    counter) over the same reverse-counted rows."""
+    from bear_tpu.counting.engine import ReadChunk as JChunk
+    from bear_tpu.counting.sparse import SparseTransitionCounter as JSparse
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    dense = (engine.TransitionCounter([lag], reverse=True, device="cpu") if lag <= 8 else None)
+    sp = SparseTransitionCounter([lag], reverse=True, device="cpu")
+    jsp = JSparse([lag], reverse=True)
+    for c in (dense, sp):
+        if c is not None:
+            c.add_chunk(engine.ReadChunk(*chunk_rows))
+    jsp.add_chunk(JChunk(*chunk_rows))
+    return dense, sp, jsp
+
+
+@pytest.mark.parametrize("get_map", [False, True])
+def test_sparse_index_generates_the_dense_tables_sequences(get_map):
+    # tests/test_assemble.py:162: the same keys and counts through a
+    # SparseTableIndex and the dense table give the same sequences.
+    from bear_tpu_torch.inference.scoring import SparseTableIndex
+
+    rng = np.random.default_rng(31)
+    lag, B, L = 8, 200, 60
+    rows = (rng.integers(0, 4, (B, L)).astype(np.int8), np.full(B, L, np.int32),
+            np.zeros(B, np.int32), np.ones(B, bool), np.zeros(B, np.int32))
+    dense, sp, _ = _sparse_counters(rows, lag)
+    index = SparseTableIndex(sp, lag)
+    kw = dict(lag=lag, van=0.3, get_map=get_map, seed=7)
+    seeds, lengths = ["ACGTACGT", "TTTTGGGG", "CCCCCCCCA"], np.full((3, 2), 40)
+    gen_d, ent_d = _gen(seeds, lengths, 4, counter_table=dense.table(lag)[0], **kw)
+    gen_s, ent_s = _gen(seeds, lengths, 4, counter_table=index, **kw)
+    np.testing.assert_array_equal(gen_d, gen_s)
+    for a, b in zip(ent_d, ent_s):
+        np.testing.assert_array_equal(a, b)
+    # BEAR mode as well
+    ar = LinearAR(lag, 4, dtype=torch.float64, device="cpu",
+                  generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        bd, _ = _gen(seeds, lengths, 2, counter_table=dense.table(lag)[0], h=0.3, ar_apply=ar,
+                     lag=lag, get_map=get_map, seed=8)
+        bs, _ = _gen(seeds, lengths, 2, counter_table=index, h=0.3, ar_apply=ar, lag=lag,
+                     get_map=get_map, seed=8)
+    np.testing.assert_array_equal(bd, bs)
+
+
+def test_lag17_sparse_map_rollout_is_bear_tpus():
+    # tests/test_assemble.py:197: a read set where every lag-17 context of
+    # the genome has one continuation; MAP generation seeded inside it
+    # follows the genome on both strands, as bear_tpu's does.
+    from bear_tpu.inference.scoring import SparseTableIndex as JIndex
+    from bear_tpu_torch.inference.scoring import SparseTableIndex
+
+    rng = np.random.default_rng(32)
+    lag = 17
+    genome = "".join(rng.choice(list("ACGT"), 400))
+    starts = rng.integers(0, len(genome) - 80, 40)
+    codes = np.array([["ACGT".index(c) for c in genome[s : s + 80]] for s in starts], np.int8)
+    rows = (codes, np.full(40, 80, np.int32), np.zeros(40, np.int32), np.ones(40, bool),
+            np.zeros(40, np.int32))
+    _, sp, jsp = _sparse_counters(rows, lag)
+    index, jindex = SparseTableIndex(sp, lag), JIndex(jsp, lag)
+    assert index.rows.dtype == np.int64 and index.rows.max() > np.iinfo(np.int32).max
+    np.testing.assert_array_equal(index.rows, jindex.rows)
+    s0 = int(starts[0])
+    seeds = [genome[s0 : s0 + lag + 3], genome[s0 + 5 : s0 + lag + 9]]
+    lengths = np.array([[0, 20], [6, 12]])
+    kw = dict(lag=lag, van=1e-9, get_map=True, seed=3)
+    got, got_ent = _gen(seeds, lengths, 2, counter_table=index, **kw)
+    want, want_ent = jassemble(seeds, lengths, 2, counter_table=jindex, **kw)
+    np.testing.assert_array_equal(got, want)
+    assert all(g == genome[s0 : s0 + lag + 23] for g in got[0])
+    for a, b in zip(got_ent, want_ent):
+        np.testing.assert_allclose(a, b, atol=1e-12)
+    sampled, _ = _gen(seeds, lengths, 3, counter_table=index, lag=lag, van=0.5, seed=4)
+    assert all(len(g) == len(s) + sum(n) and set(g) <= set("ACGT")
+               for s, n, row in zip(seeds, lengths, sampled) for g in row)

@@ -149,11 +149,15 @@ def test_eval_only_restart_and_refusals(tmp_path):
     reads.write_text(">r\nACGTACGT\n")
     (tmp_path / "in.csv").write_text(f"{reads},0,fa\n")
     parser = summarize.build_parser()
-    for extra in (["--kmer-shards", "2"], ["--passes", "2"], ["-l", "16"]):
+    args = parser.parse_args([str(tmp_path / "in.csv"), str(tmp_path / "run"), "--kmer-shards",
+                              "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        summarize.main(args)
+    for extra in (["--passes", "2"], ["-l", "16"]):  # ported: they count
         args = parser.parse_args([str(tmp_path / "in.csv"), str(tmp_path / "run"), *extra,
                                   "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            summarize.main(args)
+        assert summarize.main(args) == (1, None)
+    assert len((tmp_path / "run_lag_16_file_0.tsv").read_text().splitlines()) == 9
     with pytest.raises(NotImplementedError, match="attention"):
         train_bear_net.main(_config("bear_attn_bear.cfg", tmp_path / "attn",
                                     data__files_path="TEST"), device="cpu")

@@ -244,3 +244,45 @@ def test_select_lag_on_card_equals_cpu(cuda):
         want = select_lag(cpu, group=group)
         np.testing.assert_allclose(got.log_marginals, want.log_marginals, rtol=1e-12)
         assert got.best == want.best
+
+
+@pytest.mark.parametrize("case", [n for n, _ in chip_smoke.SHARD_CASES] + ["poly_t_lag15"])
+def test_count_chunk_row_range_equals_plain(cuda, case):
+    lags, n_groups, A, inputs, passes, pass_ids = chip_smoke.shard_case(case)
+    total = 0
+    for d in pass_ids:
+        before = count_chunk_update.launches
+        a, b = chip_smoke.shard_vs_plain(cuda, lags, n_groups, A, inputs, passes, d)
+        assert count_chunk_update.launches == before + len(inputs)
+        assert torch.equal(a, b)
+        total += int(a.sum())
+        del a, b
+    assert total > 0
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_multipass_and_sparse_counters_on_card_equal_cpu(cuda, reverse):
+    from bear_tpu_torch.counting.multipass import count_multipass
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    chunks = _chunks(np.random.default_rng(10 + reverse))
+    kw = dict(n_groups=2, passes=3)
+    if reverse:  # the reverse complement through chunk_passes' second pass
+        chunks = [c for c in chunks if not np.any(c.skip)]
+    before = count_chunk_update.launches
+    on_card = count_multipass(lambda: iter(chunks), (1, 4, 7), **kw)
+    assert count_chunk_update.launches == before + 3 * len(chunks)
+    on_cpu = count_multipass(lambda: iter(chunks), (1, 4, 7), device="cpu", **kw)
+    sparse = {}
+    for device in (cuda, "cpu"):
+        sparse[device] = SparseTransitionCounter((3, 16, 20), n_groups=2, reverse=reverse,
+                                                 device=device, device_buffer=1 << 18)
+        for c in chunks:
+            sparse[device].add_chunk(c)
+    assert count_chunk_update.launches == before + 3 * len(chunks)
+    for a, b, lags in ((on_card, on_cpu, (1, 4, 7)), (sparse[cuda], sparse["cpu"], (3, 16, 20))):
+        for l in lags:
+            ka, va = a._consolidated(l)
+            kb, vb = b._consolidated(l)
+            np.testing.assert_array_equal(ka, kb)
+            np.testing.assert_array_equal(va, vb)

@@ -48,7 +48,9 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.models.bear_ref", "bear_tpu_torch.models.train_bear_ref",
             "bear_tpu_torch.models.vbear", "bear_tpu_torch.models.lag_selection",
             "bear_tpu_torch.models.lag_select_cli", "bear_tpu_torch.inference.assemble",
-            "bear_tpu_torch.inference.assemble_cli"} <= set(mods)
+            "bear_tpu_torch.inference.assemble_cli", "bear_tpu_torch.counting.multipass",
+            "bear_tpu_torch.counting.sparse", "bear_tpu_torch.parallel",
+            "bear_tpu_torch.parallel.counting"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -63,6 +65,23 @@ def test_every_module_imports_without_jax():
     loaded = out.stdout.split()
     assert "torch" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("first", ["bear_tpu_torch.parallel", "bear_tpu_torch.parallel.counting",
+                                   "bear_tpu_torch.counting.sparse"])
+def test_row_split_counters_import_first(first):
+    # parallel.counting and the counting package import each other's
+    # modules; either may be imported first in a fresh interpreter.
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    code = (f"import {first}\nfrom bear_tpu_torch.counting import MultiPassTransitionCounter, "
+            "SparseTransitionCounter\nfrom bear_tpu_torch.parallel import "
+            "KmerShardedTransitionCounter as K\n"
+            "assert issubclass(MultiPassTransitionCounter, K) and "
+            "issubclass(SparseTransitionCounter, K)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
 
 
 def test_no_forbidden_import_statements():

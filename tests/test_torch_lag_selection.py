@@ -19,9 +19,13 @@ import torch
 from bear_tpu.counting import TransitionCounter as JCounter
 from bear_tpu.counting import chunk_reads as jchunk_reads
 from bear_tpu.counting import fastx as jfastx
+from bear_tpu.counting.multipass import count_multipass as jcount_multipass
+from bear_tpu.counting.sparse import SparseTransitionCounter as JSparse
 from bear_tpu.models import lag_select_cli as jcli
 from bear_tpu.models import lag_selection as jls
 from bear_tpu_torch.counting import engine, fastx, summarize
+from bear_tpu_torch.counting.multipass import count_multipass
+from bear_tpu_torch.counting.sparse import SparseTransitionCounter
 from bear_tpu_torch.data import load_dense, load_dense_counts
 from bear_tpu_torch.models import lag_select_cli, lag_selection
 
@@ -175,22 +179,15 @@ def test_cli_counting_route_honors_ambig(tmp_path):
 
 
 def test_refusals(tmp_path):
+    # --kmer-shards needs several cards; --passes is ported (its JSON equals
+    # the single-pass JSON, test_sparse_routes_match_bear_tpu).
     csv = _write_inputs(tmp_path, ["ACGTACGGT" * 5])
-    for extra in (["--passes", "2"], ["--kmer-shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lag_select_cli.main(lag_select_cli.build_parser().parse_args(
-                [csv, "-l", "3", "--device", "cpu"] + extra))
-
-    class Sparse:
-        lags = (2,)
-
-        def counts_for_rows(self, lag, rows):
-            raise AssertionError
-
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lag_selection.select_lag(Sparse())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lag_selection.select_lag_sparse(Sparse())
+        lag_select_cli.main(lag_select_cli.build_parser().parse_args(
+            [csv, "-l", "3", "--device", "cpu", "--kmer-shards", "2"]))
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        lag_select_cli.main(lag_select_cli.build_parser().parse_args(
+            [csv, "-l", "3", "--device", "cpu", "--kmer-shards", "2", "--passes", "2"]))
     with pytest.raises(FileNotFoundError):
         lag_selection.select_lag_from_tsvs(str(tmp_path / "none"), [2], device="cpu")
     if not torch.cuda.is_available():
@@ -233,3 +230,53 @@ def test_tsv_route_sniffs_the_groups_past_an_empty_shard(tmp_path):
         np.testing.assert_allclose(got.log_marginals, want.log_marginals, **TOL)
     with pytest.raises((ValueError, IndexError)):
         jls.select_lag_from_tsvs(prefix, range(1, 4), group=1)
+
+
+def test_sparse_routes_match_bear_tpu(tmp_path):
+    # select_lag_sparse over the sparse-first counter (lags 1..17) and over
+    # a multi-pass count, against bear_tpu's at rtol 1e-12; select_lag
+    # routes both counters there; the CLI's --passes JSON equals its
+    # single-pass JSON.
+    seqs = _reads("template", seed=4)[:12]
+    lags = [1, 2, 4, 8, 16, 17]
+    port = SparseTransitionCounter(lags, n_groups=2, device="cpu")
+    ref = JSparse(lags, n_groups=2)
+    enc = [(fastx.encode_seq(s), i % 2) for i, s in enumerate(seqs)]
+    for chunk in engine.chunk_reads(iter(enc), 17, batch_size=8):
+        port.add_chunk(chunk)
+    jenc = [(jfastx.encode_seq(s), i % 2) for i, s in enumerate(seqs)]
+    for chunk in jchunk_reads(iter(jenc), 17, batch_size=8):
+        ref.add_chunk(chunk)
+    for group in (0, 1):
+        want = jls.select_lag_sparse(ref, group=group)
+        for got in (lag_selection.select_lag_sparse(port, group=group, batch_size=50),
+                    lag_selection.select_lag(port, group=group)):
+            assert got.lags == want.lags == tuple(lags)
+            np.testing.assert_allclose(got.log_marginals, want.log_marginals, **TOL)
+            assert got.best == want.best
+    # a multi-pass count sweeps like the dense counter of the same reads
+    jtc, tc = _counters(seqs, [2, 5, 7], groups=2)
+
+    def factory():
+        return engine.chunk_reads(iter(enc), 7, batch_size=8)
+
+    def jfactory():
+        return jchunk_reads(iter(jenc), 7, batch_size=8)
+
+    mp = count_multipass(factory, [2, 5, 7], n_groups=2, passes=3, device="cpu")
+    jmp = jcount_multipass(jfactory, [2, 5, 7], n_groups=2, passes=3, method="scatter")
+    want = jls.select_lag_sparse(jmp, group=1)
+    for got in (lag_selection.select_lag(mp, group=1), lag_selection.select_lag(tc, group=1)):
+        np.testing.assert_allclose(got.log_marginals, want.log_marginals, **TOL)
+    csv = _write_inputs(tmp_path, seqs)
+    one = _json(lag_select_cli.main, lag_select_cli.build_parser,
+                [csv, "-l", "6", "--json", "--device", "cpu"])
+    for argv in ([csv, "-l", "6", "--json", "--passes", "3"],
+                 [csv, "-l", "6", "--json", "--passes", "2", "-r"]):
+        jout = _json(jcli.main, jcli.build_parser, argv)
+        pout = _json(lag_select_cli.main, lag_select_cli.build_parser,
+                     argv + ["--device", "cpu"])
+        assert pout["best_lag"] == jout["best_lag"] and pout["lags"] == jout["lags"]
+        np.testing.assert_allclose(pout["log_marginals"], jout["log_marginals"], **TOL)
+        if "-r" not in argv:
+            assert pout == one

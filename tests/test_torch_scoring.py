@@ -85,13 +85,17 @@ def test_table_counter_matches_bear_tpu():
     _, tc = _counters()
     np.testing.assert_array_equal(scoring.TableCounter(tc, LAG)(np.array(["TTT", "TTA", "[[T"])),
                                   [[1, 0, 0, 4, 2], [0, 0, 0, 1, 0], [0, 0, 0, 4, 0]])
+    # A counter with a sparse accumulator (here a multi-pass count) is read
+    # through a SparseTableIndex: the same counts as the dense table.
+    from bear_tpu_torch.counting.multipass import count_multipass
 
-    class Sharded:
-        def counts_for_rows(self, lag, rows):
-            raise AssertionError
-
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scoring.TableCounter(Sharded(), LAG)
+    mp = count_multipass(lambda: engine.chunk_reads(
+        iter([(fastx.encode_seq(s), 0) for s in TOY_SEQS]), LAG), [LAG], passes=3, device="cpu")
+    kmers = np.array(["TTT", "TTA", "[[T", "AT", "", "[AT", "AAA", "CGT"])
+    table_counter = scoring.TableCounter(mp, LAG)
+    assert isinstance(table_counter._index, scoring.SparseTableIndex)
+    np.testing.assert_array_equal(table_counter(kmers),
+                                  jscoring.TableCounter(_counters()[0], LAG)(kmers))
 
 
 def test_dataset_counter_and_helpers_match_bear_tpu():
@@ -254,3 +258,70 @@ def test_protein_table_counter_and_map_scores_match_bear_tpu():
                                            counter=jscoring.TableCounter(jtc, lag), **kw)
     assert scores.shape == (8, 2) and np.isfinite(scores).all() and (scores < 0).all()
     np.testing.assert_allclose(scores, jscores, **TOL)
+
+
+def _sparse_chunks(seed, n=2, B=30, L=25):
+    from bear_tpu.counting.engine import ReadChunk as JChunk
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        rows = (rng.integers(0, 4, (B, L)).astype(np.int8), np.full(B, L, np.int32),
+                np.zeros(B, np.int32), np.ones(B, bool), np.zeros(B, np.int32))
+        out.append((engine.ReadChunk(*rows), JChunk(*rows)))
+    return out
+
+
+def test_sparse_table_index_equals_bear_tpus_and_stays_live():
+    # tests/test_scoring.py:338: counts added after the index was built are
+    # seen by the next query, through the identity probe on the counter's
+    # consolidated keys.
+    from bear_tpu.counting.sparse import SparseTransitionCounter as JSparse
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    lag = 16
+    (c1, j1), (c2, j2) = _sparse_chunks(71)
+    sp = SparseTransitionCounter(lags=[lag], n_groups=1, device="cpu")
+    jsp = JSparse(lags=[lag], n_groups=1)
+    sp.add_chunk(c1)
+    jsp.add_chunk(j1)
+    index, jindex = scoring.SparseTableIndex(sp, lag), jscoring.SparseTableIndex(jsp, lag)
+    np.testing.assert_array_equal(index.rows, jindex.rows)
+    np.testing.assert_array_equal(index.counts, jindex.counts)
+    tc = scoring.TableCounter(sp, lag)
+    ctx = ["".join("ACGT"[b] for b in c.codes[0, :lag]) for c in (c1, c2)]
+    rows = tc.rows(np.array(ctx))
+    query = np.concatenate([rows, rows[:1], index.rows[:5], [0, index.rows[-1] + 1]])
+    np.testing.assert_array_equal(index.gather(query), jindex.gather(query))
+    assert tc(np.array(ctx))[1].sum() == 0
+    probe = sp._consolidated(lag)[0]
+    assert sp._consolidated(lag)[0] is probe  # no counting, no new array
+    sp.add_chunk(c2)  # counted after the index and the TableCounter were built
+    jsp.add_chunk(j2)
+    np.testing.assert_array_equal(index.gather(query), jindex.gather(query))
+    assert tc(np.array(ctx))[1].sum() > 0
+    np.testing.assert_array_equal(tc(np.array(ctx)), jscoring.TableCounter(jsp, lag)(np.array(ctx)))
+    empty = scoring.SparseTableIndex(SparseTransitionCounter(lags=[lag], device="cpu"), lag)
+    assert empty.rows.size == 0 and not empty.gather(query).any()
+
+
+def test_lag17_map_scores_through_a_sparse_counter_match_bear_tpu():
+    from bear_tpu.counting.sparse import SparseTransitionCounter as JSparse
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    lag = 17
+    sp = SparseTransitionCounter(lags=[lag], n_groups=1, reverse=True, device="cpu")
+    jsp = JSparse(lags=[lag], n_groups=1, reverse=True)
+    chunks = _sparse_chunks(72, n=1, B=40, L=60)
+    for c, j in chunks:
+        sp.add_chunk(c)
+        jsp.add_chunk(j)
+    seqs = ["".join("ACGT"[b] for b in chunks[0][0].codes[i, 5:55]) for i in range(6)]
+    seqs.append("ACGT" * 6)  # unseen contexts: prior only
+    kw = dict(get_map=True, vans=[0.1, 1.0], lag=lag, alphabet_name="dna")
+    got = scoring.get_bear_probs_seqs(None, seqs, 0, device="cpu",
+                                      counter=scoring.TableCounter(sp, lag), **kw)
+    want = jscoring.get_bear_probs_seqs(None, seqs, 0, counter=jscoring.TableCounter(jsp, lag),
+                                        **kw)
+    assert got.shape == (7, 2) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, **TOL)

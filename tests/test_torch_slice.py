@@ -250,8 +250,9 @@ def test_chip_smoke_other_models_phase_rehearsal(tmp_path, capsys):
                                       device="cpu", lag=LAG, genome_mb=0.05, cnn_kw=cnn_kw,
                                       batch=256, epochs=2) == 0
     chip_smoke.vbear_phase("CPU", device="cpu", applies=100, gate=False, profile=False)
-    assert chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU", device="cpu",
-                                       lag=LAG) == {"lag_select": 0, "lag_select_cli": 0}
+    launches, table = chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU",
+                                                  device="cpu", lag=LAG)
+    assert launches == {"lag_select": 0, "lag_select_cli": 0} and table.lags == (1, 2, 3, 4, 5)
     assert chip_smoke.assembly_phase(reads, groups, run["csv"], str(tmp_path / "stream"),
                                      str(tmp_path / "asm"), "CPU", device="cpu", lag=LAG,
                                      genome_mb=0.05, n_seeds=4, num=3, flank=20,
@@ -271,3 +272,42 @@ def test_chip_smoke_reference_template_is_the_genome_unmutated():
     assert ref.shape == genome.shape and ref.dtype == np.int8
     np.testing.assert_array_equal(ref[:100_000], ref[100_000:200_000])
     assert 0.005 < np.mean(ref != genome) < 0.015  # the ~1% substitutions
+
+
+def test_chip_smoke_beyond_dense_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4g on the CPU at a small size, on 4e's outputs
+    # at lag 5: (L) summarize -l 7 in 3 row-range passes, (M) summarize -l 17
+    # (sparse-first) and linear-BEAR applies, (N) select_lag over it against
+    # (J)'s dense sweep and the CLI's --passes route, (O) lag-17 scoring and
+    # sparse-table assembly; their own checks raise on a fault.
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chip_smoke.read_chunks(reads, groups, rows=1024):
+        counter.add_chunk(c)
+    rows = counter.nonzero_rows(LAG)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
+                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
+                                     profile=False)
+    ref_rows = chip_smoke.distinct_rows(reads, 17, "cpu")
+    assert ref_rows[LAG] == len(rows) and ref_rows[1] == 5
+    work = str(tmp_path / "beyond")
+    lags = dict(dense_lag=LAG, device="cpu")
+    p_run = chip_smoke.passes_phase(run, ref_rows, work, "CPU", lag=7, passes=3, **lags)
+    assert p_run["launches"] == 0 and p_run["passes"] == 3
+    sparse_counter, model_dir = chip_smoke.sparse_phase(
+        run, p_run, ref_rows, work, "CPU", passes_lag=7, lag=17, applies=12, batch=256,
+        check_chunks=2, **lags)
+    _, dense = chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU", device="cpu",
+                                           lag=LAG)
+    assert chip_smoke.sparse_lag_phase(sparse_counter, dense, run["csv"], 3, p_run["chunks"],
+                                       "CPU", passes_lag=7, **lags) == 0
+    chip_smoke.sparse_generation_phase(sparse_counter, model_dir, reads, groups, "CPU",
+                                       lag=17, genome_mb=0.05, n_seeds=4, num=3, flank=20,
+                                       check_cfg=(2, 2, 4, 10), n_score=40, **lags)
+    out = capsys.readouterr().out
+    for part in ("summarize -l 7 --passes 3", "shards byte-identical to 4e's",
+                 "-> SparseTransitionCounter", "of lags 6..7 == (L)'s", "the same keys and counts",
+                 "first 5 ELBOs vs CPU", "select_lag over the sparse counter",
+                 "assembly at lag 17 from a SparseTableIndex", "4 of 4 sequences identical",
+                 "give the same 4 sequences"):
+        assert part in out, part

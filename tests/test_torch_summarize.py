@@ -250,14 +250,28 @@ def test_count_state_files_cross_packages(tmp_path):
 
 
 def test_not_ported_options_raise(tmp_path):
+    # What needs several cards still raises; row-range passes and the
+    # sparse-first lags (DNA >= 16, protein >= 8) run and conserve counts.
     csv, _ = _inputs(tmp_path, "fastq")
     parser = summarize.build_parser()
-    for extra in (["--kmer-shards", "2"], ["--passes", "2"], ["--data-shards", "2"],
-                  ["-l", "16"], ["-l", "8", "--alphabet", "prot"]):
+    for extra, err in ((["--kmer-shards", "2"], NotImplementedError),
+                       (["-l", "16", "--data-shards", "2"], NotImplementedError),
+                       (["--data-shards", "2"], ValueError)):
         args = parser.parse_args([csv, str(tmp_path / "x"), "-l", "3", *extra,
                                   "--device", "cpu"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(err, match="ROADMAP|kmer-shards"):
             summarize.main(args)
+    for extra, counter in ((["--passes", "2"], "MultiPassTransitionCounter"),
+                           (["-l", "16"], "SparseTransitionCounter"),
+                           (["-l", "8", "--alphabet", "prot"], "SparseTransitionCounter")):
+        out = tmp_path / "_".join(extra).strip("-")
+        out.mkdir()
+        report = {}
+        summarize.main(parser.parse_args([csv, str(out / "run"), "-l", "3", *extra,
+                                          "--device", "cpu"]), report)
+        assert type(report["forward"]["counter"]).__name__ == counter
+        lag = max(report["forward"]["rows"])
+        assert os.path.exists(out / f"run_lag_{lag}_file_0.tsv")
     assert "ignored" in parser.format_help()
 
 
