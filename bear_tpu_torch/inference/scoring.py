@@ -231,6 +231,24 @@ class Pdf:
             return np.zeros(self.log_probs.shape[2:])
         return self.lookup(kp1mers).sum(axis=0)
 
+    def to_dataframe(self):
+        """pandas DataFrame indexed by (k+1)-mer with one column per model
+        (``model{m}``), or per model and sample (``model{m}_sample{s}``) when
+        there is more than one sample: the reference get_pdf's return
+        structure (get_var_probs.py:183-194). pandas is imported here only,
+        so nothing else of scoring needs it."""
+        import pandas as pd
+
+        letters = alphabets.output_letters(self.alphabet_name)
+        idx = [k + ch for k in self.kmers for ch in letters]
+        n_models, n_samples = self.log_probs.shape[2:]
+        vals = self.log_probs.reshape(len(idx), n_models * n_samples)
+        if n_samples > 1:
+            cols = [f"model{m}_sample{s}" for m in range(n_models) for s in range(n_samples)]
+        else:
+            cols = [f"model{m}" for m in range(n_models)]
+        return pd.DataFrame(vals, index=idx, columns=cols)
+
 
 @dataclass
 class MargPdf:

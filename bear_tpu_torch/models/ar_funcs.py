@@ -15,13 +15,19 @@ bear_tpu's pure ``apply(params, x)`` does, and leave the module's own
 unchanged. ``init(generator)`` draws a fresh list (bear_tpu's
 ``ARFunc.init``) on the CPU.
 
-``linear``, ``cnn`` and ``stop`` are ported; ``attention`` is not yet
-(ROADMAP.md, Queue 1).
+Mixed precision (``compute_dtype``, e.g. ``torch.bfloat16``): the
+parameters stay in their own (master) type and are cast to the compute type
+once at the start of each forward, so gradients flow back through the cast
+to the master parameters; layer-norm statistics stay in at least float32,
+and the logits are cast back to the master type before the softmax, so the
+probabilities come out in the master type (bear_tpu's ``_cast_params``).
+``StopAR`` has nothing to compute and ignores it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -75,6 +81,15 @@ class _ARModule(nn.Module):
     attributes, with the load/list/init side shared by every AR function."""
 
     PARAM_NAMES: tuple = ()
+    compute_dtype: Optional[torch.dtype] = None
+
+    def _compute(self, params: Optional[Sequence[torch.Tensor]]):
+        """(live parameters cast to the compute type, the master type)."""
+        live = self._live(params)
+        out_dt = live[0].dtype
+        if self.compute_dtype is not None:
+            live = [p.to(self.compute_dtype) for p in live]
+        return live, out_dt
 
     def _set_params(self, params: Sequence[torch.Tensor], device) -> None:
         for name, p in zip(self.PARAM_NAMES, params):
@@ -112,11 +127,13 @@ class LinearAR(_ARModule):
     PARAM_NAMES = ("mat",)
 
     def __init__(self, lag: int, alphabet_size: int, *, dtype=torch.float32,
-                 device="cuda", generator: torch.Generator | None = None):
+                 compute_dtype=None, device="cuda",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.lag = lag
         self.A1 = alphabet_size + 1
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
         self._set_params(self.init(generator), device)
 
     def init(self, generator: torch.Generator | None = None) -> List[torch.Tensor]:
@@ -126,18 +143,18 @@ class LinearAR(_ARModule):
 
     def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
         """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]."""
-        (mat,) = self._live(params)
+        (mat,), out_dt = self._compute(params)
         with _full_fp32_matmul():
             logits = torch.einsum("...jk,jkl->...l", kmers_oh.to(mat.dtype), mat)
-        return torch.softmax(logits, dim=-1)
+        return torch.softmax(logits.to(out_dt), dim=-1)
 
     def apply_codes(self, codes: torch.Tensor, params=None) -> torch.Tensor:
         """Integer k-mer codes [..., lag] -> probabilities [..., A+1]."""
-        (mat,) = self._live(params)
+        (mat,), out_dt = self._compute(params)
         oh = flat_one_hot(codes, self.A1, mat.dtype)
         with _full_fp32_matmul():
             logits = oh @ mat.reshape(self.lag * self.A1, self.A1)
-        return torch.softmax(logits, dim=-1)
+        return torch.softmax(logits.to(out_dt), dim=-1)
 
 
 class CNNAR(_ARModule):
@@ -157,8 +174,8 @@ class CNNAR(_ARModule):
                    "weights2", "intercept2", "scale0", "scale1")
 
     def __init__(self, lag: int, alphabet_size: int, filter_width=8, num_filters=30,
-                 kmer_layer1_width=16, *, dtype=torch.float32, device="cuda",
-                 generator: torch.Generator | None = None):
+                 kmer_layer1_width=16, *, dtype=torch.float32, compute_dtype=None,
+                 device="cuda", generator: torch.Generator | None = None):
         super().__init__()
         self.lag = lag
         self.A1 = alphabet_size + 1
@@ -172,6 +189,7 @@ class CNNAR(_ARModule):
                 f"needs filter_width <= lag (reference ar_funcs.py:60)"
             )
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
         self._set_params(self.init(generator), device)
 
     def init(self, generator: torch.Generator | None = None) -> List[torch.Tensor]:
@@ -193,7 +211,7 @@ class CNNAR(_ARModule):
             torch.ones((self.w1,), **ones),
         ]
 
-    def _head(self, params, conv, lead):
+    def _head(self, params, conv, lead, out_dt):
         (_, intercept0, weights1, intercept1, weights2, intercept2,
          scale0, scale1) = params
         nn0 = scale0 * _normalize_layer(conv) + intercept0
@@ -201,22 +219,22 @@ class CNNAR(_ARModule):
             hidden = torch.tensordot(_elu(nn0), weights1, dims=([-2, -1], [0, 1]))
             nn1 = scale1 * _normalize_layer(hidden) + intercept1
             nn2 = _elu(nn1) @ weights2 + intercept2
-        return torch.softmax(nn2, dim=-1).reshape(lead + (self.A1,))
+        return torch.softmax(nn2.to(out_dt), dim=-1).reshape(lead + (self.A1,))
 
     def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
         """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]."""
-        params = self._live(params)
+        params, out_dt = self._compute(params)
         filters = params[0]
         lead = tuple(kmers_oh.shape[:-2])
         x = kmers_oh.to(filters.dtype).reshape(-1, self.lag, self.A1)
         windows = x.unfold(1, self.fw, 1)  # [N, conv_len, A1, fw]
         with _full_fp32_matmul():
             conv = torch.einsum("njiw,wio->njo", windows, filters)
-        return self._head(params, conv, lead)
+        return self._head(params, conv, lead, out_dt)
 
     def apply_codes(self, codes: torch.Tensor, params=None) -> torch.Tensor:
         """Integer k-mer codes [..., lag] -> probabilities [..., A+1]."""
-        params = self._live(params)
+        params, out_dt = self._compute(params)
         filters = params[0]
         lead = tuple(codes.shape[:-1])
         A1, fw, lag = self.A1, self.fw, self.lag
@@ -232,7 +250,7 @@ class CNNAR(_ARModule):
         ).reshape(lag * A1, self.conv_len * self.nf)
         with _full_fp32_matmul():
             conv = (oh @ wconv).reshape(-1, self.conv_len, self.nf)
-        return self._head(params, conv, lead)
+        return self._head(params, conv, lead, out_dt)
 
 
 class StopAR(_ARModule):
@@ -242,7 +260,8 @@ class StopAR(_ARModule):
     name = "stop"
 
     def __init__(self, lag: int, alphabet_size: int, *, dtype=torch.float32,
-                 device="cuda", generator: torch.Generator | None = None):
+                 compute_dtype=None, device="cuda",
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.lag = lag
         self.A1 = alphabet_size + 1
@@ -261,21 +280,115 @@ class StopAR(_ARModule):
         return self.stop.expand(tuple(codes.shape[:-1]) + (self.A1,))
 
 
-_AR_FUNCS = {"linear": LinearAR, "cnn": CNNAR, "stop": StopAR}
+class AttentionAR(_ARModule):
+    """Single-block self-attention AR function (reference ar_funcs.py:
+    246-321, a bear_tpu extension): the one-hot context embedded with a
+    learned positional encoding, one multi-head self-attention + MLP block
+    with pre-normalisation and residuals, and the transition logits read
+    from the last position. Parameters, in checkpoint order: embed [A+1, D],
+    pos [lag, D], wqkv [3, D, D], wo [D, D], w1 [D, M], b1 [M], w2 [M, D],
+    b2 [D], w_out [D, A+1], b_out [A+1] (D = d_model, M = mlp_width).
+
+    The block follows bear_tpu's order of operations: the scores are q . k
+    scaled by 1/sqrt(d_head) afterwards, a softmax over the keys, then the
+    context; gelu is the tanh approximation (``jax.nn.gelu``'s default).
+    Only the last position's output is read, so only its query, its
+    attention row and its MLP are computed: every other position's would be
+    thrown away, and each of these is a per-position operation."""
+
+    name = "attention"
+    PARAM_NAMES = ("embed", "pos", "wqkv", "wo", "w1", "b1", "w2", "b2", "w_out", "b_out")
+
+    def __init__(self, lag: int, alphabet_size: int, d_model=64, num_heads=4, mlp_width=128,
+                 *, dtype=torch.float32, compute_dtype=None, device="cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.lag = lag
+        self.A1 = alphabet_size + 1
+        self.d_model = int(d_model)
+        self.num_heads = int(num_heads)
+        self.mlp_width = int(mlp_width)
+        if self.d_model % self.num_heads:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of num_heads "
+                             f"{self.num_heads}")
+        self.d_head = self.d_model // self.num_heads
+        self.dtype = dtype
+        self.compute_dtype = compute_dtype
+        self._set_params(self.init(generator), device)
+
+    def init(self, generator: torch.Generator | None = None) -> List[torch.Tensor]:
+        def normal(*shape):
+            return torch.randn(shape, generator=generator, dtype=self.dtype)
+
+        D, M, A1 = self.d_model, self.mlp_width, self.A1
+        scale = 1.0 / math.sqrt(D)
+        zeros = dict(dtype=self.dtype)
+        return [
+            0.05 * _l2_normalize(normal(A1, D), 0),
+            torch.zeros((self.lag, D), **zeros),
+            scale * normal(3, D, D),
+            scale * normal(D, D),
+            scale * normal(D, M),
+            torch.zeros((M,), **zeros),
+            0.05 * _l2_normalize(normal(M, D), 0),
+            torch.zeros((D,), **zeros),
+            0.05 * _l2_normalize(normal(D, A1), 0),
+            torch.zeros((A1,), **zeros),
+        ]
+
+    def _block(self, params, oh, lead, out_dt):
+        """Probabilities from the one-hot context [n, lag, A+1]."""
+        embed, pos, wqkv, wo, w1, b1, w2, b2, w_out, b_out = params
+        n, H, dh = oh.shape[0], self.num_heads, self.d_head
+        with _full_fp32_matmul():
+            x = oh @ embed + pos
+            h = _normalize_layer(x)
+            q = (h[:, -1] @ wqkv[0]).reshape(n, H, dh)
+            k = (h @ wqkv[1]).reshape(n, self.lag, H, dh)
+            v = (h @ wqkv[2]).reshape(n, self.lag, H, dh)
+            att = torch.softmax(torch.einsum("nhd,nkhd->nhk", q, k) * (1.0 / math.sqrt(dh)),
+                                dim=-1)
+            ctx = torch.einsum("nhk,nkhd->nhd", att, v).reshape(n, self.d_model)
+            x = x[:, -1] + ctx @ wo
+            y = _normalize_layer(x)
+            x = x + torch.nn.functional.gelu(y @ w1 + b1, approximate="tanh") @ w2 + b2
+            logits = x @ w_out + b_out
+        return torch.softmax(logits.to(out_dt), dim=-1).reshape(lead + (self.A1,))
+
+    def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
+        """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]."""
+        params, out_dt = self._compute(params)
+        lead = tuple(kmers_oh.shape[:-2])
+        oh = kmers_oh.to(params[0].dtype).reshape(-1, self.lag, self.A1)
+        return self._block(params, oh, lead, out_dt)
+
+    def apply_codes(self, codes: torch.Tensor, params=None) -> torch.Tensor:
+        """Integer k-mer codes [..., lag] -> probabilities [..., A+1].
+
+        bear_tpu embeds the flat one-hot with one matmul by kron(I_lag,
+        embed); here each position's one-hot [A+1] meets embed itself. The
+        two are exactly equal: each embedded value is one product by 1.0
+        plus zeros, i.e. the row of embed that the code picks."""
+        params, out_dt = self._compute(params)
+        lead = tuple(codes.shape[:-1])
+        oh = flat_one_hot(codes.reshape(-1, self.lag), self.A1, params[0].dtype)
+        return self._block(params, oh.reshape(-1, self.lag, self.A1), lead, out_dt)
+
+
+_AR_FUNCS = {"linear": LinearAR, "cnn": CNNAR, "stop": StopAR, "attention": AttentionAR}
 
 
 def get_ar_func(name: str, lag: int, alphabet_size: int, af_kwargs=None, *,
-                dtype=torch.float32, device="cuda",
+                dtype=torch.float32, compute_dtype=None, device="cuda",
                 generator: torch.Generator | None = None) -> nn.Module:
-    """AR function by config name (reference train_bear_net.py:103)."""
-    if name == "attention":
-        raise NotImplementedError(
-            "AR function 'attention' is not ported to PyTorch yet; see "
-            "ROADMAP.md Queue 1 (AR functions)"
-        )
+    """AR function by config name (reference train_bear_net.py:103).
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the AR network in that
+    type while its parameters and output stay in ``dtype`` (module
+    docstring)."""
     if name not in _AR_FUNCS:
         raise ValueError(f"unknown AR function {name!r}")
-    if af_kwargs and name != "cnn":
+    if af_kwargs and name not in ("cnn", "attention"):
         raise ValueError(f"{name} AR takes no af_kwargs, got {af_kwargs}")
     return _AR_FUNCS[name](lag, alphabet_size, **(af_kwargs or {}), dtype=dtype,
-                           device=device, generator=generator)
+                           compute_dtype=compute_dtype, device=device, generator=generator)

@@ -31,8 +31,11 @@ Semantics kept from bear_tpu:
   third input.
 
 The step loop never waits for the device: ELBOs stay on the device until
-the run ends (or a checkpoint is written). Not ported yet: ``mesh`` and
-optimizers other than Adam and SGD (ROADMAP.md).
+the run ends (or a checkpoint is written). Optimizers: Adam (eps 1e-7) and
+SGD are ``torch.optim``'s; ``adamw``, ``adamax``, ``rmsprop``, ``adagrad``,
+``nadam``, ``adadelta`` and ``lion`` are optax's rules
+(:mod:`bear_tpu_torch.models.optimizers`). Not ported yet: ``mesh``
+(several cards, ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from bear_tpu_torch.models.optimizers import OPTAX_RULES, OptaxRule
 from bear_tpu_torch.ops.distributions import (
     EPSILON,
     dirichlet_multinomial_perm_logpmf,
@@ -106,31 +110,28 @@ def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
-_OPTIMIZERS_NOT_PORTED = ("adamw", "adamax", "rmsprop", "adagrad", "nadam",
-                          "adadelta", "lion")
-
-
 def make_optimizer(optimizer_name: str, learning_rate: float, params):
     """Optimizer by (Keras-style) name over ``params``: Adam with eps=1e-7
-    (tf.keras's default, as bear_tpu's optax Adam) or plain SGD."""
+    (tf.keras's default, as bear_tpu's optax Adam), plain SGD, or one of
+    optax's rules that bear_tpu offers (``OPTAX_RULES``)."""
     name = optimizer_name.lower()
     if name == "adam":
         return torch.optim.Adam(params, lr=learning_rate, eps=1e-7)
     if name == "sgd":
         return torch.optim.SGD(params, lr=learning_rate)
-    if name in _OPTIMIZERS_NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {optimizer_name!r} is not ported yet (Adam and SGD "
-            "are); see ROADMAP.md Queue 1"
-        )
+    if name in OPTAX_RULES:
+        return OPTAX_RULES[name](params, learning_rate)
     raise ValueError(f"unknown optimizer {optimizer_name!r}")
 
 
 def optimizer_state(opt) -> dict:
     """The port's optimizer state as plain numpy (picklable without torch
     or optax): ``{"name", "step", "exp_avg", "exp_avg_sq"}`` for Adam,
-    ``{"name"}`` for SGD, moments in checkpoint order."""
+    ``{"name"}`` for SGD, ``OptaxRule.state_arrays`` for the others; the
+    per-parameter arrays in checkpoint order."""
     params = opt.param_groups[0]["params"]
+    if isinstance(opt, OptaxRule):
+        return opt.state_arrays()
     if isinstance(opt, torch.optim.SGD):
         return {"name": "sgd"}
     states = [opt.state[p] for p in params]
@@ -144,6 +145,9 @@ def optimizer_state(opt) -> dict:
 
 def _load_optimizer_state(opt, state: dict) -> None:
     """Inverse of :func:`optimizer_state`, into a fresh optimizer."""
+    if isinstance(opt, OptaxRule):
+        opt.load_state_arrays(state)
+        return
     params = opt.param_groups[0]["params"]
     name = "sgd" if isinstance(opt, torch.optim.SGD) else "adam"
     if state.get("name") != name:
@@ -229,7 +233,8 @@ def _not_ported(**args):
     for name, value in args.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name}= is not ported to PyTorch yet; see ROADMAP.md Queue 1"
+                f"{name}= needs several cards, not ported to PyTorch yet; see ROADMAP.md "
+                "Queue 1 item 13"
             )
 
 

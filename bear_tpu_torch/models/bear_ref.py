@@ -17,8 +17,8 @@ bear_tpu/models/bear_ref.py).
   column stripped and an epsilon added (``prepare_ref_counts``).
 
 Derived diagnostics: error rate = 1 - e^{-tau}; stop rate = (1 + nu) / nu.
-``compute_dtype`` (mixed precision of ``g``) is not ported yet and raises
-(ROADMAP.md Queue 1 item 4).
+``compute_dtype`` (mixed precision) applies to the inner net ``g`` only; the
+mixture is a handful of elementwise ops and stays in ``dtype``.
 """
 
 from __future__ import annotations
@@ -136,26 +136,19 @@ class RefAR(nn.Module):
         return self._mix(params, self.net.apply_codes(codes, params[2:]), ref_counts)
 
 
-def _refuse_compute_dtype(compute_dtype):
-    if compute_dtype is not None:
-        raise NotImplementedError(
-            "compute_dtype (mixed precision of the inner net) is not ported to PyTorch "
-            "yet; see ROADMAP.md Queue 1 item 4")
-
-
 def make_ref_ar(net_func, lag: int, alphabet_size: int, af_kwargs=None, *,
                 dtype=torch.float32, compute_dtype=None, device="cuda",
                 generator: Optional[torch.Generator] = None) -> RefAR:
     """A :class:`RefAR` around the net named ``net_func`` ("linear", "cnn",
-    "stop"), or built by ``net_func(lag, alphabet_size, **af_kwargs,
-    dtype=, device=, generator=)`` (an AR class such as ``StopAR``)."""
-    _refuse_compute_dtype(compute_dtype)
+    "stop", "attention"), or built by ``net_func(lag, alphabet_size,
+    **af_kwargs, dtype=, compute_dtype=, device=, generator=)`` (an AR class
+    such as ``StopAR``); ``compute_dtype`` is the net's."""
     if isinstance(net_func, str):
         net = get_ar_func(net_func, lag, alphabet_size, af_kwargs, dtype=dtype,
-                          device=device, generator=generator)
+                          compute_dtype=compute_dtype, device=device, generator=generator)
     else:
-        net = net_func(lag, alphabet_size, **(af_kwargs or {}), dtype=dtype, device=device,
-                       generator=generator)
+        net = net_func(lag, alphabet_size, **(af_kwargs or {}), dtype=dtype,
+                       compute_dtype=compute_dtype, device=device, generator=generator)
     return RefAR(net, alphabet_size, dtype=dtype, device=device)
 
 

@@ -15,6 +15,9 @@ per-epoch file order from ``default_rng([seed, epoch])`` when ``shuffle``,
 each file parsed once into ``out_folder/shard_cache`` when ``cache``. With
 ``checkpoint_every > 0`` the run keeps ``train_state.pickle`` in the out
 folder, resumes from it, and removes it once results.pickle is written.
+``[model] compute_precision = bfloat16`` runs the AR network in bfloat16
+(training and evaluation) with the parameters and likelihood in
+``precision``.
 """
 
 from __future__ import annotations
@@ -81,7 +84,8 @@ def _main(config, run, out_folder, dev, writer):
 
     ds_loc = run.train_column
     ar_func = get_ar_func(run.ar_func_name, run.lag, alphabets.alphabet_size(run.alphabet),
-                          run.af_kwargs, dtype=dtype, device=dev)
+                          run.af_kwargs, dtype=dtype, compute_dtype=run.compute_dtype(),
+                          device=dev)
     params_restart, opt_state_restart = load_restart(run)
     ckpt = (dict(checkpoint_dir=out_folder, checkpoint_every=run.checkpoint_every)
             if run.checkpoint_every > 0 else {})

@@ -72,11 +72,12 @@ def _main(config, run, out_folder, dev, writer):
     ds_loc, ds_loc_ref = run.train_column, run.reference_column
     A = alphabets.alphabet_size(run.alphabet)
     ar_func = bear_ref.make_ref_ar(run.ar_func_name, run.lag, A, run.af_kwargs, dtype=dtype,
-                                   device=dev)
+                                   compute_dtype=run.compute_dtype(), device=dev)
     params_restart, opt_state_restart = load_restart(run)
     ckpt = (dict(checkpoint_dir=out_folder, checkpoint_every=run.checkpoint_every)
             if run.checkpoint_every > 0 else {})
-    kw = dict(alphabet=run.alphabet, lag=run.lag, dtype=dtype, batch_size=batch_size,
+    kw = dict(alphabet=run.alphabet, lag=run.lag, dtype=dtype,
+              compute_dtype=run.compute_dtype(), batch_size=batch_size,
               epochs=epochs, learning_rate=run.learning_rate,
               optimizer_name=run.optimizer_name, train_ar=run.train_ar,
               acc_steps=run.accumulation_steps, params_restart=params_restart,

@@ -20,8 +20,12 @@ Semantics kept:
 - [data] reference_column (default -1) is the reference column of the
   reference-guided CLI (train_bear_ref).
 
-Not ported yet, and refused when asked for (ROADMAP.md, Queue 1):
-``data_parallel`` and any ``compute_precision``.
+- [model] compute_precision ('' or 'none', 'bfloat16', 'float32') runs
+  the AR network in that type (``RunConfig.compute_dtype``) while the
+  parameters and the likelihood stay in ``precision``.
+
+Not ported yet, and refused when asked for: ``data_parallel`` (several
+cards, ROADMAP.md Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -88,12 +92,13 @@ class RunConfig:
     cache: bool = True  # [train] cache: parsed-shard .npz cache when streaming
     streaming: bool = False  # [train] streaming: one count file at a time
     checkpoint_every: int = 0  # [train] checkpoint_every: mid-run state cadence
+    compute_precision: str = ""  # [model] compute_precision: the AR network's type
 
     @classmethod
     def from_configparser(cls, config: configparser.ConfigParser) -> "RunConfig":
         g, d, hp = config["general"], config["data"], config["hyperp"]
         tr, te, mo = config["train"], config["test"], config["model"]
-        _refuse_not_ported(tr, mo)
+        _refuse_not_ported(tr)
         return cls(
             out_folder=g["out_folder"],
             seed=int(g["seed"]),
@@ -125,6 +130,7 @@ class RunConfig:
             van_reg=json.loads(te["van_reg"]),
             ar_func_name=mo["ar_func_name"],
             af_kwargs=json.loads(mo["af_kwargs"]),
+            compute_precision=mo.get("compute_precision", ""),
         )
 
     @classmethod
@@ -166,14 +172,24 @@ class RunConfig:
     def dtype(self) -> torch.dtype:
         return torch.float64 if self.precision == "float64" else torch.float32
 
+    def compute_dtype(self):
+        """The AR network's compute type ([model] compute_precision), or None
+        to compute in ``precision``."""
+        if self.compute_precision in ("", "none"):
+            return None
+        if self.compute_precision == "bfloat16":
+            return torch.bfloat16
+        if self.compute_precision == "float32":
+            return torch.float32
+        raise ValueError(
+            f"unknown compute_precision {self.compute_precision!r} "
+            "(expected '', 'bfloat16' or 'float32')"
+        )
 
-def _refuse_not_ported(tr, mo) -> None:
-    """Raise on the bear_tpu extensions the port does not have yet."""
+
+def _refuse_not_ported(tr) -> None:
+    """Raise on the bear_tpu extension the port does not have yet."""
     if tr.get("data_parallel", "False") == "True":
         raise NotImplementedError(
-            "[train] data_parallel = True is not ported to PyTorch yet; see ROADMAP.md "
-            "Queue 1")
-    if mo.get("compute_precision", "") != "":
-        raise NotImplementedError(
-            f"[model] compute_precision = {mo['compute_precision']!r} is not ported "
-            "to PyTorch yet (only '' is); see ROADMAP.md Queue 1")
+            "[train] data_parallel = True needs several cards, not ported to PyTorch yet; "
+            "see ROADMAP.md Queue 1 item 13")

@@ -81,6 +81,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    assembly at lag 20 from a reverse sparse count's SparseTableIndex with
    (K)'s seeds and sizes, float64 card against CPU, and at lag 13 the
    sparse index against the dense table;
+4h. the remaining model options: (P) the attention BEAR of
+   bear_attn_bear.cfg through train_bear_net.main on YSD1 in float32 (10,000
+   Adam applies; its first ELBOs and its held-out perplexities against CPU
+   float64 from the same parameters), training alone timed and profiled;
+   (Q) the seven optax optimizers (adamw, adamax, rmsprop, adagrad, nadam,
+   adadelta, lion) on the YSD1 linear BEAR, 200 float64 applies on the card
+   against the CPU, then 1,000 float32 applies each, timed; (R) bfloat16
+   compute on 4c's lag-13 handoff, the CNN and a lag-13 attention AR, each
+   against float32 from the same start (last ELBO within 1%, float32
+   probabilities summing to 1), with one bfloat16 run traced by
+   utils.profiling.trace; the three timed by utils.profiling.StageTimer;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -187,6 +198,28 @@ SHARD_CASES = [("multi_lag_1_4_7", 3), ("reverse", 2), ("ambig_not_fresh", 5),
                ("segmented_skip", 7), ("zero_length_rows", 2), ("protein_lag6", 4)]
 SPARSE_CHECK_CHUNKS = 4
 SPARSE_APPLIES = 200
+# Phase 4h: the remaining model options. (P) the attention BEAR of
+# bear_attn_bear.cfg on YSD1 through the training CLI in float32, its first
+# ELBOs and its evaluation against CPU float64 from the same parameters; (Q)
+# the seven optax optimizers on the YSD1 linear BEAR, float64 on the card
+# against the CPU (the same update rules, summed in another order), then
+# timed in float32; (R) bfloat16 compute of the AR network on 4c's lag-13
+# handoff, CNN and attention, each against float32 from the same start
+# (tests/test_ar_funcs.py:244's 1%).
+ATTN_KW = {"d_model": 64, "num_heads": 4, "mlp_width": 128}
+ATTN_LR = 0.002
+# The attention BEAR's held-out perplexity, from the port's first card run
+# of (P) (NVIDIA H100 80GB HBM3, 700 W): BEAR 3.790651 (the counts dominate,
+# as the linear BEAR's 3.790637), held within 0.01 as (A)'s.
+ATTN_PERPLEXITY, ATTN_PERPLEXITY_ATOL = 3.790651, 0.01
+ATTN_TIMED_APPLIES = 1000
+OPTAX_NAMES = ["adamw", "adamax", "rmsprop", "adagrad", "nadam", "adadelta", "lion"]
+OPT_CHECK_APPLIES = 200
+OPT_RTOL = 1e-9
+OPT_TIMED_APPLIES = 1000
+BF16_EPOCHS = 3  # 108 applies of 2^15 rows on 4c's 1,158,428
+BF16_LOSS_RTOL = 1e-2
+BF16_SUM_ATOL = 1e-5
 
 
 def ysd1_config(out_folder):
@@ -211,6 +244,18 @@ def ysd1_config(out_folder):
         "model": {"ar_func_name": "linear", "af_kwargs": "{}"},
         "results": {},
     })
+    return cfg
+
+
+def attn_config(out_folder):
+    """The values of bear_tpu/models/config_files/bear_attn_bear.cfg
+    (attention BEAR, lag 5, d_model 64, 4 heads, mlp 128, batch 1500,
+    10,000 epochs = 10,000 Adam applies, lr 0.002, seed 10), in float32, on
+    the port's bundled YSD1 counts."""
+    cfg = ysd1_config(out_folder)
+    cfg["train"]["learning_rate"] = str(ATTN_LR)
+    cfg["model"]["ar_func_name"] = "attention"
+    cfg["model"]["af_kwargs"] = json.dumps(ATTN_KW)
     return cfg
 
 
@@ -2090,6 +2135,254 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
           f"and MAP")
 
 
+def rel_err(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a / b - 1)))
+
+
+def attention_phase(out_dir, card, device="cuda", epochs=None, timed=ATTN_TIMED_APPLIES,
+                    profile=True):
+    """4h (P): bear_attn_bear.cfg's values through ``train_bear_net.main`` in
+    float32 (``epochs`` overrides its 10,000 for a rehearsal). Checks the
+    first ELBOs against CPU float64 from the same initial parameters, the
+    CLI's held-out perplexities (evaluated on the device) against CPU
+    float64 evaluation of the written parameters and, at the full 10,000,
+    the BEAR perplexity against the first card run's; then times ``timed``
+    applies of training alone and profiles 200."""
+    import torch
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import bear_net, train_bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.checkpoint import load_params_list
+    from bear_tpu_torch.utils.config import RunConfig, bundled_ysd1_path
+
+    cfg = attn_config(out_dir + "*")
+    if epochs is not None:
+        cfg["train"]["epochs"] = str(epochs)
+    run = RunConfig.from_configparser(cfg)
+    synchronize(device)
+    t0 = time.perf_counter()
+    train_bear_net.main(cfg, device=device)
+    synchronize(device)
+    cli_s = time.perf_counter() - t0
+    res = cfg["results"]
+    h = float(res["h"])
+    perp = {k: json.loads(res[f"heldout_perplex_{k}"]) for k in ("BEAR", "AR", "BMM")}
+    acc = {k: json.loads(res[f"heldout_accuracy_{k}"]) for k in ("BEAR", "AR", "BMM")}
+    with open(os.path.join(out_dir, "scalars.jsonl")) as fh:
+        elbos = [r["value"] for r in map(json.loads, fh) if r["tag"] == "elbo"]
+    check(len(elbos) == int(run.epochs_raw) and np.isfinite(elbos).all(),
+          f"attention CLI: {len(elbos)} ELBOs for {run.epochs_raw} applies, or not finite")
+
+    # The CLI's start: a fresh init from seed 10, drawn on the CPU in float32.
+    ds = load_dense(bundled_ysd1_path(), "dna", run.num_ds)
+    init = bear_net.init_params(torch.Generator().manual_seed(run.seed),
+                                get_ar_func("attention", run.lag, 4, ATTN_KW, device="cpu"))
+    p0 = [init["h_signed"]] + init["ar"]
+    ar64 = get_ar_func("attention", run.lag, 4, ATTN_KW, dtype=torch.float64, device="cpu")
+    base = dict(num_kmers=ds.num_kmers, batch_size=int(run.batch_size_raw),
+                learning_rate=run.learning_rate, seed=run.seed)
+    k = min(N_ELBO_CHECK, len(elbos))
+    ref = bear_net.train(ds.codes, ds.counts[:, 0], ar_func=ar64, epochs=k, params_restart=p0,
+                         dtype=torch.float64, device="cpu", **base)
+    elbo_err = rel_err(elbos[:k], ref.elbos)
+    check(elbo_err <= ELBO_RTOL, f"attention: first {k} ELBOs {elbos[:k]} differ from CPU "
+          f"float64 {ref.elbos} by {elbo_err:.3e}")
+    written = load_params_list(out_dir)
+    out64 = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", float(np.exp(written[0])),
+                                ar64, written[1:], VAN_REG, dtype=torch.float64, device="cpu")
+    eval_err = max(rel_err(perp["BEAR"], out64[3]), rel_err(perp["AR"], out64[4]),
+                   rel_err(perp["BMM"], out64[5]))
+    check(eval_err <= ELBO_RTOL, f"attention: held-out perplexities {perp} differ from CPU "
+          f"float64 {out64[3:6]} by {eval_err:.3e}")
+    if epochs is None:
+        check(abs(perp["BEAR"] - ATTN_PERPLEXITY) <= ATTN_PERPLEXITY_ATOL,
+              f"attention BEAR held-out perplexity {perp['BEAR']} not within "
+              f"{ATTN_PERPLEXITY_ATOL} of {ATTN_PERPLEXITY}")
+
+    ar = get_ar_func("attention", run.lag, 4, ATTN_KW, device=device)
+    kw = dict(ar_func=ar, params_restart=p0, dtype=torch.float32, device=device, **base)
+    synchronize(device)
+    t0 = time.perf_counter()
+    bear_net.train(ds.codes, ds.counts[:, 0], epochs=timed, **kw)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+    print(f"[attn] train_bear_net.main, bear_attn_bear.cfg values in float32 (d_model 64, 4 "
+          f"heads, mlp 128, lr {run.learning_rate}): {len(elbos):,} applies; the CLI run "
+          f"(load, train, evaluate twice, write) {cli_s:.3f} s; training alone {timed:,} "
+          f"applies in {train_s:.3f} s = {timed / train_s:.6g} applies/s [{card}]")
+    print(f"[attn] h {h:.6g}; held-out perplexity BEAR {perp['BEAR']:.6f} AR "
+          f"{perp['AR']:.6f} BMM {perp['BMM']}; accuracy BEAR {acc['BEAR']:.6f} AR "
+          f"{acc['AR']:.6f} BMM {acc['BMM']}; ELBO {elbos[0]:.7g} -> {elbos[-1]:.7g} [{card}]")
+    print(f"[attn] first {k} ELBOs vs CPU float64 from the same initial parameters: max rel "
+          f"err {elbo_err:.3e}; held-out perplexities vs CPU float64 evaluation of the "
+          f"written parameters: max rel err {eval_err:.3e} (tolerance {ELBO_RTOL})")
+    if profile:
+        device_breakdown("train YSD1 attention BEAR, 200 applies",
+                         lambda: bear_net.train(ds.codes, ds.counts[:, 0], epochs=200, **kw),
+                         card, top=10)
+
+
+def optimizer_phase(card, device="cuda", check_applies=OPT_CHECK_APPLIES,
+                    timed=OPT_TIMED_APPLIES):
+    """4h (Q): the seven optax optimizers (and Adam, for scale) on the YSD1
+    linear BEAR: ``check_applies`` float64 applies on the device and on the
+    CPU from the same parameters, then ``timed`` float32 applies on the
+    device, timed.
+
+    Each rule's float64 run is also repeated on the CPU from a start one ulp
+    away (the AR matrix times 1 + 2^-52), which measures how far the rule's
+    own dynamics carry a last-bit difference. Where they keep it below
+    1e-12 for all ``check_applies`` applies, the device is held to the CPU
+    within OPT_RTOL in every ELBO and parameter; where they amplify it
+    (rmsprop here: decay 0.9, no momentum, lr 0.01), the device's ELBOs are
+    held within OPT_RTOL up to the first apply where the one-ulp runs part,
+    and its end within 10x the one-ulp runs' spread."""
+    import torch
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    ds = load_dense(bundled_ysd1_path(), "dna", 3)
+    init = bear_net.init_params(torch.Generator().manual_seed(10),
+                                get_ar_func("linear", 5, 4, device="cpu"))
+    p0 = [init["h_signed"]] + init["ar"]
+    p_ulp = [p0[0].double(), p0[1].double() * (1 + 2.0 ** -52)]
+    base = dict(num_kmers=ds.num_kmers, batch_size=1500, learning_rate=0.01, seed=10)
+    c, n = ds.codes, ds.counts[:, 0]
+
+    def run64(name, dev, start):
+        ar64 = get_ar_func("linear", 5, 4, dtype=torch.float64, device=dev)
+        return bear_net.train(c, n, ar_func=ar64, epochs=check_applies, optimizer_name=name,
+                              params_restart=start, dtype=torch.float64, device=dev, **base)
+
+    def param_err(a, b):
+        return max(float(np.max(np.abs(x - y))) for x, y in zip(a.params_list, b.params_list))
+
+    rates = {}
+    for name in OPTAX_NAMES:
+        got, want, ulp = run64(name, device, p0), run64(name, "cpu", p0), run64(name, "cpu", p_ulp)
+        check(got.opt_state["step"] == check_applies, f"{name}: {got.opt_state['step']} applies")
+        parted = np.abs(ulp.elbos / want.elbos - 1) > 1e-12
+        n_held = int(np.argmax(parted)) if parted.any() else check_applies
+        elbo_ok = np.allclose(got.elbos[:n_held], want.elbos[:n_held], rtol=OPT_RTOL, atol=0)
+        if n_held == check_applies:
+            end_ok = all(np.allclose(a, b, rtol=OPT_RTOL, atol=1e-15)
+                         for a, b in zip(got.params_list, want.params_list))
+            held = f"every ELBO and parameter within rtol {OPT_RTOL}"
+        else:
+            end_ok = param_err(got, want) <= 10 * param_err(ulp, want)
+            held = (f"its dynamics amplify a one-ulp start: the CPU's one-ulp runs part at apply "
+                    f"{n_held} and end {param_err(ulp, want):.3e} apart; ELBOs held within rtol "
+                    f"{OPT_RTOL} over the first {n_held} applies, the end within 10x that "
+                    f"spread")
+        check(elbo_ok and end_ok, f"{name}: float64 {device} vs CPU differ: ELBOs "
+              f"{rel_err(got.elbos[:n_held], want.elbos[:n_held]):.3e} over {n_held} applies, "
+              f"parameters {param_err(got, want):.3e} after {check_applies} ({held})")
+        print(f"[optim] {name}: {check_applies} float64 applies, {device} vs CPU: ELBO max rel "
+              f"err {rel_err(got.elbos, want.elbos):.3e}, parameters max abs err "
+              f"{param_err(got, want):.3e}; {held}; h {got.h:.6g}")
+    for name in ["adam"] + OPTAX_NAMES:
+        ar = get_ar_func("linear", 5, 4, device=device)
+        bear_net.train(c, n, ar_func=ar, epochs=20, optimizer_name=name, params_restart=p0,
+                       dtype=torch.float32, device=device, **base)  # warm-up, untimed
+        synchronize(device)
+        t0 = time.perf_counter()
+        res = bear_net.train(c, n, ar_func=ar, epochs=timed, optimizer_name=name,
+                             params_restart=p0, dtype=torch.float32, device=device, **base)
+        synchronize(device)
+        rates[name] = timed / (time.perf_counter() - t0)
+        check(np.isfinite(res.elbos).all(), f"{name}: float32 ELBOs not finite")
+    print(f"[optim] YSD1 linear BEAR, float32, {timed:,} applies each: applies/s "
+          + ", ".join(f"{k} {v:.6g}" for k, v in rates.items()) + f" [{card}]")
+    return rates
+
+
+def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn_kw=CNN_KW,
+               attn_kw=ATTN_KW, batch=TRAIN_BATCH, epochs=BF16_EPOCHS, trace_applies=20):
+    """4h (R): bfloat16 compute of the AR network on the lag-``lag`` handoff:
+    the CNN and an attention AR, each trained in float32 and with
+    compute_dtype=bfloat16 from the same parameters. Checks the last ELBOs
+    within BF16_LOSS_RTOL and the bfloat16 probabilities (float32, summing
+    to 1); traces ``trace_applies`` bfloat16 attention applies with
+    ``utils.profiling.trace`` and checks the trace lists a kernel of the
+    device (on the CPU: an operator)."""
+    import torch
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.utils.profiling import trace
+
+    on_card = torch.device(device).type == "cuda"
+    train_kw = dict(num_kmers=n_rows, batch_size=batch, learning_rate=TRAIN_LR,
+                    dtype=torch.float32, device=device)
+    n_apply = epochs * -(-n_rows // batch)
+    for name, kw in (("cnn", cnn_kw), ("attention", attn_kw)):
+        init = bear_net.init_params(torch.Generator().manual_seed(SEED),
+                                    get_ar_func(name, lag, 4, kw, device="cpu"))
+        p0 = [init["h_signed"]] + init["ar"]
+        res = {}
+        for cd in (None, torch.bfloat16):
+            ar = get_ar_func(name, lag, 4, kw, compute_dtype=cd, device=device)
+            bear_net.train(codes[:2 * batch], counts[:2 * batch, 0], ar_func=ar, epochs=1,
+                           params_restart=p0, **train_kw)  # warm-up, untimed
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            synchronize(device)
+            t0 = time.perf_counter()
+            r = bear_net.train(codes, counts[:, 0], ar_func=ar, epochs=epochs,
+                               params_restart=p0, **train_kw)
+            synchronize(device)
+            sec = time.perf_counter() - t0
+            peak = (f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB" if on_card
+                    else "not measured")
+            check(len(r.elbos) == n_apply and np.isfinite(r.elbos).all(),
+                  f"{name} {cd}: {len(r.elbos)} ELBOs for {n_apply} applies, or not finite")
+            label = "bfloat16" if cd is not None else "float32"
+            print(f"[bf16] lag-{lag} {name} BEAR {kw}, {label} compute: {n_apply} applies of "
+                  f"{batch:,} rows in {sec:.3f} s = {n_apply / sec:.6g} applies/s; peak device "
+                  f"memory above the resident {peak}; ELBO {r.elbos[0]:.7g} -> "
+                  f"{r.elbos[-1]:.7g} [{card}]")
+            res[label] = (r, ar)
+        (r32, _), (r16, ar16) = res["float32"], res["bfloat16"]
+        loss_err = rel_err(r16.elbos[-1], r32.elbos[-1])
+        check(loss_err <= BF16_LOSS_RTOL, f"{name}: bfloat16's last ELBO {r16.elbos[-1]} not "
+              f"within 1% of float32's {r32.elbos[-1]}")
+        with torch.no_grad():
+            probs = ar16.apply_codes(codes[:4096], r16.params["ar"])
+        sum_err = float((probs.sum(-1) - 1).abs().max())
+        check(probs.dtype == torch.float32 and sum_err <= BF16_SUM_ATOL,
+              f"{name}: bfloat16 probabilities {probs.dtype}, sums off 1 by {sum_err:.3e}")
+        print(f"[bf16] {name}: last ELBO bfloat16 vs float32 rel diff {loss_err:.3e} (tolerance "
+              f"{BF16_LOSS_RTOL}); bfloat16 probabilities {probs.dtype}, |sum - 1| <= "
+              f"{sum_err:.3e}")
+
+    n_trace = trace_applies * batch
+    t0 = time.perf_counter()
+    with trace(out_dir) as prof:
+        bear_net.train(codes[:n_trace], counts[:n_trace, 0], ar_func=ar16, epochs=1,
+                       params_restart=p0, **train_kw)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, "trace.json")
+    check(os.path.exists(path), f"no trace file at {path}")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    want = "kernel" if on_card else "cpu_op"
+    n_events = sum(e.get("cat") == want for e in events)
+    check(n_events > 0, f"the trace lists no {want} event")
+    busy_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
+    busy = (f"device kernels {busy_ms:.3f} ms of {wall_ms:.3f} ms traced wall = "
+            f"{100 * busy_ms / wall_ms:.1f}% busy" if on_card else "device time not measured")
+    print(f"[bf16] utils.profiling.trace over {trace_applies} bfloat16 attention applies: "
+          f"{os.path.getsize(path):,} bytes, {n_events:,} {want} events, {busy} [{card}]")
+    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
+    for e in top[:6]:
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0:
+            print(f"[bf16]   {us / 1e3:9.4f} ms {e.count:5d}x {e.key[:90]}")
+
+
 def main() -> int:
     import torch
 
@@ -2443,6 +2736,31 @@ def main() -> int:
         del sparse_counter
         torch.cuda.empty_cache()
         t_4g.append(time.perf_counter())
+    # 4h. the remaining model options: (P) attention BEAR through the CLI,
+    # (Q) the seven optax optimizers, (R) bfloat16 compute on 4c's handoff;
+    # none of them counts, so count_chunk's launches here stay 0
+    from bear_tpu_torch.utils.profiling import StageTimer
+
+    count_chunk_update.launches = 0
+    window_update.launches = 0
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as tmp:
+        with timer.stage("(P) attention"):
+            attention_phase(os.path.join(tmp, "attn"), card)
+        torch.cuda.empty_cache()
+        with timer.stage("(Q) optimizers"):
+            optimizer_phase(card)
+        torch.cuda.empty_cache()
+        with timer.stage("(R) bfloat16"):
+            bf16_phase(codes_d, counts_d, n_rows, os.path.join(tmp, "trace"), card)
+    del codes_d, counts_d
+    torch.cuda.empty_cache()
+    print(f"[4h] phase 4h {sum(t for _, t in timer.stages):.3f} s: "
+          + ", ".join(f"{n} {t:.3f} s" for n, t in timer.stages)
+          + f" (StageTimer; checks and CPU references included); kernel launches in 4h: "
+          f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches} "
+          f"(the options are PyTorch ops) [{card}]")
+
     count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
                "ref_recount": ref_launches, **lag_launches, **asm_launches,

@@ -328,9 +328,12 @@ def test_reference_checkpoints_carry_across_and_load_bear_refuses(tmp_path):
 
 def test_refusals():
     codes, counts = _data(2, n=20)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8,
-                       compute_dtype=torch.bfloat16, dtype=torch.float64, device="cpu")
+    # compute_dtype is ported: the inner net computes in bfloat16, the mixture
+    # and the parameters stay in float32, as in bear_tpu.
+    res = bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8,
+                         compute_dtype=torch.bfloat16, dtype=torch.float32, device="cpu")
+    assert np.isfinite(res.losses).all()
+    assert all(p.dtype == torch.float32 for p in res.params["ar"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8,
                        mesh=object(), dtype=torch.float64, device="cpu")

@@ -137,10 +137,13 @@ def test_eval_only_restart_and_refusals(tmp_path):
     got = train_bear_net.main(cfg, device="cpu")
     want = jcli.main(jcfg)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-10)
-    for key, value in [("train__data_parallel", "True"),
-                       ("model__compute_precision", "bfloat16")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RunConfig.from_configparser(_config("bear_test.cfg", tmp_path, **{key: value}))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        RunConfig.from_configparser(_config("bear_test.cfg", tmp_path,
+                                            train__data_parallel="True"))
+    # compute_precision is ported: the config reads it as bear_tpu's does.
+    bf16 = RunConfig.from_configparser(_config("bear_test.cfg", tmp_path,
+                                               model__compute_precision="bfloat16"))
+    assert bf16.compute_precision == "bfloat16" and bf16.compute_dtype() == torch.bfloat16
     run = RunConfig.from_configparser(_config(
         "bear_test.cfg", tmp_path, train__streaming="True", train__checkpoint_every="10",
         train__cache="False"))
@@ -158,9 +161,14 @@ def test_eval_only_restart_and_refusals(tmp_path):
                                   "--device", "cpu"])
         assert summarize.main(args) == (1, None)
     assert len((tmp_path / "run_lag_16_file_0.tsv").read_text().splitlines()) == 9
-    with pytest.raises(NotImplementedError, match="attention"):
-        train_bear_net.main(_config("bear_attn_bear.cfg", tmp_path / "attn",
-                                    data__files_path="TEST"), device="cpu")
+    # The shipped attention config trains in the port's CLI as in bear_tpu's
+    # (the same BMM column; tests/test_torch_attention.py holds the rest).
+    attn_kw = dict(data__files_path="TEST", train__epochs=2,
+                   model__af_kwargs='{"d_model": 8, "num_heads": 2, "mlp_width": 8}')
+    got = train_bear_net.main(_config("bear_attn_bear.cfg", tmp_path / "attn", **attn_kw),
+                              device="cpu")
+    want = jcli.main(_config("bear_attn_bear.cfg", tmp_path / "jattn", **attn_kw))
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-10)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_bear_net.main(_config("bear_test.cfg", tmp_path / "card"))

@@ -86,8 +86,14 @@ def test_cnn_lead_shape_and_refusals():
         CNNAR(3, 4, filter_width=4, device="cpu")
     with pytest.raises(ValueError, match="parameter arrays"):
         ar.load_params(params[:-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_ar_func("attention", LAG, 4, device="cpu")
+    # attention is ported: the same name builds it, and it matches bear_tpu's.
+    att_kw = {"d_model": 8, "num_heads": 2, "mlp_width": 8}
+    jatt = jget_ar_func("attention", LAG, 4, att_kw, dtype=jnp.float64)
+    att_params = [np.asarray(p) for p in jatt.init(jax.random.key(4))]
+    att = get_ar_func("attention", LAG, 4, att_kw, dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(
+        att.apply_codes(torch.tensor(codes), [torch.tensor(p) for p in att_params]).numpy(),
+        np.asarray(jatt.apply_codes(att_params, codes)), rtol=1e-10)
     with pytest.raises(ValueError, match="af_kwargs"):
         get_ar_func("stop", LAG, 4, {"num_filters": 3}, device="cpu")
 

@@ -286,3 +286,50 @@ def test_multipass_and_sparse_counters_on_card_equal_cpu(cuda, reverse):
             kb, vb = b._consolidated(l)
             np.testing.assert_array_equal(ka, kb)
             np.testing.assert_array_equal(va, vb)
+
+
+@pytest.mark.parametrize("path", ["forward", "apply_codes"])
+def test_attention_float64_on_card_equals_cpu(cuda, path):
+    """The attention AR's values and gradients in float64 on the card against
+    the CPU, from the same parameters (a nonzero positional encoding)."""
+    from bear_tpu_torch.models.ar_funcs import AttentionAR
+
+    rng = np.random.default_rng(3)
+    ar = AttentionAR(13, 4, dtype=torch.float64, device="cpu",
+                     generator=torch.Generator().manual_seed(1))
+    params = ar.init(torch.Generator().manual_seed(2))
+    params[1] = torch.from_numpy(0.3 * rng.normal(size=tuple(params[1].shape)))
+    codes = torch.from_numpy(rng.integers(0, 5, size=(512, 13)).astype(np.int8))
+    x = codes if path == "apply_codes" else torch.nn.functional.one_hot(
+        codes.long(), 5).double()
+    w = torch.from_numpy(rng.normal(size=(512, 5)))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        tp = [p.to(dev).requires_grad_(True) for p in params]
+        probs = getattr(ar, path)(x.to(dev), tp)
+        (torch.log(probs) * w.to(dev)).sum().backward()
+        out[dev.type] = (probs.detach().cpu(), [p.grad.cpu() for p in tp])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-10, atol=0)
+    for g, h in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, h, rtol=1e-9, atol=1e-14)
+
+
+@pytest.mark.parametrize("name", ["linear", "cnn", "attention"])
+def test_bfloat16_compute_on_card(cuda, name):
+    """bfloat16 compute on the card: float32 probabilities that sum to 1,
+    within 0.03 of the float32 forward on the card."""
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    kw = {"linear": {}, "cnn": {"filter_width": 8, "num_filters": 96,
+                                "kmer_layer1_width": 64}, "attention": {}}[name]
+    ar32 = get_ar_func(name, 13, 4, kw, device=cuda,
+                       generator=torch.Generator().manual_seed(0))
+    ar16 = get_ar_func(name, 13, 4, kw, compute_dtype=torch.bfloat16, device=cuda)
+    params = ar32.params_list()
+    codes = torch.from_numpy(np.random.default_rng(4).integers(0, 5, size=(4096, 13))
+                             .astype(np.int8)).to(cuda)
+    p32 = ar32.apply_codes(codes, params)
+    p16 = ar16.apply_codes(codes, params)
+    assert p16.dtype == torch.float32 and p16.is_cuda
+    torch.testing.assert_close(p16.sum(-1), torch.ones(4096, device=cuda), rtol=0, atol=1e-5)
+    assert float((p16 - p32).abs().max()) <= 0.03

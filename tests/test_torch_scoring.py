@@ -325,3 +325,23 @@ def test_lag17_map_scores_through_a_sparse_counter_match_bear_tpu():
                                         **kw)
     assert got.shape == (7, 2) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("alphabet,n_models,n_samples", [("dna", 3, 1), ("dna", 1, 4),
+                                                          ("prot", 2, 3)])
+def test_pdf_to_dataframe_matches_bear_tpu(alphabet, n_models, n_samples):
+    """Mirror of tests/test_scoring.py::test_pdf_to_dataframe: the same index
+    ((k+1)-mers) and columns (model{m}, or model{m}_sample{s} past one
+    sample) as bear_tpu's frame."""
+    import pandas as pd
+
+    rng = np.random.default_rng(n_models + n_samples)
+    A1 = alphabets.alphabet_size(alphabet) + 1
+    kmers = np.array(["AC", "GT", "CA"])
+    lp = rng.normal(size=(len(kmers), A1, n_models, n_samples))
+    got = scoring.Pdf(kmers=kmers, log_probs=lp, alphabet_name=alphabet).to_dataframe()
+    want = jscoring.Pdf(kmers=kmers, log_probs=lp, alphabet_name=alphabet).to_dataframe()
+    pd.testing.assert_frame_equal(got, want)
+    assert got.shape == (len(kmers) * A1, n_models * n_samples)
+    col = f"model{n_models - 1}" + (f"_sample{n_samples - 1}" if n_samples > 1 else "")
+    assert got.loc["GT" + alphabets.output_letters(alphabet)[1], col] == lp[1, 1, -1, -1]

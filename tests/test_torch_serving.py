@@ -27,7 +27,8 @@ from bear_tpu_torch.inference import serving
 from bear_tpu_torch.inference.scoring import load_bear
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models import bear_net
-from bear_tpu_torch.models.ar_funcs import CNNAR, LinearAR, StopAR, flat_one_hot, get_ar_func
+from bear_tpu_torch.models.ar_funcs import (AttentionAR, CNNAR, LinearAR, StopAR, flat_one_hot,
+                                            get_ar_func)
 from bear_tpu_torch.ops import alphabets
 
 torch.set_num_threads(2)
@@ -102,8 +103,9 @@ def test_get_ar_func_names():
     assert isinstance(get_ar_func("linear", 3, 4, {}, device="cpu"), LinearAR)
     assert isinstance(get_ar_func("cnn", 3, 4, {"filter_width": 2}, device="cpu"), CNNAR)
     assert isinstance(get_ar_func("stop", 3, 4, device="cpu"), StopAR)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_ar_func("attention", 3, 4, device="cpu")
+    att = get_ar_func("attention", 3, 4, {"d_model": 8, "num_heads": 2}, device="cpu")
+    assert isinstance(att, AttentionAR) and (att.d_model, att.num_heads, att.mlp_width) == (
+        8, 2, 128)
     with pytest.raises(ValueError):
         get_ar_func("transformer", 3, 4, device="cpu")
 
@@ -249,5 +251,19 @@ def test_load_bear_rejects_wrong_param_count(tmp_path):
     with pytest.raises(ValueError, match="parameter"):
         load_bear(path2, device="cpu")
     path3 = _model_dir(tmp_path, 3, "float64", 0.0, ar_params, ar_name="attention")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="parameter"):
         load_bear(path3, device="cpu")
+    # A directory with the attention AR's own parameters loads, as bear_tpu's
+    # does, and serves the same scores.
+    jatt = jget_ar_func("attention", 3, 4, dtype=jnp.float64)
+    path4 = _model_dir(tmp_path, 3, "float64", -1.2, jatt.init(jax.random.key(3)),
+                       ar_name="attention")
+    jl = jscoring.load_bear(path4)
+    pl = load_bear(path4, device="cpu")
+    assert pl[:3] == jl[:3]
+    rng = np.random.default_rng(9)
+    table = _table(_rand_seqs(rng, 30, 10, 50), 3)
+    seqs = _rand_seqs(rng, 8, 3, 40)
+    want = jserving.BearServer(table, 3, h=jl[2], ar_apply=jl[3], dtype=jnp.float64)
+    got = BearServer(table, 3, h=pl[2], ar_apply=pl[3], dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(got.score(seqs), np.asarray(want.score(seqs)), rtol=1e-10)

@@ -10,6 +10,7 @@ within chip_smoke.py's stated GPU-vs-float64 tolerance.
 """
 
 import configparser
+import json
 import os
 
 import jax
@@ -311,3 +312,49 @@ def test_chip_smoke_beyond_dense_phase_rehearsal(tmp_path, capsys):
                  "assembly at lag 17 from a SparseTableIndex", "4 of 4 sequences identical",
                  "give the same 4 sequences"):
         assert part in out, part
+
+
+def test_chip_smoke_options_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4h on the CPU at a small size: (P) the attention
+    # CLI on YSD1 with its checks against float64, (Q) the optimizers, (R)
+    # bfloat16 against float32 on a small handoff, and the trace; their own
+    # checks raise on a fault.
+    chip_smoke.attention_phase(str(tmp_path / "attn"), "CPU", device="cpu", epochs=8, timed=4,
+                               profile=False)
+    rates = chip_smoke.optimizer_phase("CPU", device="cpu", check_applies=4, timed=3)
+    assert list(rates) == ["adam"] + chip_smoke.OPTAX_NAMES
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=6)
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chip_smoke.read_chunks(reads, groups, rows=1024):
+        counter.add_chunk(c)
+    codes, counts = counter.to_device_dataset(LAG)
+    chip_smoke.bf16_phase(codes, counts, codes.shape[0], str(tmp_path / "trace"), "CPU",
+                          device="cpu", lag=LAG,
+                          cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
+                          attn_kw={"d_model": 16, "num_heads": 2, "mlp_width": 32}, batch=1024,
+                          epochs=2, trace_applies=2)
+    out = capsys.readouterr().out
+    for part in ("[attn] first 5 ELBOs vs CPU float64", "held-out perplexity BEAR",
+                 "[optim] lion: 4 float64 applies", "[optim] YSD1 linear BEAR, float32",
+                 "cnn: last ELBO bfloat16 vs float32", "attention: last ELBO bfloat16",
+                 "utils.profiling.trace over 2 bfloat16 attention applies"):
+        assert part in out, part
+    assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_chip_smoke_attention_config_is_bear_attn_bear_cfg():
+    """chip_smoke.py's (P) config holds bear_attn_bear.cfg's values, bar the
+    out folder, the files (the port's bundled YSD1) and float32."""
+    import configparser
+
+    shipped = configparser.ConfigParser()
+    shipped.read(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                              "bear_tpu", "models", "config_files", "bear_attn_bear.cfg"))
+    ours = chip_smoke.attn_config("out*")
+    for section in ("hyperp", "train", "test"):
+        for key in ours[section]:
+            assert ours[section][key] == shipped[section][key], (section, key)
+    assert ours["model"]["ar_func_name"] == shipped["model"]["ar_func_name"]
+    assert json.loads(ours["model"]["af_kwargs"]) == json.loads(shipped["model"]["af_kwargs"])
+    assert ours["general"]["seed"] == shipped["general"]["seed"]
+    assert ours["general"]["precision"] == "float32"

@@ -181,7 +181,7 @@ def test_evaluation_float32_sums_in_float64(ysd1, trained):
 
 
 def test_arguments_not_ported_raise(ysd1):
-    _, ar, p0 = _models("linear")
+    jar, ar, p0 = _models("linear")
     kw = dict(num_kmers=ysd1.num_kmers, batch_size=700, device="cpu")
     c, n = ysd1.codes, ysd1.counts[:, 0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -197,9 +197,13 @@ def test_arguments_not_ported_raise(ysd1):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bear_net.evaluation(c, ysd1.counts, 0, 1, "dna", 0.1, ar, p0[1:], VAN,
                             device="cpu", mesh=object())
-    for name in ("adamw", "rmsprop"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bear_net.train(c, n, ar_func=ar, optimizer_name=name, **kw)
+    for name in ("adamw", "rmsprop"):  # ported: optax's rules, as bear_tpu's
+        got = bear_net.train(c, n, ar_func=ar, optimizer_name=name, params_restart=p0,
+                             dtype=torch.float64, **kw)
+        want = jbn.train(c, n, ysd1.num_kmers, jar, batch_size=700, optimizer_name=name,
+                         params_restart=p0, dtype=jnp.float64)
+        np.testing.assert_allclose(got.elbos, want.elbos, rtol=1e-10)
+        assert got.opt_state["name"] == name
     with pytest.raises(ValueError, match="unknown optimizer"):
         bear_net.train(c, n, ar_func=ar, optimizer_name="bogus", **kw)
     with pytest.raises(ValueError, match="acc_steps"):
