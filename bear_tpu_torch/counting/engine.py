@@ -262,19 +262,23 @@ class TransitionCounter:
         and zero the device buffer in place. A sparse table (distinct
         k-mers << A^lag, the genome case) moves only its nonzero entries."""
         if self._dev is not None and self._since_flush > 0:
-            dev = self._dev
-            nnz = int(torch.count_nonzero(dev))
-            if nnz * 3 < dev.numel():
-                for idx, vals in extract_nonzero(dev):
-                    self._scatter_host(idx, vals)
-            else:
-                dense = dev.cpu().numpy()
-                for l in self.lags:
-                    off = self._offsets[l]
-                    self._host[l] += dense[off : off + self._host[l].size]
-            dev.zero_()
+            self._fold(self._dev)
+            self._dev.zero_()
             self._since_flush = 0
             self._host_dirty = True
+
+    def _fold(self, dev: torch.Tensor):
+        """Add a flat int32 device table into the host accumulators: only
+        its nonzero entries where they are few, else the whole table."""
+        nnz = int(torch.count_nonzero(dev))
+        if nnz * 3 < dev.numel():
+            for idx, vals in extract_nonzero(dev):
+                self._scatter_host(idx, vals)
+        else:
+            dense = dev.cpu().numpy()
+            for l in self.lags:
+                off = self._offsets[l]
+                self._host[l] += dense[off : off + self._host[l].size]
 
     def _scatter_host(self, idx: np.ndarray, vals: np.ndarray):
         """Route concatenated-buffer indices into the per-lag host tables."""

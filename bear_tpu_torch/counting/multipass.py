@@ -27,6 +27,7 @@ from bear_tpu_torch.parallel.counting import (
     KmerShardedTransitionCounter,
     _INT32_MAX,
     check_context_codes,
+    check_method,
     padded_size,
 )
 
@@ -61,8 +62,7 @@ class MultiPassTransitionCounter(KmerShardedTransitionCounter):
 
     def __init__(self, lags: Sequence[int], n_groups: int = 1, passes: int = 2,
                  method: str = "auto", alphabet: str = "dna", device="cuda"):
-        if method not in ("auto", "scatter", "sorted"):
-            raise ValueError(f"unknown counting method {method!r}")
+        check_method(method)
         if passes < 1:
             raise ValueError("passes must be >= 1")
         self.passes = int(passes)
@@ -74,6 +74,7 @@ class MultiPassTransitionCounter(KmerShardedTransitionCounter):
         self.n_groups = n_groups
         self.method = method
         self.device = torch.device(device)
+        self.mesh = None  # one row range at a time, on one device
         self._init_row_split(self.passes, "use more passes")
 
     def begin_pass(self, pass_idx: int):

@@ -25,13 +25,14 @@ counts at any lag whose distinct contexts fit host memory. Two int32 digit
 halves hold 2 * digit_split(A) digits (DNA 30, protein 14) and the int64
 global key caps n_groups * rows(lag) * (A+1) at 2^63 (``max_sparse_lag``:
 DNA 30, protein 13). Counting semantics are the dense engine's (the same
-ReadChunk contract, reverse complement included). ``mesh=`` (rows over
-several cards) is ROADMAP.md Queue 1 item 13 and raises.
+ReadChunk contract, reverse complement included). With ``mesh=`` each
+chunk's rows split over the devices of a mesh axis, each with its own
+buffers.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -48,7 +49,8 @@ from bear_tpu_torch.counting.engine import (
     upload_chunk,
 )
 from bear_tpu_torch.ops import alphabets as _alpha
-from bear_tpu_torch.parallel.counting import KmerShardedTransitionCounter, not_ported_multi_card
+from bear_tpu_torch.parallel.counting import KmerShardedTransitionCounter, split_rows
+from bear_tpu_torch.parallel.mesh import Mesh
 from bear_tpu_torch.utils.device import resolve_device
 
 _SENT = int(np.iinfo(np.int32).max)  # masked positions sort past every real key
@@ -150,7 +152,7 @@ def window_runs(bt: torch.Tensor, bh: torch.Tensor, bl: torch.Tensor):
 
 class SparseTransitionCounter(KmerShardedTransitionCounter):
     """Sparse-first counter for lags beyond the dense tables (DNA lag >= 16,
-    protein lag >= 8; up to 30 / 13), on one card.
+    protein lag >= 8; up to 30 / 13).
 
     Shares the row-range counters' host surface (nonzero_rows,
     counts_for_rows, to_dataset, export_tsv, save/load_state, validate,
@@ -159,20 +161,21 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
     sync; a buffer window sorts and drains to the host once per ~16 chunks
     or at ``flush()``.
 
-    device_buffer : key-buffer budget in TOTAL entries, split across the
-        lags (12 bytes an entry); each lag's window adapts down to ~16
-        chunks of the current chunk size and ratchets up for bigger ones.
-    mesh : several cards; not ported (raises NotImplementedError).
+    device_buffer : key-buffer budget in TOTAL entries per device, split
+        across the lags (12 bytes an entry); each lag's window adapts down
+        to ~16 chunks of the current chunk size and ratchets up for bigger
+        ones.
+    mesh, axis : each chunk's rows, padded to a multiple of the axis size,
+        split over the ``axis`` devices of ``mesh``; every device keeps its
+        own key buffers and sorts its own windows, and all drain into the
+        one host accumulator. Without a mesh, one ``device``.
     """
 
     FLUSH_EVERY = FLUSH_EVERY
 
     def __init__(self, lags: Sequence[int], n_groups: int = 1, reverse: bool = False,
-                 alphabet: str = "dna", mesh=None, axis: str = "data",
+                 alphabet: str = "dna", mesh: Optional[Mesh] = None, axis: str = "data",
                  device_buffer: int = DEVICE_BUFFER, device="cuda"):
-        if mesh is not None:
-            not_ported_multi_card("sparse counting over a mesh of cards (mesh=)")
-        del axis
         self.alphabet = alphabet
         self.A = _alpha.alphabet_size(alphabet)
         self.A1 = self.A + 1
@@ -187,25 +190,29 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
                 "+ the int64 global key)")
         self.n_groups = n_groups
         self.reverse = reverse
-        self.mesh = None
+        self.mesh = mesh
+        self.axis = axis
+        self._row_devices = [torch.device(device)] if mesh is None else mesh.along(axis)
+        self.device = self._row_devices[0]
+        self.n_dev = len(self._row_devices)
         if device_buffer < 1:
             raise ValueError("device_buffer must be >= 1")
         self.device_buffer = int(device_buffer)
-        self.device = torch.device(device)
         self._m = digit_split(self.A)
         self._sparse = {l: [] for l in self.lags}
         self._consolidated_lags: set = set()
         self._grk_cache = {}
         self._pending = 0  # un-consolidated host entries across all lags
-        self._buf = None  # {lag: (t, hi, lo)} device buffers
-        self._cap = None  # window capacity per lag (set at the first chunk)
-        self._fill = 0  # filled entries (the same for every lag)
-        self._staging: list = []
+        self._buf = None  # per device: {lag: (t, hi, lo)} device buffers
+        self._cap = None  # window capacity per lag and device (set at the first chunk)
+        self._fill = 0  # filled entries (the same for every lag and device)
+        self._staging = [[] for _ in self._row_devices]
 
     @property
     def table_size(self) -> int:
-        """Entries of the int32 device key buffers (three per lag)."""
-        return 3 * len(self.lags) * (self._cap or 0)
+        """Entries of the int32 device key buffers (three per lag, on every
+        device)."""
+        return 3 * len(self.lags) * (self._cap or 0) * self.n_dev
 
     def add_chunk(self, chunk: ReadChunk):
         check_groups(chunk.groups, self.n_groups)
@@ -235,13 +242,16 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
             self._cap = want
 
     def _new_buffers(self):
-        """Fresh buffers: t at the sentinel (hi and lo need no reset: runs
-        key on t first, and sentinel entries never start a counted run)."""
-        dev = resolve_device(self.device)
-        self._buf = {l: (torch.full((self._cap,), _SENT, dtype=torch.int32, device=dev),
-                         torch.zeros(self._cap, dtype=torch.int32, device=dev),
-                         torch.zeros(self._cap, dtype=torch.int32, device=dev))
-                     for l in self.lags}
+        """Fresh buffers on every device: t at the sentinel (hi and lo need
+        no reset: runs key on t first, and sentinel entries never start a
+        counted run)."""
+        self._buf = []
+        for d in self._row_devices:
+            dev = resolve_device(d)
+            self._buf.append({l: (torch.full((self._cap,), _SENT, dtype=torch.int32, device=dev),
+                                  torch.zeros(self._cap, dtype=torch.int32, device=dev),
+                                  torch.zeros(self._cap, dtype=torch.int32, device=dev))
+                              for l in self.lags})
         self._fill = 0
 
     def _add(self, codes, lengths, skip, stopped, groups, fresh=None):
@@ -250,11 +260,13 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
         if B == 0:
             return
         P = L + 1
-        n_local = B * P
+        D = self.n_dev
+        n_local = -(-B // D) * P
         self._ensure_cap(n_local, P)
         if n_local > self._cap:
-            # A chunk larger than a window: its rows go in slices that fit.
-            rows_per = max(1, self._cap // P)
+            # A chunk larger than a window: its rows go in slices that fit
+            # (bear_tpu's slicing, sparse.py:404-416).
+            rows_per = max(D, (self._cap // P) * D)
             for s0 in range(0, B, rows_per):
                 sl = slice(s0, s0 + rows_per)
                 self._add(codes[sl], np.asarray(lengths)[sl], np.asarray(skip)[sl],
@@ -265,32 +277,36 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
             self._drain_all()
         if self._buf is None:
             self._new_buffers()
-        dev = next(iter(self._buf.values()))[0].device
-        codes_t, meta_t = upload_chunk(self._staging, dev, codes, lengths, skip, stopped,
-                                       groups, fresh)
-        lengths_t, skip_t, stopped_t, groups_t, fresh_t = count_chunk.unpack_meta(meta_t)
-        keys = chunk_keys(codes_t, lengths_t, skip_t, stopped_t, groups_t,
-                          None if fresh is None else fresh_t, self.lags, self.n_groups,
-                          self.A)
+        blocks = split_rows((codes, lengths, skip, stopped, groups, fresh), D)
         end = self._fill + n_local
-        for l in self.lags:
-            for buf, part in zip(self._buf[l], keys[l]):
-                buf[self._fill : end] = part
+        for bufs, staging, block in zip(self._buf, self._staging, blocks):
+            dev = bufs[self.lags[0]][0].device
+            codes_t, meta_t = upload_chunk(staging, dev, *block)
+            lengths_t, skip_t, stopped_t, groups_t, fresh_t = count_chunk.unpack_meta(meta_t)
+            keys = chunk_keys(codes_t, lengths_t, skip_t, stopped_t, groups_t,
+                              None if block[5] is None else fresh_t, self.lags,
+                              self.n_groups, self.A)
+            for l in self.lags:
+                for buf, part in zip(bufs[l], keys[l]):
+                    buf[self._fill : end] = part
         self._fill = end
 
     def _drain_all(self):
-        """Sort every lag's window, fetch only its runs and merge them into
-        the host accumulator: one sync and one fetch per lag per window."""
+        """Sort every device's window of every lag on its device, fetch only
+        its runs and merge them into the host accumulator: one sync and one
+        fetch per lag and device per window. The accumulator consolidates
+        by sorting, so the order of the drains does not matter."""
         # Detach the buffers first: _push may consolidate, and the inherited
         # consolidation calls flush(), which would re-enter this drain.
         buf, self._buf = self._buf, None
         fill, self._fill = self._fill, 0
         if buf is None or fill == 0:
             return
-        for l in self.lags:
-            t, hi, lo, counts = (x.cpu().numpy() for x in window_runs(*buf[l]))
-            if len(t):
-                self._push(l, t, hi, lo, counts.astype(np.int64))
+        for bufs in buf:
+            for l in self.lags:
+                t, hi, lo, counts = (x.cpu().numpy() for x in window_runs(*bufs[l]))
+                if len(t):
+                    self._push(l, t, hi, lo, counts.astype(np.int64))
 
     def _push(self, lag: int, t: np.ndarray, hi: np.ndarray, lo: np.ndarray,
               counts: np.ndarray):
@@ -327,7 +343,7 @@ class SparseTransitionCounter(KmerShardedTransitionCounter):
 
     def sync(self):
         """Block until all queued device append work has completed."""
-        if self._buf is not None:
-            dev = next(iter(self._buf.values()))[0].device
+        for bufs in self._buf or []:
+            dev = bufs[self.lags[0]][0].device
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)

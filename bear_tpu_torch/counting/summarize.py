@@ -20,15 +20,19 @@ counts],...]``; ``-r`` adds a reverse-complement pass written to
 --passes N  count in N sequential row-range passes on one card, re-reading
         the input each pass (lags 14-15: the table is too large for one
         card; count_chunk's row-range form, one launch per chunk and pass)
+--kmer-shards N  split the count tables' rows over N devices (a ``kmer``
+        mesh axis; every device counts the whole chunk by count_chunk's
+        row-range form)
+--data-shards N  split chunk rows over N devices for the sparse-first
+        counter (a ``data`` mesh axis)
 -mk/-p/-pr/-t/-s12/-s3  accepted for compatibility; no-ops
 --method  accepted and ignored: the port has one counting kernel
---device {cuda,cpu}  where the table lives and the kernel runs (default cuda)
+--device {cuda,cpu}  where the table lives and the kernel runs (default cuda);
+        the meshes take the first N cards, or N entries of the CPU
 
 Lags beyond the dense int32 range (DNA >= 16, protein >= 8) route
 themselves to the sparse-first counter (counting/sparse.py: key buffers
-sorted on the card, no dense table). ``--kmer-shards`` and ``--data-shards``
-above 1 need several cards and raise NotImplementedError (ROADMAP.md Queue 1
-item 13).
+sorted on the card, no dense table).
 """
 
 from __future__ import annotations
@@ -41,12 +45,14 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from bear_tpu_torch.counting import engine, fastx
 from bear_tpu_torch.counting.multipass import count_multipass
 from bear_tpu_torch.counting.sparse import SparseTransitionCounter
 from bear_tpu_torch.ops import alphabets as _alpha
-from bear_tpu_torch.parallel.counting import not_ported_multi_card
+from bear_tpu_torch.parallel.counting import KmerShardedTransitionCounter
+from bear_tpu_torch.parallel.mesh import data_parallel_mesh, local_device_count
 
 
 def iter_chunks(entries, max_lag: int, batch_size: int = 1024,
@@ -137,8 +143,12 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
     checkpoint: optional path; counts are saved after every completed input
     file (write + atomic rename) and a rerun resumes after the last finished
     file (not with ``passes``). ambig: "a" folds unknown bases to A; "skip"
-    drops transitions whose window crosses one. kmer_shards and data_shards
-    above 1 need several cards and raise NotImplementedError."""
+    drops transitions whose window crosses one. kmer_shards > 1: a
+    parallel.counting.KmerShardedTransitionCounter with the tables' rows
+    split over that many devices of a ``kmer`` mesh axis. data_shards > 1:
+    the sparse-first counter with chunk rows split over that many devices
+    of a ``data`` axis (lags beyond the dense range only). The meshes take
+    the first cards of ``device``, or entries of the CPU."""
     if reverse and alphabet not in ("dna", "rna"):
         raise ValueError("-r (reverse complement) requires a 4-letter alphabet")
     if data_shards > 1 and (passes > 1 or kmer_shards > 1):
@@ -170,15 +180,17 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
         return count_multipass(factory, lags=lags, n_groups=n_groups, passes=passes,
                                alphabet=alphabet, device=device)
     if kmer_shards > 1:
-        not_ported_multi_card(f"--kmer-shards {kmer_shards}")
-    if _alpha.alphabet_size(alphabet) ** max(lags) > np.iinfo(np.int32).max:
+        counter = KmerShardedTransitionCounter(
+            lags, n_groups=n_groups, alphabet=alphabet,
+            mesh=_mesh("--kmer-shards", kmer_shards, "kmer", device))
+    elif _alpha.alphabet_size(alphabet) ** max(lags) > np.iinfo(np.int32).max:
         # Beyond the dense int32 range: the sparse-first counter sorts key
         # buffers on the card (KMC's design) and shares save/load_state, so
         # the file-granular checkpoint below works unchanged.
-        if data_shards > 1:
-            not_ported_multi_card(f"--data-shards {data_shards}")
+        mesh = (_mesh("--data-shards", data_shards, "data", device) if data_shards > 1
+                else None)
         counter = SparseTransitionCounter(lags=lags, n_groups=n_groups, alphabet=alphabet,
-                                          device=device)
+                                          mesh=mesh, device=device)
     elif data_shards > 1:
         raise ValueError(
             "--data-shards applies to sparse-first counting (DNA lag >= 16 / protein "
@@ -195,9 +207,10 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
     files_json = ckpt + ".files.json"
     done: set[str] = set()
     if os.path.exists(ckpt) and os.path.exists(files_json):
-        if isinstance(counter, SparseTransitionCounter):
-            # Restore into the counter built above (its load_state checks
-            # lags, groups, reverse and alphabet).
+        if not isinstance(counter, engine.TransitionCounter):
+            # Row-split or sparse: restore into the counter built above (its
+            # load_state checks lags, groups, reverse and alphabet; the mesh
+            # is run-time state).
             counter.load_state(ckpt)
         else:
             counter = engine.TransitionCounter.load_state(ckpt, device=device)
@@ -225,6 +238,15 @@ def run_counting(input_csv: str, lags, reverse: bool = False, batch_size: int = 
             json.dump(sorted(done), fh)
         os.replace(tmp_json, files_json)
     return counter
+
+
+def _mesh(flag: str, n: int, axis: str, device):
+    """A 1-D mesh of ``n`` devices for ``flag``: the first n cards (bear_tpu's
+    "needs that many devices" refusal when there are fewer), or n entries
+    of the CPU."""
+    if torch.device(device).type == "cuda" and local_device_count() < n:
+        raise ValueError(f"{flag} {n} needs that many devices; have {local_device_count()}")
+    return data_parallel_mesh(n, axis_name=axis, device=device)
 
 
 def _count(counter, chunks, stats):
@@ -343,15 +365,16 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--alphabet", default="dna", choices=("dna", "rna", "prot"),
                         help="Residue alphabet.")
     parser.add_argument("--kmer-shards", default=1, type=int, dest="kmer_shards",
-                        help="Shard count tables over this many cards (not ported "
-                             "yet: only 1; --passes splits them in time on one card).")
+                        help="Split the count tables' rows over this many devices "
+                             "(lag 14-15 tables beyond one card; --passes splits them "
+                             "in time on one card).")
     parser.add_argument("--checkpoint", default=None,
                         help="Checkpoint counts after every completed input file; a "
                              "rerun with the same flag resumes after the last "
                              "finished file.")
     parser.add_argument("--data-shards", default=1, type=int, dest="data_shards",
-                        help="Sparse counting over this many cards (not ported yet: "
-                             "only 1).")
+                        help="Split chunk rows over this many devices for sparse-first "
+                             "counting (DNA lag >= 16 / protein lag >= 8).")
     parser.add_argument("--passes", default=1, type=int,
                         help="Count in this many sequential row-range passes on one "
                              "card, re-reading the input each pass (lag 14-15 tables "

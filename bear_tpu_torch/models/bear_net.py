@@ -35,7 +35,7 @@ the run ends (or a checkpoint is written). Optimizers: Adam (eps 1e-7) and
 SGD are ``torch.optim``'s; ``adamw``, ``adamax``, ``rmsprop``, ``adagrad``,
 ``nadam``, ``adadelta`` and ``lion`` are optax's rules
 (:mod:`bear_tpu_torch.models.optimizers`). Not ported yet: ``mesh``
-(several cards, ROADMAP.md Queue 1 item 13).
+(training over a mesh, ROADMAP.md Queue 1 item 13, half 2).
 """
 
 from __future__ import annotations
@@ -233,8 +233,8 @@ def _not_ported(**args):
     for name, value in args.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name}= needs several cards, not ported to PyTorch yet; see ROADMAP.md "
-                "Queue 1 item 13"
+                f"{name}= (training, evaluation and serving over a mesh) is not ported to "
+                "PyTorch yet; see ROADMAP.md Queue 1 item 13, half 2 (slice 10)"
             )
 
 

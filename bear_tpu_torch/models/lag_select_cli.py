@@ -8,9 +8,10 @@ Either counts every lag 1..l of a FILE,GROUP,TYPE csv in one pass on the
 card (summarize's ``run_counting``, one ``count_chunk`` launch per chunk)
 and sweeps the resident tables, or reads summarized count TSVs. ``--passes
 N`` counts in N row-range passes (lags 14-15) and lags beyond 15 count
-sparse-first; the sweep then streams the sparse rows. ``--device cpu``
-runs all of it on the CPU. ``--kmer-shards`` above 1 needs several cards
-and raises (ROADMAP.md Queue 1 item 13).
+sparse-first; the sweep then streams the sparse rows. ``--kmer-shards N``
+splits the tables' rows over N devices (summarize's mesh: the first N
+cards, or N entries of the CPU). ``--device cpu`` runs all of it on the
+CPU.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "14-15 tables beyond one card; the marginal sweep then "
                         "streams the sparse rows).")
     p.add_argument("--kmer-shards", type=int, default=1,
-                   help="Count tables sharded over cards (not ported yet: only 1).")
+                   help="Shard the count tables over N devices along a 'kmer' mesh "
+                        "axis (counting mode).")
     p.add_argument("--json", action="store_true",
                    help="Print one machine-readable JSON line instead of the table.")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

@@ -18,7 +18,7 @@ same way), so a run is a function of its seed; the streams differ from
 JAX's, so trajectories match bear_tpu's in distribution only. Batches are
 stacked as ``bear_net.train`` stacks them and apply t takes batch
 ``t % steps_per_epoch``; Adam takes eps 1e-7. ``mesh`` is not ported yet
-(ROADMAP.md Queue 1 item 13).
+(ROADMAP.md Queue 1 item 13, half 2).
 """
 
 from __future__ import annotations

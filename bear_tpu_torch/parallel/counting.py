@@ -1,21 +1,32 @@
-"""Transition counting with the count table split by context rows (port of
-bear_tpu/parallel/counting.py's ``KmerShardedTransitionCounter``, one card).
+"""Counting over a device mesh (port of bear_tpu/parallel/counting.py).
 
-Each shard owns the rows ``[d * stride, (d + 1) * stride)`` of every lag's
-table, ``stride = ceil(rows(lag) / n_shards)``, so every index the device
-computes stays local and below 2^31 even where the global table (DNA lags
-14-15) does not. Counts drain from the device into a SPARSE host
-accumulator of global int64 keys ``(g * rows(lag) + row) * (A+1) + next``:
-a dense lag-15 host table would be 57 GB, while reads touch a small share
-of its rows. ``MultiPassTransitionCounter`` (one card, the shard axis in
-time: pass p plays shard p) and ``SparseTransitionCounter`` (no dense table
-at all) share this host surface: ``nonzero_rows``, ``counts_for_rows``,
+Two ways to spread counting over the devices of a :class:`Mesh`:
+
+- ``ShardedTransitionCounter`` splits each chunk's ROWS over the ``data``
+  axis. Each device counts its rows into its own replica of the dense
+  int32 table (one count_chunk launch per device per chunk and pass), and
+  a flush sums the replicas exactly into int64 host tables.
+- ``KmerShardedTransitionCounter`` splits each lag's table ROWS over the
+  ``kmer`` axis. Every device gets the whole chunk and counts, by
+  count_chunk's row-range form, only the transitions whose context row is
+  its own, so every index it computes stays local and below 2^31 even
+  where the global table (DNA lags 14-15) does not.
+
+Row ranges: shard d owns the rows ``[d * stride, (d + 1) * stride)`` of
+every lag's table, ``stride = ceil(rows(lag) / n_shards)``. Counts drain
+from the devices into a SPARSE host accumulator of global int64 keys ``(g *
+rows(lag) + row) * (A+1) + next``: a dense lag-15 host table would be
+57 GB, while reads touch a small share of its rows. Without a mesh the
+counter holds one row range on one device: ``MultiPassTransitionCounter``
+(the shard axis in time: pass p plays shard p) and
+``SparseTransitionCounter`` (no dense table at all) build on that form and
+share this host surface: ``nonzero_rows``, ``counts_for_rows``,
 ``to_dataset``, ``tables``, ``merge_from``, ``save_state``/``load_state``
 (bear_tpu's ``.npz`` keys), ``export_tsv`` and ``validate``.
 
-Here the counter runs on one card as one shard (the dense table with a
-sparse host accumulator); spreading the shards over several cards is
-ROADMAP.md Queue 1 item 13 and raises.
+On a mesh with axes beyond the counter's own, bear_tpu replicates each
+slice over them and drains one replica; the port keeps only that one, on
+the device at index 0 of every other axis (``Mesh.along``).
 """
 
 from __future__ import annotations
@@ -25,10 +36,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from bear_tpu_torch.counting.count_chunk import count_chunk_update, table_rows
+from bear_tpu_torch.counting.count_chunk import count_chunk_update, lag_offsets, table_rows
 from bear_tpu_torch.counting.engine import (
     FLUSH_EVERY,
     ReadChunk,
+    TransitionCounter,
     check_groups,
     extract_nonzero,
     rows_to_contexts,
@@ -37,6 +49,7 @@ from bear_tpu_torch.counting.engine import (
 )
 from bear_tpu_torch.data.loaders import CountDataset
 from bear_tpu_torch.ops import alphabets as _alpha
+from bear_tpu_torch.parallel.mesh import Mesh
 from bear_tpu_torch.utils.device import resolve_device
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -52,12 +65,6 @@ def padded_size(total: int) -> int:
     return -(-total // _PAD_BLOCK) * _PAD_BLOCK
 
 
-def not_ported_multi_card(what: str):
-    raise NotImplementedError(
-        f"{what} needs more than one card, which the port does not do yet; see "
-        "ROADMAP.md Queue 1 item 13")
-
-
 def check_context_codes(lags, A: int) -> None:
     """Dense row codes are int32 on the device: DNA lag <= 15, protein <= 7."""
     if A ** max(lags) > _INT32_MAX:
@@ -67,24 +74,138 @@ def check_context_codes(lags, A: int) -> None:
             "table, DNA lag <= 30 / protein lag <= 13)")
 
 
+def check_method(method: str) -> None:
+    if method not in ("auto", "scatter", "sorted"):
+        raise ValueError(f"unknown counting method {method!r}")
+
+
+def split_rows(rows, n: int) -> list:
+    """A chunk's (codes, lengths, skip, stopped, groups, fresh) split into
+    ``n`` equal row blocks, one per device, after padding the rows to a
+    multiple of ``n`` with zero-length, unstopped, fresh rows that count
+    nothing (bear_tpu's pad, parallel/counting.py:185-194)."""
+    codes, lengths, skip, stopped, groups, fresh = (
+        None if a is None else np.asarray(a) for a in rows)
+    B, L = codes.shape
+    pad = (-B) % n
+    if pad:
+        codes = np.concatenate([codes, np.zeros((pad, L), codes.dtype)])
+        lengths = np.concatenate([lengths, np.zeros(pad, lengths.dtype)])
+        skip = np.concatenate([skip, np.zeros(pad, skip.dtype)])
+        stopped = np.concatenate([stopped, np.zeros(pad, bool)])
+        groups = np.concatenate([groups, np.zeros(pad, groups.dtype)])
+        if fresh is not None:
+            fresh = np.concatenate([fresh, np.ones(pad, bool)])
+    Bl = (B + pad) // n
+    return [tuple(None if a is None else a[d * Bl : (d + 1) * Bl]
+                  for a in (codes, lengths, skip, stopped, groups, fresh))
+            for d in range(n)]
+
+
+class ShardedTransitionCounter(TransitionCounter):
+    """Counting with each chunk's rows split over the ``data`` axis of a
+    mesh: the multi-device form of TransitionCounter.
+
+    Every device counts its block of rows (a chunk padded to a multiple of
+    the axis size) into its own int32 replica of the dense table; a flush
+    sums the replicas on the first device, exact in int32 below
+    FLUSH_EVERY transitions, and folds the sum into the int64 host tables.
+    The host side (``tables``, ``validate``, ``nonzero_rows``,
+    ``export_tsv``, ``to_dataset``, ...) is TransitionCounter's.
+
+    method : accepted for bear_tpu's signature and ignored (one kernel).
+    """
+
+    def __init__(self, mesh: Mesh, lags: Sequence[int], n_groups: int = 1,
+                 reverse: bool = False, axis: str = "data", method: str = "auto",
+                 alphabet: str = "dna"):
+        check_method(method)
+        A = _alpha.alphabet_size(alphabet)
+        lags = tuple(sorted(set(int(l) for l in lags)))
+        if reverse and A != 4:
+            raise ValueError("reverse-complement counting requires a 4-letter alphabet")
+        check_context_codes(lags, A)
+        _, total = lag_offsets(lags, n_groups, A)
+        if padded_size(total) > _INT32_MAX:
+            raise ValueError(
+                f"concatenated count table has {padded_size(total):,} entries "
+                "(window-padded), beyond int32 indexing — split the lags across counters")
+        self.mesh = mesh
+        self.axis = axis
+        self._replica_devices = mesh.along(axis)
+        self.n_dev = len(self._replica_devices)
+        self.method = method
+        super().__init__(lags, n_groups=n_groups, reverse=reverse, alphabet=alphabet,
+                         device=self._replica_devices[0])
+        self._parts: Optional[list] = None  # one int32 table per replica
+        self._staging = [[] for _ in range(self.n_dev)]
+
+    def _add(self, codes, lengths, skip, stopped, groups, fresh=None):
+        blocks = split_rows((codes, lengths, skip, stopped, groups, fresh), self.n_dev)
+        new_transitions = self.n_dev * blocks[0][0].shape[0] * (blocks[0][0].shape[1] + 1)
+        if self._since_flush + new_transitions > self.FLUSH_EVERY:
+            self.flush()
+        if self._parts is None:
+            self._parts = [torch.zeros(self._total_size, dtype=torch.int32,
+                                       device=resolve_device(dev))
+                           for dev in self._replica_devices]
+        for table, staging, rows in zip(self._parts, self._staging, blocks):
+            codes_t, meta_t = upload_chunk(staging, table.device, *rows)
+            count_chunk_update(table, codes_t, meta_t, self.lags, self.n_groups, self.A)
+        self._since_flush += new_transitions
+
+    def flush(self):
+        """Sum the replicas into the first (int32, exact below FLUSH_EVERY),
+        fold the sum into the host tables and zero every replica."""
+        if self._parts is not None and self._since_flush > 0:
+            total = self._parts[0]
+            for part in self._parts[1:]:
+                total += part.to(total.device)
+            self._fold(total)
+            for part in self._parts:
+                part.zero_()
+            self._since_flush = 0
+            self._host_dirty = True
+
+    def sync(self):
+        """Block until every replica's queued counting work has completed."""
+        for part in self._parts or []:
+            if part.is_cuda:
+                torch.cuda.synchronize(part.device)
+
+    def partial_tables(self) -> list:
+        """The replicas' int32 device tables since the last flush (None
+        before the first chunk), in the axis's order."""
+        return self._parts
+
+
 class KmerShardedTransitionCounter:
     """Transition counting with each lag's table split into row ranges and a
     sparse int64 host accumulator.
 
     lags, n_groups, alphabet : as for TransitionCounter.
-    n_shards : row ranges (cards) the table is split over; only 1 is ported.
+    mesh, axis : the row ranges go over the ``axis`` devices of ``mesh``,
+        shard d on the device at position d. Without a mesh the counter
+        holds one row range (the whole table) on ``device``.
+    n_shards : without a mesh only 1 (the one-device form); with one, 1 or
+        the axis's size.
     method : accepted for bear_tpu's signature and ignored (one kernel).
-    device : where the row range's table lives and the kernel runs.
     """
 
     FLUSH_EVERY = FLUSH_EVERY
 
     def __init__(self, lags: Sequence[int], n_groups: int = 1, n_shards: int = 1,
-                 method: str = "auto", alphabet: str = "dna", device="cuda"):
-        if method not in ("auto", "scatter", "sorted"):
-            raise ValueError(f"unknown counting method {method!r}")
-        if n_shards > 1:
-            not_ported_multi_card(f"a count table split over {n_shards} cards")
+                 method: str = "auto", alphabet: str = "dna", device="cuda",
+                 mesh: Optional[Mesh] = None, axis: str = "kmer"):
+        check_method(method)
+        if mesh is None and n_shards > 1:
+            raise ValueError(
+                f"a count table split over {n_shards} row ranges needs as many devices: "
+                f"pass mesh= (a Mesh with a {axis!r} axis of that size), or count in "
+                "row-range passes on one device (counting.multipass)")
+        if mesh is not None and n_shards not in (1, mesh.shape[axis]):
+            raise ValueError(f"n_shards={n_shards}, but mesh axis {axis!r} has "
+                             f"{mesh.shape[axis]} devices")
         self.alphabet = alphabet
         self.A = _alpha.alphabet_size(alphabet)
         self.A1 = self.A + 1
@@ -92,8 +213,16 @@ class KmerShardedTransitionCounter:
         check_context_codes(self.lags, self.A)
         self.n_groups = n_groups
         self.method = method
-        self.device = torch.device(device)
-        self._init_row_split(1, "use more devices on the kmer axis")
+        self.mesh = mesh
+        self.axis = axis
+        if mesh is None:
+            self.device = torch.device(device)
+            self.n_dev = 1
+        else:
+            self._slice_devices = mesh.along(axis)
+            self.device = self._slice_devices[0]
+            self.n_dev = len(self._slice_devices)
+        self._init_row_split(self.n_dev, "use more devices on the kmer axis")
 
     def _init_row_split(self, n_shards: int, remedy: str):
         """Per-lag row ranges over ``n_shards`` (shard d owns rows
@@ -117,10 +246,10 @@ class KmerShardedTransitionCounter:
         self._sparse: Dict[int, list] = {l: [] for l in self.lags}
         self._consolidated_lags: set = set()  # lags whose one part is unique + sorted
         self._grk_cache: Dict[int, tuple] = {}  # lag -> (keys, g, r, k)
-        self._dev: Optional[torch.Tensor] = None
+        self._dev: Optional[list] = None  # one int32 row-range table per slice
         self._since_flush = 0
         self._shard = 0
-        self._staging: list = []
+        self._staging: dict = {}  # device -> its two pinned staging sets
 
     @property
     def max_lag(self) -> int:
@@ -128,44 +257,56 @@ class KmerShardedTransitionCounter:
 
     @property
     def table_size(self) -> int:
-        """Entries of the int32 device table (one row range, all lags)."""
+        """Entries of one slice's int32 device table (one row range, all
+        lags)."""
         return self._local_size
 
     # --- device side ------------------------------------------------------
 
-    def _ensure_dev(self):
-        if self._dev is None:
-            self._dev = torch.zeros(self._local_size, dtype=torch.int32,
-                                    device=resolve_device(self.device))
+    def _placement(self) -> list:
+        """(row range, device) of each table slice the counter holds."""
+        if self.mesh is None:
+            return [(self._shard, self.device)]
+        return list(enumerate(self._slice_devices))
 
     def add_chunk(self, chunk: ReadChunk):
-        """Count a chunk's transitions whose context row lies in the current
-        row range (one count_chunk launch on the card)."""
+        """Count a chunk's transitions into every slice: one count_chunk
+        launch per slice, each keeping the transitions of its own rows. The
+        chunk goes to each distinct device once."""
         check_groups(chunk.groups, self.n_groups)
         codes = np.asarray(chunk.codes)
         new_transitions = codes.shape[0] * (codes.shape[1] + 1)
         if self._since_flush + new_transitions > self.FLUSH_EVERY:
             self.flush()
-        self._ensure_dev()
-        codes_t, meta_t = upload_chunk(self._staging, self._dev.device, codes, chunk.lengths,
-                                       chunk.skip, chunk.stopped, chunk.groups, chunk.fresh)
-        count_chunk_update(self._dev, codes_t, meta_t, self.lags, self.n_groups, self.A,
-                           shard=(self._shard, self._per_lag))
+        placement = self._placement()
+        if self._dev is None:
+            self._dev = [torch.zeros(self._local_size, dtype=torch.int32,
+                                     device=resolve_device(dev)) for _, dev in placement]
+        uploads = {}
+        for (d, _), table in zip(placement, self._dev):
+            if table.device not in uploads:
+                uploads[table.device] = upload_chunk(
+                    self._staging.setdefault(table.device, []), table.device, codes,
+                    chunk.lengths, chunk.skip, chunk.stopped, chunk.groups, chunk.fresh)
+            count_chunk_update(table, *uploads[table.device], self.lags, self.n_groups,
+                               self.A, shard=(d, self._per_lag))
         self._since_flush += new_transitions
 
     def flush(self):
-        """Drain the device table's nonzero entries into the host accumulator
-        (global keys) and drop the table."""
+        """Drain each slice's nonzero entries, on its own device, into the
+        host accumulator (global keys) and drop the slices."""
         if self._dev is None or self._since_flush == 0:
             return
-        self._drain_part(self._dev, self._shard)
+        for (d, _), part in zip(self._placement(), self._dev):
+            self._drain_part(part, d)
         self._dev = None
         self._since_flush = 0
 
     def sync(self):
         """Block until all queued device counting work has completed."""
-        if self._dev is not None and self._dev.is_cuda:
-            torch.cuda.synchronize(self._dev.device)
+        for part in self._dev or []:
+            if part.is_cuda:
+                torch.cuda.synchronize(part.device)
 
     def _drain_part(self, part: torch.Tensor, d: int):
         """Decompose one row range's nonzero local entries into GLOBAL int64

@@ -24,8 +24,8 @@ Semantics kept:
   the AR network in that type (``RunConfig.compute_dtype``) while the
   parameters and the likelihood stay in ``precision``.
 
-Not ported yet, and refused when asked for: ``data_parallel`` (several
-cards, ROADMAP.md Queue 1 item 13).
+Not ported yet, and refused when asked for: ``data_parallel`` (training
+over a mesh, ROADMAP.md Queue 1 item 13, half 2).
 """
 
 from __future__ import annotations
@@ -191,5 +191,5 @@ def _refuse_not_ported(tr) -> None:
     """Raise on the bear_tpu extension the port does not have yet."""
     if tr.get("data_parallel", "False") == "True":
         raise NotImplementedError(
-            "[train] data_parallel = True needs several cards, not ported to PyTorch yet; "
-            "see ROADMAP.md Queue 1 item 13")
+            "[train] data_parallel = True (training over a mesh) is not ported to PyTorch "
+            "yet; see ROADMAP.md Queue 1 item 13, half 2 (slice 10)")

@@ -92,6 +92,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against float32 from the same start (last ELBO within 1%, float32
    probabilities summing to 1), with one bfloat16 run traced by
    utils.profiling.trace; the three timed by utils.profiling.StageTimer;
+4i. counting across devices and processes, one card playing every device
+   of each mesh: (S) count -> serve's chunks through
+   ShardedTransitionCounter with rows split over 2 replicas of the lag-13
+   table (each replica after chunk 0 against count_chunk_plain on its
+   rows, the tables against phase 4's, 2 launches per chunk, rates beside
+   phase 4's and the idle share); (T) (G)'s files at lags 1..14 through
+   KmerShardedTransitionCounter over 3 row ranges (the int32 reckoning: 2
+   refused), summarize's iter_chunks and export, shards of lags 1..13
+   byte for byte against 4e's and of lag 14 against summarize -l 14
+   --passes 3, 3 launches per chunk, and summarize --kmer-shards 3 refused
+   on one card; (U) (M)'s -l 20 through SparseTransitionCounter with rows
+   over 2 replicas, every shard against (M)'s; (V) two processes on the
+   card joined by multihost.initialize over TCP on 127.0.0.1, each
+   counting its host_shard of count -> serve's chunks (lag 13) and of
+   (G)'s files (-l 20), merged twice by allreduce_tables, every rank's
+   tables against phase 4's and (U)'s (python3 chip_smoke.py --child
+   SPEC RANK runs one process; a child that fails or outlasts its timeout
+   fails the run);
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -220,6 +238,17 @@ OPT_TIMED_APPLIES = 1000
 BF16_EPOCHS = 3  # 108 applies of 2^15 rows on 4c's 1,158,428
 BF16_LOSS_RTOL = 1e-2
 BF16_SUM_ATOL = 1e-5
+# Phase 4i: counting across devices and processes. One card plays each mesh:
+# (S) count -> serve's chunks split by rows over 2 replicas of the lag-13
+# table; (T) (G)'s files at lags 1..14 over 3 row ranges (1.59e9 int32
+# entries each; 2 would need 2.39e9, past the int32 guard); (U) (M)'s lag-20
+# count with rows over 2 replicas; (V) 2 processes on the card, merged over
+# gloo. Every result is held exactly.
+MESH_DATA = 2
+MESH_ROWS = 3
+MESH_ROW_LAG = 14
+MESH_PROCS = 2
+CHILD_TIMEOUT_S = 600
 
 
 def ysd1_config(out_folder):
@@ -2383,6 +2412,411 @@ def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn
             print(f"[bf16]   {us / 1e3:9.4f} ms {e.count:5d}x {e.key[:90]}")
 
 
+def refused(fn, match):
+    """The message of the ValueError ``fn()`` raises, which must contain
+    ``match``; a call that does not raise it fails the run."""
+    try:
+        fn()
+    except ValueError as e:
+        if match in str(e):
+            return str(e)
+        raise
+    raise RuntimeError(f"expected a ValueError with {match!r}; the call returned")
+
+
+def mesh_of(device, n, axis):
+    """A 1-D mesh that names ``device`` (the card, or the CPU) n times."""
+    import torch
+    from bear_tpu_torch.parallel import Mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", 0)
+    return Mesh([dev] * n, (axis,))
+
+
+def mem_available_gb():
+    """The host's MemAvailable from /proc/meminfo, in GB."""
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def data_sharded_breakdown(chunks, card, lag=LAG, shards=MESH_DATA):
+    """The device's idle share while 4i (S)'s data-split counter counts 4
+    chunks, profiled beside phase 4's counter: late in the script the
+    profiler recorded no device time for this window (the same window in a
+    fresh process, or after 4h's trace there, does record it)."""
+    from bear_tpu_torch.parallel import ShardedTransitionCounter
+
+    prof = ShardedTransitionCounter(mesh_of("cuda", shards, "data"), [lag], n_groups=N_GROUPS)
+    for chunk in chunks[:2]:
+        prof.add_chunk(chunk)
+
+    def four():
+        for chunk in chunks[2:6]:
+            prof.add_chunk(chunk)
+        prof.sync()
+
+    device_breakdown(f"(S) data-sharded count, 4 chunks x {shards} replicas (phase 4i's "
+                     "counter)", four, card)
+
+
+def data_sharded_phase(chunks, want_rows, want_counts, single_s, card, device="cuda",
+                       lag=LAG, shards=MESH_DATA):
+    """4i (S): count -> serve's chunks through ShardedTransitionCounter on a
+    mesh that names the card ``shards`` times (one int32 replica of the
+    lag-``lag`` table each). Checks each replica after chunk 0 against
+    count_chunk_plain on that replica's rows, one count_chunk launch per
+    replica per chunk, conservation, and the summed tables against phase
+    4's nonzero rows and counts exactly; rates against phase 4's
+    ``single_s`` (its idle share: :func:`data_sharded_breakdown`).
+    Returns (launches, s)."""
+    import torch
+    from bear_tpu_torch.counting.count_chunk import (count_chunk_plain, count_chunk_update,
+                                                     pack_meta)
+    from bear_tpu_torch.parallel import ShardedTransitionCounter
+    from bear_tpu_torch.parallel.counting import split_rows
+
+    t_start = time.perf_counter()
+    mesh = mesh_of(device, shards, "data")
+    expected = sum(int(c.lengths.sum()) + int(c.stopped.sum()) for c in chunks)
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    counter = ShardedTransitionCounter(mesh, [lag], n_groups=N_GROUPS)
+    counter.add_chunk(chunks[0])
+    counter.sync()
+    first_s = time.perf_counter() - t0
+    c0 = chunks[0]
+    blocks = split_rows((c0.codes, c0.lengths, c0.skip, c0.stopped, c0.groups, c0.fresh),
+                        shards)
+    for d, (part, (codes, *rows)) in enumerate(zip(counter.partial_tables(), blocks)):
+        want = torch.zeros_like(part)
+        count_chunk_plain(want, torch.from_numpy(np.ascontiguousarray(codes)).to(part.device),
+                          torch.from_numpy(pack_meta(*rows)).to(part.device), (lag,), N_GROUPS, 4)
+        check(torch.equal(part, want), f"(S) replica {d} after chunk 0 differs from "
+              f"count_chunk_plain on its {len(codes):,} rows")
+        del want
+    print(f"[4i] (S) chunk 0 ({len(c0.codes):,} rows) split over {shards} replicas on "
+          f"{device}: each replica's table == count_chunk_plain on its "
+          f"{len(blocks[0][0]):,} rows, exactly")
+    t0 = time.perf_counter()
+    for chunk in chunks[1:]:
+        counter.add_chunk(chunk)
+    counter.sync()
+    count_s = first_s + time.perf_counter() - t0
+    launches = count_chunk_update.launches
+    on_card = torch.device(device).type == "cuda"
+    check(launches == (shards * len(chunks) if on_card else 0),
+          f"(S) launched count_chunk {launches} times for {len(chunks)} chunks x {shards}")
+    t0 = time.perf_counter()
+    counter.validate(expected)
+    rows = counter.nonzero_rows(lag)
+    check(np.array_equal(rows, want_rows)
+          and np.array_equal(counter.row_counts(lag, rows), want_counts),
+          f"(S) tables ({len(rows):,} rows) differ from phase 4's ({len(want_rows):,})")
+    read_s = time.perf_counter() - t0
+    print(f"[4i] (S) ShardedTransitionCounter, {shards} replicas of {4 * counter.table_size:,} "
+          f"bytes on {device}: {len(chunks)} chunks, {launches} count_chunk launches; "
+          f"{expected:,} transitions conserved; tables == phase 4's exactly "
+          f"({len(rows):,} rows, both groups; flush and read {read_s:.3f} s)")
+    print(f"[4i] (S) count {count_s:.4f} s = {expected / count_s:.6g} transitions/s; phase 4's "
+          f"TransitionCounter in this run {single_s:.4f} s = {expected / single_s:.6g} "
+          f"transitions/s ({single_s / count_s:.3f}x) [{card}]")
+    return launches, time.perf_counter() - t_start
+
+
+def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
+                    lag=MESH_ROW_LAG, shards=MESH_ROWS, passes=MESH_ROWS):
+    """4i (T): (G)'s FASTQ files through KmerShardedTransitionCounter on a
+    mesh that names the card ``shards`` times (a ``kmer`` axis: every slice
+    takes the whole chunk, one row-range count_chunk launch each) at lags
+    1..``lag``, with summarize's own iter_chunks and export_tsv and -mf set
+    for 4e's shard count. Checks the int32 guard's reckoning (two slices
+    refused), one launch per slice per chunk, conservation, the nonzero
+    rows against the plain recount, lags 1..dense_lag byte for byte against
+    4e's shards and lag ``lag`` against summarize -l ``lag`` --passes
+    ``passes``; then the one-card refusal of summarize --kmer-shards.
+    Returns ({path: launches}, s)."""
+    import shutil
+
+    import torch
+    from bear_tpu_torch.counting import fastx, summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.parallel import KmerShardedTransitionCounter
+
+    t_start = time.perf_counter()
+    lags = range(1, lag + 1)
+    # The int32 guard's reckoning at MESH_ROW_LAG (no table is allocated
+    # before the first chunk): MESH_ROWS slices fit, one fewer does not.
+    full = range(1, MESH_ROW_LAG + 1)
+    reason = refused(lambda: KmerShardedTransitionCounter(
+        full, n_groups=N_GROUPS, mesh=mesh_of(device, MESH_ROWS - 1, "kmer")), "int32 indexing")
+    fits = KmerShardedTransitionCounter(full, n_groups=N_GROUPS,
+                                        mesh=mesh_of(device, MESH_ROWS, "kmer")).table_size
+    print(f"[4i] (T) lags 1..{MESH_ROW_LAG} x {N_GROUPS} groups: {fits:,} int32 entries "
+          f"({4 * fits:,} bytes) per slice over {MESH_ROWS} slices; {MESH_ROWS - 1} slices "
+          f"refused: {reason}")
+    counter = KmerShardedTransitionCounter(lags, n_groups=N_GROUPS,
+                                           mesh=mesh_of(device, shards, "kmer"))
+    entries = fastx.read_input_csv(s_run["csv"])
+    stats = {}
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    for chunk in summarize.iter_chunks(entries, lag, stats=stats):
+        counter.add_chunk(chunk)
+        stats["chunks"] = stats.get("chunks", 0) + 1
+    counter.sync()
+    count_s = time.perf_counter() - t0
+    launches = count_chunk_update.launches
+    on_card = torch.device(device).type == "cuda"
+    check(launches == (shards * stats["chunks"] if on_card else 0),
+          f"(T) launched count_chunk {launches} times for {stats['chunks']} chunks x {shards}")
+    per_lag = stats["bases"] + stats["reads"]
+    t0 = time.perf_counter()
+    counter.validate(expected_transitions=per_lag)
+    rows = {l: counter.nonzero_rows(l) for l in lags}
+    check({l: len(r) for l, r in rows.items()} == {l: ref_rows[l] for l in lags},
+          f"(T) nonzero rows per lag differ from the plain recount's")
+    mf = float(mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"]))
+    bits = summarize.compute_n_bin_bits(sum(len(r) for r in rows.values()), N_GROUPS, mf)
+    check(2**bits == s_run["n_bins"], f"(T) {2**bits} shards per lag, 4e wrote {s_run['n_bins']}")
+    prefix = os.path.join(work, "row_split", "run")
+    os.makedirs(os.path.dirname(prefix))
+    for l in lags:
+        counter.export_tsv(prefix, l, bits, rows=rows[l])
+    export_s = time.perf_counter() - t0
+    n_dense = same_shards(s_run["prefix"], prefix, range(1, dense_lag + 1))
+    del counter
+    _, run, passes_launches, passes_s = summarize_run(
+        s_run["csv"], os.path.join(work, "row_split_passes", "run"),
+        ["-l", str(lag), "--passes", str(passes), "-mf", repr(mf)], device)
+    n_last = same_shards(os.path.join(work, "row_split_passes", "run"), prefix, [lag])
+    print(f"[4i] (T) KmerShardedTransitionCounter, {shards} row ranges on {device}: "
+          f"{stats['chunks']} chunks, {launches} count_chunk launches; {per_lag:,} transitions "
+          f"per lag x {lag} lags conserved; nonzero rows per lag == the plain recount's; "
+          f"{n_dense} shards of lags 1..{dense_lag} == 4e's and {n_last} of lag {lag} == "
+          f"summarize -l {lag} --passes {passes}'s ({passes_launches} launches, {passes_s:.3f} s), "
+          "byte for byte")
+    print(f"[4i] (T) count {count_s:.4f} s = {lag * per_lag / count_s:.6g} transitions/s over "
+          f"all {lag} lags ({per_lag / count_s:.6g} per lag), drain and export "
+          f"{export_s:.3f} s [{card}]")
+    n = max(3, torch.cuda.device_count() + 1)
+    args = summarize.build_parser().parse_args(
+        [s_run["csv"], os.path.join(work, "refused", "run"), "-l", str(lag),
+         "--kmer-shards", str(n)])
+    reason = refused(lambda: summarize.main(args),
+                     f"needs that many devices; have {torch.cuda.device_count()}")
+    print(f"[4i] summarize --kmer-shards {n} on the card's machine is refused: {reason}")
+    shutil.rmtree(os.path.dirname(prefix))
+    shutil.rmtree(os.path.join(work, "row_split_passes"))
+    return {"row_split": launches, "row_split_passes": passes_launches}, \
+        time.perf_counter() - t_start
+
+
+def sparse_mesh_phase(s_run, ref_rows, m_prefix, work, card, device="cuda", lag=SPARSE_LAG,
+                      shards=MESH_DATA, profile_chunks=32):
+    """4i (U): (M)'s ``-l lag`` count through SparseTransitionCounter on a
+    mesh that names the card ``shards`` times (rows of every chunk split
+    over a ``data`` axis, key buffers and window sorts per replica), with
+    summarize's iter_chunks and export and (M)'s -mf. Checks conservation
+    and every shard byte for byte against (M)'s. Then the host side of the
+    first ``profile_chunks`` chunks counted (and drained) by the counter
+    without a mesh and with it, in turn (cProfile). Returns (the counter,
+    s)."""
+    import itertools
+    import shutil
+
+    from bear_tpu_torch.counting import fastx, summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    t_start = time.perf_counter()
+    lags = range(1, lag + 1)
+    counter = SparseTransitionCounter(lags, n_groups=N_GROUPS,
+                                      mesh=mesh_of(device, shards, "data"))
+    stats = {}
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    for chunk in summarize.iter_chunks(fastx.read_input_csv(s_run["csv"]), lag, stats=stats):
+        counter.add_chunk(chunk)
+    counter.sync()
+    count_s = time.perf_counter() - t0
+    check(count_chunk_update.launches == 0, "(U) the sparse-first path launched count_chunk")
+    per_lag = stats["bases"] + stats["reads"]
+    t0 = time.perf_counter()
+    counter.validate(expected_transitions=per_lag)
+    rows = {l: counter.nonzero_rows(l) for l in lags}
+    mf = float(mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"]))
+    bits = summarize.compute_n_bin_bits(sum(len(r) for r in rows.values()), N_GROUPS, mf)
+    prefix = os.path.join(work, "sparse_mesh", "run")
+    os.makedirs(os.path.dirname(prefix))
+    for l in lags:
+        counter.export_tsv(prefix, l, bits, rows=rows[l])
+    export_s = time.perf_counter() - t0
+    n_files = same_shards(m_prefix, prefix, lags)
+    shutil.rmtree(os.path.dirname(prefix))
+    print(f"[4i] (U) SparseTransitionCounter, rows over {shards} replicas on {device} "
+          f"(key buffers {4 * counter.table_size:,} bytes in all): {per_lag:,} transitions per "
+          f"lag x {lag} lags conserved; all {n_files} shards == (M)'s, byte for byte; count "
+          f"{count_s:.3f} s = {lag * per_lag / count_s:.6g} transitions/s over all {lag} lags, "
+          f"export {export_s:.3f} s; no count_chunk launch [{card}]")
+    if profile_chunks:
+        some = list(itertools.islice(summarize.iter_chunks(
+            fastx.read_input_csv(s_run["csv"]), lag), profile_chunks))
+        for mesh in (None, mesh_of(device, shards, "data")):
+            def count_some():
+                tc = SparseTransitionCounter(lags, n_groups=N_GROUPS, mesh=mesh, device=device)
+                for chunk in some:
+                    tc.add_chunk(chunk)
+                tc.flush()
+            host_breakdown(f"(U) {len(some)} chunks, lags 1..{lag}, "
+                           f"{'one device' if mesh is None else f'{shards} replicas'}", count_some)
+    return counter, time.perf_counter() - t_start
+
+
+def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, device="cuda",
+                      procs=MESH_PROCS, reads_kw=None, rows=CHUNK_ROWS, lag=LAG,
+                      sparse_lag=SPARSE_LAG, timeout=CHILD_TIMEOUT_S, threads=None):
+    """4i (V): ``procs`` processes on the card, joined by multihost.initialize
+    over TCP on 127.0.0.1. Each counts its host_shard of count -> serve's
+    chunks at lag ``lag`` (dense), then of (G)'s FASTQ files at lags
+    1..``sparse_lag`` (sparse-first), calling allreduce_tables twice after
+    each (:func:`child`). Checks that every child exits 0 within
+    ``timeout``, that the second merge changed nothing (in the child),
+    and that every rank's merged tables equal phase 4's nonzero rows and
+    counts and ``sparse_ref``'s keys and counts (the one-process count
+    whose shards equal (M)'s). Returns (count_chunk launches, s)."""
+    import socket
+    import subprocess
+
+    t_start = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec_path = os.path.join(work, "two_process.json")
+    outs = [os.path.join(work, f"rank{r}.npz") for r in range(procs)]
+    with open(spec_path, "w") as fh:
+        json.dump(dict(port=port, procs=procs, device=device, reads=reads_kw or {}, rows=rows,
+                       lag=lag, sparse_lag=sparse_lag, csv=s_run["csv"], outs=outs,
+                       timeout=timeout, threads=threads), fh)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    script = os.path.abspath(__file__)
+    children = [subprocess.Popen([sys.executable, script, "--child", spec_path, str(r)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                 env=env)
+                for r in range(procs)]
+    deadline = time.perf_counter() + timeout
+    try:
+        logs = [c.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+                for c in children]
+    finally:
+        for c in children:  # a child that hangs is killed; the run fails below
+            if c.poll() is None:
+                c.kill()
+                c.communicate()
+    for r, (c, log) in enumerate(zip(children, logs)):
+        for line in log.splitlines():
+            print(f"[4i] (V) rank {r}: {line}")
+        check(c.returncode == 0, f"(V) rank {r} exited {c.returncode}")
+    reports = []
+    for r, out in enumerate(outs):
+        with np.load(out) as got:
+            check(np.array_equal(got["dense_rows"], want_rows)
+                  and np.array_equal(got["dense_counts"], want_counts),
+                  f"(V) rank {r}'s merged lag-{lag} table differs from phase 4's")
+            for l in range(1, sparse_lag + 1):
+                keys, vals = sparse_ref._consolidated(l)
+                check(np.array_equal(got[f"keys_{l}"], keys)
+                      and np.array_equal(got[f"vals_{l}"], vals),
+                      f"(V) rank {r}'s merged lag-{l} counts differ from the one-process count")
+            reports.append(json.loads(str(got["report"])))
+        os.remove(out)
+    launches = sum(rep["launches"] for rep in reports)
+    print(f"[4i] (V) {procs} processes: every rank's merged tables == phase 4's lag-{lag} "
+          f"table ({len(want_rows):,} rows) and the one-process lag 1..{sparse_lag} counts "
+          f"(whose shards are (M)'s), exactly; {launches} count_chunk launches in all; merge "
+          f"s by rank (dense first, second; sparse first, second) "
+          f"{[rep['merge_s'] for rep in reports]} [{card}]")
+    return launches, time.perf_counter() - t_start
+
+
+def child(spec_path, rank):
+    """One process of 4i (V); see :func:`two_process_phase`."""
+    import torch
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    if spec["threads"]:
+        torch.set_num_threads(spec["threads"])
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from bear_tpu_torch.counting import engine, fastx, summarize
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+    from bear_tpu_torch.parallel import multihost
+
+    multihost.initialize(f"127.0.0.1:{spec['port']}", spec["procs"], rank,
+                         timeout_s=spec["timeout"])
+    check(multihost.process_count() == spec["procs"], "the group has another size")
+    device, lag = spec["device"], spec["lag"]
+    reads, groups = make_reads(**spec["reads"])
+    chunks = multihost.host_shard(list(read_chunks(reads, groups, rows=spec["rows"])))
+    t0 = time.perf_counter()
+    dense = engine.TransitionCounter([lag], n_groups=N_GROUPS, device=device)
+    for chunk in chunks:
+        dense.add_chunk(chunk)
+    dense.sync()
+    count_s = time.perf_counter() - t0
+    entries = dense.n_groups * engine.table_rows(lag) * dense.A1
+    print(f"{len(chunks)} of the chunks counted at lag {lag} on {device} in {count_s:.3f} s; "
+          f"the merge holds the table, its baseline and the delta in host int64: "
+          f"3 x {8 * entries / 1e9:.2f} GB = {24 * entries / 1e9:.2f} GB; host MemAvailable "
+          f"{mem_available_gb():.2f} GB")
+    merge_s = []
+    answers = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        multihost.allreduce_tables(dense)
+        merge_s.append(round(time.perf_counter() - t0, 3))
+        rows = dense.nonzero_rows(lag)
+        answers.append((rows, dense.row_counts(lag, rows)))
+    check(all(np.array_equal(a, b) for a, b in zip(*answers)),
+          "the second dense merge changed the table")
+    dense.validate(len(reads) * (reads.shape[1] + 1))
+    launches = count_chunk_update.launches
+    del dense
+
+    files = multihost.host_shard(fastx.read_input_csv(spec["csv"]))
+    sparse = SparseTransitionCounter(range(1, spec["sparse_lag"] + 1), n_groups=N_GROUPS,
+                                     device=device)
+    stats = {}
+    t0 = time.perf_counter()
+    for chunk in summarize.iter_chunks(files, spec["sparse_lag"], stats=stats):
+        sparse.add_chunk(chunk)
+    sparse.flush()
+    count_s = time.perf_counter() - t0
+    total = multihost.allreduce_sum_i64([stats["bases"] + stats["reads"]])
+    got = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        multihost.allreduce_tables(sparse)
+        merge_s.append(round(time.perf_counter() - t0, 3))
+        got.append({l: sparse._consolidated(l) for l in sparse.lags})
+    check(all(np.array_equal(a, b) for l in sparse.lags for a, b in zip(got[0][l], got[1][l])),
+          "the second sparse merge changed the counts")
+    sparse.validate(expected_transitions=int(total[0]))
+    print(f"{len(files)} of the FASTQ files counted at lags 1..{spec['sparse_lag']} "
+          f"(sparse-first) in {count_s:.3f} s; merges {merge_s} s; both merges' results equal")
+    np.savez(spec["outs"][rank], dense_rows=answers[0][0], dense_counts=answers[0][1],
+             report=json.dumps({"launches": launches, "merge_s": merge_s}),
+             **{f"{k}_{l}": a for l, (keys, vals) in got[1].items()
+                for k, a in (("keys", keys), ("vals", vals))})
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2623,8 +3057,9 @@ def main() -> int:
 
     device_breakdown("count, 4 chunks", count_four(2), card)
     host_breakdown("count, 4 chunks", count_four(10))
-    device_breakdown(f"serve, {len(seqs)} reads", lambda: server.score(seqs), card)
     del prof_counter
+    data_sharded_breakdown(chunks, card)
+    device_breakdown(f"serve, {len(seqs)} reads", lambda: server.score(seqs), card)
     torch.cuda.empty_cache()
 
     ar64 = LinearAR(LAG, 4, dtype=torch.float64, device="cpu")
@@ -2736,15 +3171,15 @@ def main() -> int:
         del sparse_counter
         torch.cuda.empty_cache()
         t_4g.append(time.perf_counter())
-    # 4h. the remaining model options: (P) attention BEAR through the CLI,
-    # (Q) the seven optax optimizers, (R) bfloat16 compute on 4c's handoff;
-    # none of them counts, so count_chunk's launches here stay 0
-    from bear_tpu_torch.utils.profiling import StageTimer
 
-    count_chunk_update.launches = 0
-    window_update.launches = 0
-    timer = StageTimer()
-    with tempfile.TemporaryDirectory() as tmp:
+        # 4h. the remaining model options: (P) attention BEAR through the CLI,
+        # (Q) the seven optax optimizers, (R) bfloat16 compute on 4c's handoff;
+        # none of them counts, so count_chunk's launches here stay 0
+        from bear_tpu_torch.utils.profiling import StageTimer
+
+        count_chunk_update.launches = 0
+        window_update.launches = 0
+        timer = StageTimer()
         with timer.stage("(P) attention"):
             attention_phase(os.path.join(tmp, "attn"), card)
         torch.cuda.empty_cache()
@@ -2753,18 +3188,37 @@ def main() -> int:
         torch.cuda.empty_cache()
         with timer.stage("(R) bfloat16"):
             bf16_phase(codes_d, counts_d, n_rows, os.path.join(tmp, "trace"), card)
-    del codes_d, counts_d
-    torch.cuda.empty_cache()
-    print(f"[4h] phase 4h {sum(t for _, t in timer.stages):.3f} s: "
-          + ", ".join(f"{n} {t:.3f} s" for n, t in timer.stages)
-          + f" (StageTimer; checks and CPU references included); kernel launches in 4h: "
-          f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches} "
-          f"(the options are PyTorch ops) [{card}]")
+        del codes_d, counts_d
+        torch.cuda.empty_cache()
+        print(f"[4h] phase 4h {sum(t for _, t in timer.stages):.3f} s: "
+              + ", ".join(f"{n} {t:.3f} s" for n, t in timer.stages)
+              + f" (StageTimer; checks and CPU references included); kernel launches in 4h: "
+              f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches} "
+              f"(the options are PyTorch ops) [{card}]")
+
+        # 4i. counting across devices and processes, in 4e's directory: (S)
+        # the data-sharded counter, (T) the row-split counter, (U) the sparse
+        # counter's mesh=, (V) two processes merged by allreduce_tables; each
+        # path's count_chunk launches counted from 0 just before it
+        t_4i = time.perf_counter()
+        launches_s, s_s = data_sharded_phase(chunks, p4_rows, p4_counts, count_s, card)
+        torch.cuda.empty_cache()
+        launches_t, t_s = row_split_phase(s_run, ref_rows, work, card)
+        torch.cuda.empty_cache()
+        mesh_counter, u_s = sparse_mesh_phase(s_run, ref_rows, os.path.join(work, "sparse", "run"),
+                                              work, card)
+        torch.cuda.empty_cache()
+        launches_v, v_s = two_process_phase(s_run, p4_rows, p4_counts, mesh_counter, work, card)
+        del mesh_counter
+        print(f"[4i] phase 4i {time.perf_counter() - t_4i:.3f} s: (S) {s_s:.3f} s, (T) "
+              f"{t_s:.3f} s, (U) {u_s:.3f} s, (V) {v_s:.3f} s (checks included); count_chunk "
+              f"launches (S) {launches_s}, (T) {launches_t}, (V) {launches_v} [{card}]")
 
     count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
                "ref_recount": ref_launches, **lag_launches, **asm_launches,
-               "multipass": p_run["launches"], "lag_select_cli_passes": cli_passes}
+               "multipass": p_run["launches"], "lag_select_cli_passes": cli_passes,
+               "data_sharded": launches_s, **launches_t, "two_process": launches_v}
     check(all(n > 0 for n in by_path.values()),
           f"a path ran without launching count_chunk: {by_path}")
     spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)
@@ -2802,4 +3256,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--child":  # a process of phase 4i (V)
+        sys.exit(child(sys.argv[2], int(sys.argv[3])))
     sys.exit(main())

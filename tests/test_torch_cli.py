@@ -152,11 +152,8 @@ def test_eval_only_restart_and_refusals(tmp_path):
     reads.write_text(">r\nACGTACGT\n")
     (tmp_path / "in.csv").write_text(f"{reads},0,fa\n")
     parser = summarize.build_parser()
-    args = parser.parse_args([str(tmp_path / "in.csv"), str(tmp_path / "run"), "--kmer-shards",
-                              "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        summarize.main(args)
-    for extra in (["--passes", "2"], ["-l", "16"]):  # ported: they count
+    # ported: they count (--kmer-shards on a mesh of the CPU)
+    for extra in (["--kmer-shards", "2"], ["--passes", "2"], ["-l", "16"]):
         args = parser.parse_args([str(tmp_path / "in.csv"), str(tmp_path / "run"), *extra,
                                   "--device", "cpu"])
         assert summarize.main(args) == (1, None)

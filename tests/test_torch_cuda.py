@@ -333,3 +333,62 @@ def test_bfloat16_compute_on_card(cuda, name):
     assert p16.dtype == torch.float32 and p16.is_cuda
     torch.testing.assert_close(p16.sum(-1), torch.ones(4096, device=cuda), rtol=0, atol=1e-5)
     assert float((p16 - p32).abs().max()) <= 0.03
+
+
+def _mesh_chunks(seed):
+    """Chunks with ambiguous pieces (fresh flags) and a row count no mesh
+    size here divides, so the data split pads."""
+    rng = np.random.default_rng(seed)
+    reads = [(fastx.encode_seq("".join(rng.choice(list("ACGTN"), size=int(n))), ambig=True),
+              i % 2) for i, n in enumerate(rng.integers(0, 200, 301))]
+    return list(engine.chunk_reads(engine.split_ambiguous(iter(reads)), 17, batch_size=61))
+
+
+@pytest.mark.parametrize("layout", ["every_card", "cuda0_repeated"])
+def test_mesh_counters_on_card_equal_cpu(cuda, layout):
+    # The data- and row-split counters and the sparse counter's mesh= on
+    # the card: the same counts as on a CPU mesh of the same size, one
+    # count_chunk launch per device per chunk, and every slice on its card.
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+    from bear_tpu_torch.parallel import (KmerShardedTransitionCounter, Mesh,
+                                         ShardedTransitionCounter, data_parallel_mesh)
+
+    mesh = {"every_card": lambda a: data_parallel_mesh(axis_name=a),
+            "cuda0_repeated": lambda a: Mesh([cuda] * 3, (a,))}[layout]
+    D = mesh("data").size
+    cpu = lambda a: Mesh(["cpu"] * D, (a,))  # noqa: E731
+    chunks = _mesh_chunks(D)
+    lags = (1, 4, 7)
+    data = [ShardedTransitionCounter(m("data"), lags, n_groups=2) for m in (mesh, cpu)]
+    rows = [KmerShardedTransitionCounter(lags, n_groups=2, mesh=m("kmer")) for m in (mesh, cpu)]
+    sparse = [SparseTransitionCounter([17], n_groups=2, mesh=m("data"), device_buffer=4096)
+              for m in (mesh, cpu)]
+    before = count_chunk_update.launches
+    for c in chunks:
+        for tc in data + rows + sparse:
+            tc.add_chunk(c)
+    assert count_chunk_update.launches == before + 2 * D * len(chunks)
+    assert [p.device for p in data[0].partial_tables()] == list(mesh("data").devices)
+    for l in lags:
+        np.testing.assert_array_equal(data[0].tables[l], data[1].tables[l])
+        rows_l = rows[1].nonzero_rows(l)
+        np.testing.assert_array_equal(rows[0].nonzero_rows(l), rows_l)
+        np.testing.assert_array_equal(rows[0].counts_for_rows(l, rows_l),
+                                      data[1].tables[l][:, rows_l, :].transpose(1, 0, 2))
+    for a, b in zip(sparse[0]._consolidated(17), sparse[1]._consolidated(17)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_mesh_refuses_more_cards_than_exist(cuda, tmp_path):
+    from bear_tpu_torch.counting import summarize
+    from bear_tpu_torch.parallel import data_parallel_mesh
+
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"requested {n + 1} devices, have {n}"):
+        data_parallel_mesh(n + 1)
+    fa = tmp_path / "r.fa"
+    fa.write_text(">a\nACGTACGT\n")
+    csv = tmp_path / "in.csv"
+    csv.write_text(f"{fa},0,fa\n")
+    with pytest.raises(ValueError, match=f"needs that many devices; have {n}"):
+        summarize.run_counting(str(csv), [3], kmer_shards=n + 1)

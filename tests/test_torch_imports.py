@@ -50,7 +50,8 @@ def test_every_module_imports_without_jax():
             "bear_tpu_torch.models.lag_select_cli", "bear_tpu_torch.inference.assemble",
             "bear_tpu_torch.inference.assemble_cli", "bear_tpu_torch.counting.multipass",
             "bear_tpu_torch.counting.sparse", "bear_tpu_torch.parallel",
-            "bear_tpu_torch.parallel.counting"} <= set(mods)
+            "bear_tpu_torch.parallel.counting", "bear_tpu_torch.parallel.mesh",
+            "bear_tpu_torch.parallel.multihost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -68,7 +69,9 @@ def test_every_module_imports_without_jax():
 
 
 @pytest.mark.parametrize("first", ["bear_tpu_torch.parallel", "bear_tpu_torch.parallel.counting",
-                                   "bear_tpu_torch.counting.sparse"])
+                                   "bear_tpu_torch.counting.sparse",
+                                   "bear_tpu_torch.parallel.mesh",
+                                   "bear_tpu_torch.parallel.multihost"])
 def test_row_split_counters_import_first(first):
     # parallel.counting and the counting package import each other's
     # modules; either may be imported first in a fresh interpreter.

@@ -179,12 +179,23 @@ def test_cli_counting_route_honors_ambig(tmp_path):
 
 
 def test_refusals(tmp_path):
-    # --kmer-shards needs several cards; --passes is ported (its JSON equals
-    # the single-pass JSON, test_sparse_routes_match_bear_tpu).
+    # --kmer-shards runs on a mesh of the CPU and gives bear_tpu's JSON
+    # (tests/test_lag_selection.py:197); more cards than exist, and
+    # --kmer-shards with --passes, are refused as bear_tpu refuses them.
+    # --passes: test_sparse_routes_match_bear_tpu.
     csv = _write_inputs(tmp_path, ["ACGTACGGT" * 5])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lag_select_cli.main(lag_select_cli.build_parser().parse_args(
-            [csv, "-l", "3", "--device", "cpu", "--kmer-shards", "2"]))
+    argv = [csv, "-l", "3", "--json", "--kmer-shards", "2"]
+    jout = _json(jcli.main, jcli.build_parser, argv)
+    pout = _json(lag_select_cli.main, lag_select_cli.build_parser, argv + ["--device", "cpu"])
+    base = _json(lag_select_cli.main, lag_select_cli.build_parser, argv[:4] + ["--device", "cpu"])
+    assert pout["best_lag"] == jout["best_lag"] == base["best_lag"]
+    assert pout["lags"] == jout["lags"] and pout["best_alpha"] == jout["best_alpha"]
+    np.testing.assert_allclose(pout["log_marginals"], jout["log_marginals"], **TOL)
+    np.testing.assert_allclose(pout["log_marginals"], base["log_marginals"], **TOL)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="--kmer-shards 2 needs that many devices"):
+            lag_select_cli.main(lag_select_cli.build_parser().parse_args(
+                [csv, "-l", "3", "--kmer-shards", "2"]))
     with pytest.raises(ValueError, match="mutually exclusive"):
         lag_select_cli.main(lag_select_cli.build_parser().parse_args(
             [csv, "-l", "3", "--device", "cpu", "--kmer-shards", "2", "--passes", "2"]))

@@ -25,7 +25,7 @@ from bear_tpu_torch.counting.multipass import (
     count_multipass,
     min_passes,
 )
-from bear_tpu_torch.parallel import KmerShardedTransitionCounter
+from bear_tpu_torch.parallel import KmerShardedTransitionCounter, Mesh
 
 torch.set_num_threads(2)
 
@@ -237,8 +237,16 @@ def test_kmer_sharded_counter_on_one_card_equals_the_dense_counter():
         dense.add_chunk(chunk)
     for l in (1, 3):
         np.testing.assert_array_equal(ks.tables[l], dense.tables[l])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    # Two row ranges need two devices: a mesh (the one CPU named twice)
+    # gives bear_tpu's two-device split and the dense counter's counts.
+    with pytest.raises(ValueError, match="pass mesh="):
         KmerShardedTransitionCounter([3], n_shards=2, device="cpu")
+    two = KmerShardedTransitionCounter([1, 3], n_groups=2, n_shards=2,
+                                       mesh=Mesh(["cpu", "cpu"], ("kmer",)))
+    for chunk in pf():
+        two.add_chunk(chunk)
+    for l in (1, 3):
+        np.testing.assert_array_equal(two.tables[l], dense.tables[l])
     with pytest.raises(ValueError, match="int32"):
         KmerShardedTransitionCounter(range(1, 16), n_groups=2, device="cpu")
     with pytest.raises(ValueError, match="counting method"):
@@ -300,9 +308,18 @@ def test_run_counting_passes_refusals(tmp_path):
                            (dict(passes=2, checkpoint=str(tmp_path / "c")), ValueError,
                             "checkpoint"),
                            (dict(passes=2, data_shards=2), ValueError, "mutually exclusive"),
-                           (dict(kmer_shards=2), NotImplementedError, "Queue 1 item 13")):
+                           (dict(kmer_shards=2, device="cuda"), ValueError,
+                            "--kmer-shards 2 needs that many devices; have")):
+        if "device" in kw and torch.cuda.device_count() >= 2:
+            continue  # the refusal is of more cards than exist
         with pytest.raises(err, match=match):
-            summarize.run_counting(str(csv), lags=[2], device="cpu", **kw)
+            summarize.run_counting(str(csv), lags=[2], **{"device": "cpu", **kw})
+    # --kmer-shards itself runs: bear_tpu's tests/test_multipass.py:168
+    # refusals above, and its row-split counts here.
+    port = summarize.run_counting(str(csv), lags=[1, 2], kmer_shards=2, device="cpu")
+    ref = jsummarize.run_counting(str(csv), lags=[1, 2], kmer_shards=2)
+    assert isinstance(port, KmerShardedTransitionCounter) and port.n_dev == 2
+    _assert_same_counts(port, ref, [1, 2])
 
 
 @pytest.mark.slow

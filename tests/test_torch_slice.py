@@ -314,6 +314,47 @@ def test_chip_smoke_beyond_dense_phase_rehearsal(tmp_path, capsys):
         assert part in out, part
 
 
+def test_chip_smoke_mesh_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4i on the CPU at a small size, on 4e's and (M)'s
+    # outputs: (S) rows over 2 replicas of the lag-5 table, (T) lags 1..7
+    # over 3 row ranges against 4e's shards and --passes 3 (and the int32
+    # reckoning at lags 1..14, which allocates nothing), (U) lags 1..17 sparse-first over 2 replicas
+    # against (M)'s shards, (V) two gloo processes; their own checks raise
+    # on a fault.
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chunks:
+        counter.add_chunk(c)
+    rows = counter.nonzero_rows(LAG)
+    counts = counter.row_counts(LAG, rows)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"), "CPU",
+                                     device="cpu", lag=LAG, profile=False)
+    ref_rows = chip_smoke.distinct_rows(reads, 17, "cpu")
+    work = str(tmp_path / "beyond")
+    m_prefix = os.path.join(work, "sparse", "run")
+    mf = chip_smoke.mf_for(sum(ref_rows.values()), run["n_bins"])
+    chip_smoke.summarize_run(run["csv"], m_prefix, ["-l", "17", "-mf", mf], "cpu")
+    assert chip_smoke.data_sharded_phase(chunks, rows, counts, 1.0, "CPU", device="cpu",
+                                         lag=LAG)[0] == 0
+    launches, _ = chip_smoke.row_split_phase(run, ref_rows, work, "CPU", device="cpu",
+                                             dense_lag=LAG, lag=7)
+    assert launches == {"row_split": 0, "row_split_passes": 0}
+    mesh_counter, _ = chip_smoke.sparse_mesh_phase(run, ref_rows, m_prefix, work, "CPU",
+                                                   device="cpu", lag=17)
+    assert chip_smoke.two_process_phase(
+        run, rows, counts, mesh_counter, work, "CPU", device="cpu",
+        reads_kw=dict(genome_mb=0.05, coverage=4, read_len=60, seed=4), rows=1024, lag=LAG,
+        sparse_lag=17, timeout=300, threads=2)[0] == 0
+    out = capsys.readouterr().out
+    for part in ("(S) chunk 0", "each replica's table == count_chunk_plain",
+                 "tables == phase 4's exactly", "2 slices refused", "== summarize -l 7 --passes 3",
+                 "needs that many devices; have", "shards == (M)'s, byte for byte",
+                 "rank 0: ", "rank 1: ", "host MemAvailable", "both merges' results equal",
+                 "every rank's merged tables == phase 4's"):
+        assert part in out, part
+
+
 def test_chip_smoke_options_phase_rehearsal(tmp_path, capsys):
     # chip_smoke.py's phase 4h on the CPU at a small size: (P) the attention
     # CLI on YSD1 with its checks against float64, (Q) the optimizers, (R)

@@ -9,9 +9,11 @@ import filecmp
 import os
 from collections import Counter as PyCounter
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh as JMesh
 
 from bear_tpu.counting import ReadChunk as JReadChunk
 from bear_tpu.counting import chunk_reads as jchunk_reads
@@ -22,6 +24,7 @@ from bear_tpu.counting.sparse import max_sparse_lag as jmax_sparse_lag
 from bear_tpu_torch.counting import engine, fastx, sparse, summarize
 from bear_tpu_torch.counting.sparse import SparseTransitionCounter, max_sparse_lag
 from bear_tpu_torch.inference.serving import contexts_to_rows
+from bear_tpu_torch.parallel import Mesh
 
 torch.set_num_threads(2)
 LETTERS = "ACGT"
@@ -165,8 +168,17 @@ def test_caps_and_refusals():
         with pytest.raises(ValueError) as got:
             SparseTransitionCounter(**kw, device="cpu")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        SparseTransitionCounter(lags=[17], mesh=object(), device="cpu")
+    # mesh= runs: rows split over a 3-device data axis (the one CPU named
+    # three times), bear_tpu's 3-device counts, key for key.
+    meshed = SparseTransitionCounter(lags=[17], n_groups=2, device_buffer=256,
+                                     mesh=Mesh(["cpu"] * 3, ("data",)))
+    jmeshed = JSparse(lags=[17], n_groups=2, device_buffer=256,
+                      mesh=JMesh(np.array(jax.devices()[:3]), ("data",)))
+    for _ in range(3):
+        pc, jc = _chunk(np.random.default_rng(_), 10, 21)
+        meshed.add_chunk(pc)
+        jmeshed.add_chunk(jc)
+    _assert_same_counts(meshed, jmeshed, [17])
     with pytest.raises(ValueError, match="SparseTransitionCounter"):
         engine.TransitionCounter(lags=[16], device="cpu")
     sp = SparseTransitionCounter(lags=[17], reverse=True, device="cpu")
@@ -177,6 +189,42 @@ def test_caps_and_refusals():
         sp.add_chunk(pc)
     with pytest.raises(ValueError, match="group"):
         SparseTransitionCounter(lags=[17], device="cpu").add_chunk(_chunk(rng, 3, 5, 3)[0])
+
+
+def test_sparse_mesh_matches_bear_tpu():
+    # tests/test_sparse_counting.py:343: rows over an 8-device data axis,
+    # a fresh-flagged chunk among them; bear_tpu's 8-device counter and the
+    # port's on a CPU mesh of 8 give the same keys and counts.
+    rng = np.random.default_rng(12)
+    pairs = [_chunk(rng, 52, 24) for _ in range(3)] + [_chunk(rng, 36, 24, fresh=True)]
+    port = SparseTransitionCounter(lags=[17], n_groups=2, mesh=Mesh(["cpu"] * 8, ("data",)))
+    ref = JSparse(lags=[17], n_groups=2, mesh=JMesh(np.array(jax.devices()[:8]), ("data",)))
+    for pc, jc in pairs:
+        port.add_chunk(pc)
+        ref.add_chunk(jc)
+    _assert_same_counts(port, ref, [17])
+    oracle, total = _brute_force([pc for pc, _ in pairs], 17)
+    assert _as_dict(port, 17) == oracle
+    port.validate(expected_transitions=total)
+
+
+def test_sparse_mesh_tiny_buffer_and_reverse():
+    # tests/test_sparse_counting.py:377: a 4-device mesh with windows of a
+    # few rows (chunks sliced by rows, many drains) and the reverse
+    # complement.
+    rng = np.random.default_rng(13)
+    pairs = [_chunk(rng, 24, 20, n_groups=1) for _ in range(3)]
+    kw = dict(lags=[16], reverse=True, device_buffer=128)
+    port = SparseTransitionCounter(**kw, mesh=Mesh(["cpu"] * 4, ("data",)))
+    ref = JSparse(**kw, mesh=JMesh(np.array(jax.devices()[:4]), ("data",)))
+    one = JSparse(lags=[16], reverse=True)
+    for pc, jc in pairs:
+        port.add_chunk(pc)
+        ref.add_chunk(jc)
+        one.add_chunk(jc)
+    assert port._cap < 24 * 21  # a chunk is more than a window
+    _assert_same_counts(port, ref, [16])
+    _assert_same_counts(port, one, [16])
 
 
 def test_consolidation_resets_the_pending_count(monkeypatch):
@@ -320,12 +368,17 @@ def test_run_counting_routes_and_refusals(tmp_path):
     assert isinstance(summarize.run_counting(csv, [8], alphabet="prot", device="cpu"),
                       SparseTransitionCounter)
     assert isinstance(summarize.run_counting(csv, [5], device="cpu"), engine.TransitionCounter)
-    for kw, err, match in ((dict(lags=[16], data_shards=2), NotImplementedError, "item 13"),
-                           (dict(lags=[5], data_shards=2), ValueError, "kmer-shards"),
-                           (dict(lags=[17], data_shards=2, passes=2), ValueError,
-                            "mutually exclusive")):
-        with pytest.raises(err, match=match):
+    # --data-shards runs beyond the dense range: rows over two devices,
+    # bear_tpu's two-device counts.
+    port = summarize.run_counting(csv, [16], data_shards=2, device="cpu")
+    assert isinstance(port, SparseTransitionCounter) and port.n_dev == 2
+    _assert_same_counts(port, jsummarize.run_counting(csv, [16], data_shards=2), [16])
+    for kw, match in ((dict(lags=[5], data_shards=2), "kmer-shards"),
+                      (dict(lags=[17], data_shards=2, passes=2), "mutually exclusive")):
+        with pytest.raises(ValueError, match=match):
             summarize.run_counting(csv, device="cpu", **kw)
-        if err is ValueError:
-            with pytest.raises(err, match=match):
-                jsummarize.run_counting(csv, **kw)
+        with pytest.raises(ValueError, match=match):
+            jsummarize.run_counting(csv, **kw)
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="--data-shards 2 needs that many devices"):
+            summarize.run_counting(csv, [16], data_shards=2, device="cuda")

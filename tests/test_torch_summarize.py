@@ -250,16 +250,28 @@ def test_count_state_files_cross_packages(tmp_path):
 
 
 def test_not_ported_options_raise(tmp_path):
-    # What needs several cards still raises; row-range passes and the
+    # The options once refused run now: --kmer-shards and --data-shards on a
+    # mesh of the CPU write bear_tpu's bytes (its 8 virtual devices). What
+    # bear_tpu refuses, the port refuses: more cards than exist, and
+    # --data-shards in the dense range. Row-range passes and the
     # sparse-first lags (DNA >= 16, protein >= 8) run and conserve counts.
     csv, _ = _inputs(tmp_path, "fastq")
     parser = summarize.build_parser()
-    for extra, err in ((["--kmer-shards", "2"], NotImplementedError),
-                       (["-l", "16", "--data-shards", "2"], NotImplementedError),
-                       (["--data-shards", "2"], ValueError)):
+    for extra, counter in ((["--kmer-shards", "2", "-r"], "KmerShardedTransitionCounter"),
+                           (["-l", "16", "--data-shards", "2"], "SparseTransitionCounter")):
+        work = tmp_path / extra[1]
+        work.mkdir()
+        _, report = _run_both(work, csv, ["-l", "3", *extra])
+        assert type(report["forward"]["counter"]).__name__ == counter
+        assert report["forward"]["counter"].n_dev == 2
+    for extra, device, match in ((["--data-shards", "2"], "cpu", "kmer-shards"),
+                                 (["--kmer-shards", "3"], "cuda",
+                                  "--kmer-shards 3 needs that many devices; have")):
+        if device == "cuda" and torch.cuda.device_count() >= 3:
+            continue
         args = parser.parse_args([csv, str(tmp_path / "x"), "-l", "3", *extra,
-                                  "--device", "cpu"])
-        with pytest.raises(err, match="ROADMAP|kmer-shards"):
+                                  "--device", device])
+        with pytest.raises(ValueError, match=match):
             summarize.main(args)
     for extra, counter in ((["--passes", "2"], "MultiPassTransitionCounter"),
                            (["-l", "16"], "SparseTransitionCounter"),
