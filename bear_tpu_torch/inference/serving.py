@@ -17,8 +17,14 @@ a sequence reuses one draw, wild type and mutant share the draws of their
 shared windows (Δ contributions cancel exactly), and results do not depend
 on batching. Rows, gathers and concentrations are computed once per call;
 only the draw carries the sample axis, in slices of elements that keep its
-temporaries within ``SAMPLE_BUDGET_BYTES``. ``mesh=`` (a row-split table)
-follows in a later slice (ROADMAP.md).
+temporaries within ``SAMPLE_BUDGET_BYTES``.
+
+``mesh=`` splits the table's rows over a mesh axis (serving a table too
+large for one device): each slice is built on its own device from the
+host table, one at a time, and gathers the query rows it owns, zeros
+elsewhere; the sum over the slices (and over the processes of a spanning
+mesh) is then an exact gather. Everything after the gather is as without
+a mesh, so the draws stay keyed on the global table row.
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from bear_tpu_torch.inference.scoring import load_bear, load_bear_dataset, parse
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops import keyed_random as kr
 from bear_tpu_torch.ops.loggamma import _pairs, fold_in_many, log_dirichlet_draw_keyed
-from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.parallel import multihost
+from bear_tpu_torch.parallel.mesh import DataSplit, check_device
 
 # Marsaglia-Tsang proposals per lane in the serving samplers (bear_tpu's
 # setting): acceptance is >= 95% per proposal and a lane that accepts none
@@ -175,6 +182,31 @@ def _reduce(d: torch.Tensor, reduce: str, quantiles) -> torch.Tensor:
     raise ValueError(f"unknown reduce {reduce!r}")
 
 
+def _row_slices(table, mesh, axis: str, dtype):
+    """(slices, rows per slice, whether the mesh spans processes) of a
+    row-split table: slice i holds rows [i * local, (i + 1) * local) on the
+    device at position i of ``axis`` (zero rows past the table's end), as
+    (first row, tensor) for this process's positions. Each slice is built
+    from a view of ``table`` on its own device, one at a time: there is
+    never a padded copy of the whole table."""
+    n = mesh.shape[axis]
+    total = int(np.shape(table)[0])
+    local = -(-total // n)
+    me = multihost.process_index()
+    slices = []
+    for i, (dev, owner) in enumerate(zip(mesh.along(axis), mesh.owners(axis))):
+        if owner != me:
+            continue
+        dev = check_device(dev)
+        lo = i * local
+        part = torch.as_tensor(table[min(lo, total):min(lo + local, total)]).to(dev).to(dtype)
+        if part.shape[0] < local:
+            part = torch.cat([part, part.new_zeros((local - part.shape[0],)
+                                                   + tuple(part.shape[1:]))])
+        slices.append((lo, part))
+    return slices, local, mesh.spans_processes
+
+
 def _pad_windows(win, width: int):
     """(rows, nxt, mask) [n, W] -> [n, width], padded with masked zeros."""
     pad = width - win[0].shape[1]
@@ -195,6 +227,12 @@ class BearServer:
     van : BMM symmetric prior (used when ar_apply is None).
     dtype : float type of the table, the draws and the scores.
     device : "cuda" (default) or "cpu".
+    mesh / mesh_axis : optional :class:`bear_tpu_torch.parallel.Mesh`: the
+        table's rows split over ``mesh_axis`` into ``ceil(rows / n)``-row
+        slices (the last zero-padded), one per position of the axis; the
+        queries, the AR and the scores stay on this process's first entry
+        (the mesh's devices decide). Every process of a spanning mesh makes
+        the same calls.
 
     No epsilon is added here: load_bear's ar_apply already carries
     +EPSILON, so scores match the reference's get_bear_probs_seqs.
@@ -202,7 +240,8 @@ class BearServer:
 
     def __init__(self, table, lag: int, *, h: Optional[float] = None,
                  ar_apply=None, van: Optional[float] = None,
-                 dtype=torch.float32, alphabet: str = "dna", device="cuda"):
+                 dtype=torch.float32, alphabet: str = "dna", device="cuda",
+                 mesh=None, mesh_axis: str = "kmer"):
         if (ar_apply is None) == (van is None):
             raise ValueError("specify exactly one of ar_apply / van")
         if ar_apply is not None and h is None:
@@ -212,10 +251,16 @@ class BearServer:
             raise ValueError(
                 f"table rows {np.shape(table)[0]} != rows(lag={lag}, A={A})"
             )
-        dev = resolve_device(device)
-        # Counts move to the device in their own type first, then convert
-        # there (no full-size host float copy).
-        self._table = torch.as_tensor(table).to(dev).to(dtype)
+        dev = DataSplit(mesh, device).master
+        if mesh is None:
+            # Counts move to the device in their own type first, then convert
+            # there (no full-size host float copy).
+            self._table = torch.as_tensor(table).to(dev).to(dtype)
+            self._slices = None
+        else:
+            self._table = None
+            self._slices, self._local, self._spans = _row_slices(
+                table, mesh, mesh_axis, dtype)
         self._A = A
         self._dtype = dtype
         self._h = h
@@ -228,17 +273,19 @@ class BearServer:
     @classmethod
     def from_model_dir(cls, path: str, *, train_col: int = 0,
                        double_softmax: bool = True, dtype=torch.float32,
-                       device="cuda"):
+                       device="cuda", mesh=None, mesh_axis: str = "kmer"):
         """A server from a trained model directory (config.cfg +
         results.pickle): the fitted (h, ar_func) via load_bear, the training
         counts via load_bear_dataset, densified from the ``train_col``
-        column into a table on the device (the reference's load-model-then-
-        scan-counts set-up, get_var_probs.py:59-82 + 429-451)."""
+        column into a table on the device, or row-split over ``mesh_axis``
+        of ``mesh`` (the reference's load-model-then-scan-counts set-up,
+        get_var_probs.py:59-82 + 429-451)."""
+        dev = DataSplit(mesh, device).master
         lag, alphabet_name, h, ar_apply, info = load_bear(
-            path, double_softmax=double_softmax, device=device)
+            path, double_softmax=double_softmax, device=dev)
         table = table_from_dataset(load_bear_dataset(info), lag, train_col=train_col)
         return cls(table, lag, h=h, ar_apply=ar_apply, dtype=dtype,
-                   alphabet=alphabet_name, device=device)
+                   alphabet=alphabet_name, device=dev, mesh=mesh, mesh_axis=mesh_axis)
 
     def _concentrations(self, rows, counts):
         if self._ar_apply is None:
@@ -246,10 +293,30 @@ class BearServer:
         oh = _rows_to_onehot_contexts(rows, self.lag, self._dtype, self._A)
         return self._ar_apply(oh) / self._h + counts
 
+    def _gather(self, rows):
+        """The table's rows ``rows`` [...] -> [..., A1] on the device. Row
+        split: each slice gathers the rows it owns and zeros elsewhere, so
+        exactly one slice contributes each row and the sum is exact."""
+        if self._slices is None:
+            return self._table[rows]
+        out = None
+        for lo, tbl in self._slices:
+            r = rows.to(tbl.device)
+            mine = ((r >= lo) & (r < lo + self._local))[..., None]
+            part = torch.where(mine, tbl[(r - lo).clamp(0, self._local - 1)], 0.0)
+            part = part.to(self.device)
+            out = part if out is None else out + part
+        if out is None:  # this process owns no slice
+            out = torch.zeros(tuple(rows.shape) + (self._A + 1,), dtype=self._dtype,
+                              device=self.device)
+        if self._spans:
+            multihost.allreduce_sum_(out)
+        return out
+
     def _row_concentrations(self, rows):
         """Concentrations [E, A1] of E table rows, the AR evaluated in
         slices of AR_SLICE_ROWS rows."""
-        return torch.cat([self._concentrations(r, self._table[r])
+        return torch.cat([self._concentrations(r, self._gather(r))
                           for r in torch.split(rows, AR_SLICE_ROWS)])
 
     def _sample_keys(self, key, mc_samples: int) -> torch.Tensor:
@@ -305,7 +372,7 @@ class BearServer:
         codes = torch.as_tensor(codes, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device)
         rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
-        conc = self._concentrations(rows, self._table[rows])
+        conc = self._concentrations(rows, self._gather(rows))
         picked = _map_picked(conc, nxt)
         return torch.where(mask, picked, 0.0).sum(dim=-1)
 

@@ -30,12 +30,28 @@ Semantics kept from bear_tpu:
   same batches as the codes and counts and given to the AR module as its
   third input.
 
+- A mesh (``mesh=``, :class:`bear_tpu_torch.parallel.Mesh`): the batch
+  rows pad to a multiple of the mesh's size (bear_tpu's ``pad_multiple``,
+  so the step count, the per-step sizes and the ELBO scale of the whole
+  global batch follow it) and entry i of the flat mesh takes the i-th
+  contiguous slice of every batch. One master set of parameters and one
+  optimizer live on this process's first entry; each entry computes its
+  slice's loss with the parameters moved there by a differentiable
+  ``.to``, and one backward over the entries' summed losses accumulates
+  every entry's gradient into the master. On a mesh that spans processes
+  the gradients and the loss are summed over the gloo group in one
+  collective per apply, so every rank takes the same step and the ranks
+  stay bit-identical; only process 0 writes checkpoints, and a resume
+  whose state differs across processes raises. Evaluation sums each
+  entry's float64 metrics in mesh order, then over the processes; its
+  tie-break draws are made for the whole batch and sliced, so a mesh
+  changes no draw.
+
 The step loop never waits for the device: ELBOs stay on the device until
 the run ends (or a checkpoint is written). Optimizers: Adam (eps 1e-7) and
 SGD are ``torch.optim``'s; ``adamw``, ``adamax``, ``rmsprop``, ``adagrad``,
 ``nadam``, ``adadelta`` and ``lion`` are optax's rules
-(:mod:`bear_tpu_torch.models.optimizers`). Not ported yet: ``mesh``
-(training over a mesh, ROADMAP.md Queue 1 item 13, half 2).
+(:mod:`bear_tpu_torch.models.optimizers`).
 """
 
 from __future__ import annotations
@@ -51,11 +67,13 @@ from bear_tpu_torch.models.optimizers import OPTAX_RULES, OptaxRule
 from bear_tpu_torch.ops.distributions import (
     EPSILON,
     dirichlet_multinomial_perm_logpmf,
+    gumbel_noise,
     ml_output,
     multinomial_perm_logpmf,
 )
+from bear_tpu_torch.parallel import multihost
+from bear_tpu_torch.parallel.mesh import DataSplit
 from bear_tpu_torch.utils.checkpoint import load_train_state, save_train_state
-from bear_tpu_torch.utils.device import resolve_device
 
 
 # --- model core -----------------------------------------------------------
@@ -187,37 +205,40 @@ class TrainResult:
         return params_to_list(self.params)
 
 
-def _stack_geometry(n: int, batch_size):
-    """(batch size, step count) shared by every stacked array."""
-    bsz = int(batch_size)
+def _stack_geometry(n: int, batch_size, pad_multiple: int = 1):
+    """(batch size rounded up to a multiple of ``pad_multiple``, step
+    count) shared by every stacked array."""
+    bsz = -(-int(batch_size) // pad_multiple) * pad_multiple
     return bsz, max(1, -(-n // bsz))
 
 
-def _stack_one(arr: torch.Tensor, batch_size) -> torch.Tensor:
+def _stack_one(arr: torch.Tensor, batch_size, pad_multiple: int = 1) -> torch.Tensor:
     """Zero-pad ONE tensor's rows and stack it to [n_steps, B, ...] on its
     own device (the single home of the batch geometry)."""
     n = arr.shape[0]
-    bsz, n_steps = _stack_geometry(n, batch_size)
+    bsz, n_steps = _stack_geometry(n, batch_size, pad_multiple)
     out = torch.zeros((n_steps * bsz,) + tuple(arr.shape[1:]), dtype=arr.dtype,
                       device=arr.device)
     out[:n] = arr
     return out.reshape((n_steps, bsz) + tuple(arr.shape[1:]))
 
 
-def _stack_batches(codes: torch.Tensor, counts: torch.Tensor, batch_size):
+def _stack_batches(codes: torch.Tensor, counts: torch.Tensor, batch_size,
+                   pad_multiple: int = 1):
     """Stacked codes and counts [n_steps, B, ...] (zero-count rows add
-    exactly 0 likelihood and gradient) and each step's actual batch size,
-    a host float array."""
+    exactly 0 likelihood and gradient; B is ``batch_size`` rounded up to a
+    multiple of ``pad_multiple``, the mesh's size) and each step's actual
+    batch size, a host float array."""
     n = codes.shape[0]
     if n == 0:
         raise ValueError(
             "empty dataset: no k-mer rows to train/evaluate on (the ELBO "
             "scale num_kmers/batch would divide by zero)"
         )
-    bsz, n_steps = _stack_geometry(n, batch_size)
+    bsz, n_steps = _stack_geometry(n, batch_size, pad_multiple)
     sizes = np.minimum(np.full(n_steps, bsz), n - bsz * np.arange(n_steps))
-    return (_stack_one(codes, batch_size),
-            _stack_one(counts, batch_size),
+    return (_stack_one(codes, batch_size, pad_multiple),
+            _stack_one(counts, batch_size, pad_multiple),
             sizes.astype(np.float64))
 
 
@@ -229,26 +250,34 @@ def _to_device(codes, counts, dtype, dev):
     return codes, counts
 
 
-def _not_ported(**args):
-    for name, value in args.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name}= (training, evaluation and serving over a mesh) is not ported to "
-                "PyTorch yet; see ROADMAP.md Queue 1 item 13, half 2 (slice 10)"
-            )
+def _check_resume_consistent(applies_done: int) -> None:
+    """Every process must resume from the same checkpoint: a directory
+    local to each host, written only by process 0, would silently fork the
+    ranks' trajectories (bear_tpu/models/bear_net.py:289-305)."""
+    if multihost.process_count() == 1:
+        return
+    seen = multihost.allgather_i64([applies_done]).reshape(-1)
+    if not np.all(seen == seen[0]):
+        raise RuntimeError(
+            f"checkpoint resume state differs across processes (applies_done per rank: "
+            f"{seen.tolist()}); checkpoint_dir must be a path every process can read — use "
+            "a shared filesystem or replicate the checkpoint to every host")
 
 
 def _start(ar_func, params_restart, opt_state_restart, seed, dtype, dev,
            optimizer_name, learning_rate, checkpoint_dir):
     """(params, leaves, optimizer, applies_done) of a run: the mid-run state
     in ``checkpoint_dir`` when there is one, else ``params_restart`` /
-    ``opt_state_restart``, else a fresh init seeded by ``seed``."""
+    ``opt_state_restart``, else a fresh init seeded by ``seed``. With a
+    checkpoint directory, every process must have found the same state."""
     applies_done = 0
     state = load_train_state(checkpoint_dir) if checkpoint_dir is not None else None
     if state is not None:
         params_restart = state["params"]
         opt_state_restart = state["torch_opt_state"]
         applies_done = int(state["applies_done"])
+    if checkpoint_dir is not None:
+        _check_resume_consistent(applies_done)
     if params_restart is None:
         init = init_params(torch.Generator().manual_seed(seed), ar_func)
         params_restart = [init["h_signed"]] + init["ar"]
@@ -285,20 +314,59 @@ def _batch_loss(params, ar_func, train_ar, codes_b, counts_b, scale, ref_b=None)
     return -scale * ll.sum()
 
 
-def _apply(optimizer, losses):
+def _on(params, dev):
+    """The parameters on ``dev`` by a differentiable move (the same tensors
+    where they already are), so an entry's gradient reaches the master."""
+    return {"h_signed": params["h_signed"].to(dev), "ar": [p.to(dev) for p in params["ar"]]}
+
+
+def _mesh_loss(split, params, ar_func, train_ar, codes_b, counts_b, scale, ref_b=None):
+    """The batch's loss summed over this process's entries in mesh order,
+    each entry on its slice of the rows with the parameters moved to it;
+    ``scale`` is the whole global batch's."""
+    return split.sum([
+        _batch_loss(_on(params, d), ar_func, train_ar, c, n, scale, r)
+        for (_, d), c, n, r in zip(split.entries, split.split(codes_b), split.split(counts_b),
+                                   split.split(ref_b))])
+
+
+def _grad_sync(split, leaves):
+    """On a mesh that spans processes, the hook that sums the gradients and
+    the loss of an apply over the gloo group, in one collective; None
+    otherwise."""
+    if not split.spans:
+        return None
+
+    def sync(loss_sum):
+        *grads, loss = split.allreduce([p.grad for p in leaves] + [loss_sum.reshape(1)])
+        for p, g in zip(leaves, grads):
+            p.grad.copy_(g)
+        return loss.reshape(())
+
+    return sync
+
+
+def _apply(optimizer, losses, sync=None):
     """One optimizer apply over a group of batch losses (zero-argument
-    callables), gradients summed; returns the summed loss, on the device."""
+    callables), gradients summed (and, with ``sync``, summed over the
+    processes); returns the summed loss, on the device."""
     optimizer.zero_grad(set_to_none=False)
     loss_sum = 0.0
     for loss_of in losses:
         loss = loss_of()
         loss.backward()
         loss_sum = loss_sum + loss.detach()
+    if sync is not None:
+        loss_sum = sync(loss_sum)
     optimizer.step()
     return loss_sum
 
 
 def _save_state(checkpoint_dir, params, optimizer, applies_done):
+    """Write the mid-run state; in a group of processes only process 0
+    writes (the ranks hold the same state)."""
+    if multihost.process_index() != 0:
+        return
     save_train_state(checkpoint_dir, {
         "params": params_to_list(params),
         "torch_opt_state": optimizer_state(optimizer),
@@ -306,9 +374,13 @@ def _save_state(checkpoint_dir, params, optimizer, applies_done):
     })
 
 
-def _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps):
+def _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps,
+            checkpoint_dir=None):
     """Release the parameters from autograd, report the ELBOs and wrap the
-    run's result."""
+    run's result. In a group of processes with a checkpoint directory, no
+    rank returns before process 0 has written the last state."""
+    if checkpoint_dir is not None and multihost.process_count() > 1:
+        torch.distributed.barrier()
     if writer is not None:
         for i, e in enumerate(elbos):
             writer.scalar("elbo", float(e), step=(start_apply + i + 1) * acc_steps)
@@ -359,6 +431,10 @@ def train(
     writer : optional object with ``scalar(tag, value, step)``, given each
         apply's ELBO after training.
     device : where training runs; "cuda" (default) raises without a card.
+    mesh : optional :class:`bear_tpu_torch.parallel.Mesh` for data
+        parallelism (see the module's docstring); its devices decide where
+        training runs. Every process of a spanning mesh passes the same
+        whole dataset.
     ref_counts : optional [N, alphabet_size+1] prepared reference counts
         (``bear_ref.prepare_ref_counts``), for an AR module that takes them
         as its third input (``bear_ref.RefAR``).
@@ -367,10 +443,10 @@ def train(
         ``checkpoint_every > 0`` also write that state every
         ``checkpoint_every`` applies and after the last. Each apply is a
         function of its index, so a resumed run ends on a bit-identical
-        trajectory.
+        trajectory. Only process 0 writes.
     """
-    _not_ported(mesh=mesh)
-    dev = resolve_device(device)
+    split = DataSplit(mesh, device)
+    dev = split.master
     params, leaves, optimizer, applies_done = _start(
         ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
         learning_rate, checkpoint_dir)
@@ -381,8 +457,8 @@ def train(
         perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(codes)),
                                device=dev)
         codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
-    codes_s, counts_s, sizes = _stack_batches(codes, counts, batch_size)
-    ref_s = None if ref is None else _stack_one(ref, batch_size)
+    codes_s, counts_s, sizes = _stack_batches(codes, counts, batch_size, split.n)
+    ref_s = None if ref is None else _stack_one(ref, batch_size, split.n)
     steps_per_epoch = codes_s.shape[0]
     total_steps = steps_per_epoch * int(epochs)
     acc_steps = int(acc_steps)
@@ -393,21 +469,22 @@ def train(
     every = int(checkpoint_every) if checkpoint_dir is not None else 0
 
     def loss_of(idx):
-        return lambda: _batch_loss(params, ar_func, train_ar, codes_s[idx], counts_s[idx],
-                                   scales[idx], _at(ref_s, idx))
+        return lambda: _mesh_loss(split, params, ar_func, train_ar, codes_s[idx],
+                                  counts_s[idx], scales[idx], _at(ref_s, idx))
 
+    sync = _grad_sync(split, leaves)
     start_apply = applies_done
     elbos = torch.empty(max(0, n_apply - start_apply), dtype=dtype, device=dev)
     for a in range(start_apply, n_apply):
         loss_sum = _apply(optimizer, [loss_of((a * acc_steps + k) % steps_per_epoch)
-                                      for k in range(acc_steps)])
+                                      for k in range(acc_steps)], sync)
         # ELBO estimate at each apply (reference bear_net.py:303-307).
         elbos[a - start_apply] = -loss_sum / acc_steps
         done = a + 1
         if every > 0 and ((done - start_apply) % every == 0 or done == n_apply):
             _save_state(checkpoint_dir, params, optimizer, done)
     return _finish(leaves, params, optimizer, elbos.cpu().numpy(), writer, start_apply,
-                   acc_steps)
+                   acc_steps, checkpoint_dir if every > 0 else None)
 
 
 def _shards_takes_epoch(shards) -> bool:
@@ -492,14 +569,17 @@ def train_streaming(
         applies already done (their shards are read, not computed on), so
         the run ends on a bit-identical trajectory.
     device : where training runs; "cuda" (default) raises without a card.
+    mesh : as in :func:`train`: the batch rounds up to a mesh multiple and
+        each batch's rows split over the entries; every process streams the
+        same shards, only process 0 writes checkpoints.
     """
-    _not_ported(mesh=mesh)
-    dev = resolve_device(device)
+    split = DataSplit(mesh, device)
+    dev = split.master
     ck_blocks = max(1, -(-int(checkpoint_every) // int(block_steps)))
     params, leaves, optimizer, applies_done = _start(
         ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
         learning_rate, checkpoint_dir)
-    acc_steps, K, bsz = int(acc_steps), int(block_steps), int(batch_size)
+    acc_steps, K, bsz = int(acc_steps), int(block_steps), split.pad(batch_size)
     takes_epoch = _shards_takes_epoch(shards)
     agree = _RefAgreement()
     lag_w = None
@@ -533,6 +613,7 @@ def train_streaming(
         if checkpoint_dir is not None:
             _save_state(checkpoint_dir, params, optimizer, applies_done)
 
+    sync = _grad_sync(split, leaves)
     start_apply = applies_done
     elbos = []
     applies_seen = 0  # groups taken from the stream, the skipped ones included
@@ -547,8 +628,9 @@ def train_streaming(
         if applies_seen <= applies_done:
             continue  # resume: applied before the interruption
         loss_sum = _apply(optimizer, [
-            (lambda c=c, n=n, sc=sc, r=r: _batch_loss(params, ar_func, train_ar, c, n, sc, r))
-            for c, n, sc, r in group])
+            (lambda c=c, n=n, sc=sc, r=r: _mesh_loss(split, params, ar_func, train_ar, c, n,
+                                                     sc, r))
+            for c, n, sc, r in group], sync)
         elbos.append(-loss_sum / acc_steps)
         applies_done += 1
         n_in_block += 1
@@ -567,17 +649,28 @@ def train_streaming(
     save()
     elbos = torch.stack(elbos) if elbos else torch.zeros(0, dtype=dtype)
     elbos = elbos.cpu().numpy()
-    return _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps)
+    return _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps,
+                   checkpoint_dir)
 
 
 # --- evaluation -----------------------------------------------------------
 
 
-def _evaluation_step(counts_test, ar_probs, h, van_reg, generator,
-                     counts_train=None):
+def _tie_noise(generator, h_shape, B: int, A1: int, V: int, use_train: bool, dev):
+    """The Gumbel noise that breaks exact ties of a batch's three readings,
+    drawn in their order from ``generator``: BEAR [*h_shape, B, A1], AR [B,
+    A1], BMM [B, V, A1] (or [V, A1] without training counts, where the BMM
+    reading does not depend on the row)."""
+    return (gumbel_noise(tuple(h_shape) + (B, A1), generator, dev),
+            gumbel_noise((B, A1), generator, dev),
+            gumbel_noise((B, V, A1) if use_train else (V, A1), generator, dev))
+
+
+def _evaluation_step(counts_test, ar_probs, h, van_reg, noise, counts_train=None):
     """Per-batch metrics of the three readings — BEAR posterior predictive,
     point AR, and vanilla BMM over a vector of priors (reference
-    bear_net.py:323-371). ``h`` is a scalar or a vector [H] (h_scan).
+    bear_net.py:323-371). ``h`` is a scalar or a vector [H] (h_scan);
+    ``noise`` the readings' tie-break noise (:func:`_tie_noise`).
 
     Returns sums: (ll_ear, ll_arm, ll_van[V], correct_ear, correct_arm,
     correct_van[V], total_len).
@@ -604,9 +697,10 @@ def _evaluation_step(counts_test, ar_probs, h, van_reg, generator,
     ll_van = dirichlet_multinomial_perm_logpmf(counts_test[:, None, :], conc_van).sum(dim=0)
 
     rng_idx = torch.arange(A1, dtype=dtype, device=counts_test.device)
-    oh_ear = (ml_output(conc_ear, generator)[..., None] == rng_idx).to(dtype)
-    oh_arm = (ml_output(probs_arm, generator)[..., None] == rng_idx).to(dtype)
-    oh_van = (ml_output(conc_van, generator)[..., None] == rng_idx).to(dtype)
+    g_ear, g_arm, g_van = noise
+    oh_ear = (ml_output(conc_ear, gumbel=g_ear)[..., None] == rng_idx).to(dtype)
+    oh_arm = (ml_output(probs_arm, gumbel=g_arm)[..., None] == rng_idx).to(dtype)
+    oh_van = (ml_output(conc_van, gumbel=g_van)[..., None] == rng_idx).to(dtype)
 
     correct_ear = (counts_test * oh_ear).sum(dim=-1).sum(dim=-1)
     correct_arm = (counts_test * oh_arm).sum()
@@ -618,36 +712,56 @@ def _evaluation_step(counts_test, ar_probs, h, van_reg, generator,
 class _Evaluator:
     """The per-batch metrics of one evaluation, in float64 whatever the
     compute type; the tie-break generator is reseeded from (seed, global
-    batch index) before each batch."""
+    batch index) before each batch. On a mesh each entry computes its
+    slice of the batch's rows (with its slice of the batch's tie-break
+    noise) and the metrics are summed over the entries in mesh order."""
 
     def __init__(self, ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
-                 seed, dev):
+                 seed, split):
         self.loc_train, self.loc_test = ds_loc_train, ds_loc_test
         self.use_train = ds_loc_train >= 0
-        self.ar_func, self.dtype, self.seed, self.dev = ar_func, dtype, seed, dev
-        self.van_reg = torch.as_tensor(np.asarray(van_reg), dtype=dtype, device=dev)
-        self.h = torch.as_tensor(np.asarray(h), dtype=dtype, device=dev)
-        self.ar_params = [_tensor(p, dev, dtype) for p in ar_params]
+        self.ar_func, self.dtype, self.seed, self.split = ar_func, dtype, seed, split
+        self.dev = dev = split.master
+        van_reg = torch.as_tensor(np.asarray(van_reg), dtype=dtype, device=dev)
+        h = torch.as_tensor(np.asarray(h), dtype=dtype, device=dev)
+        ar_params = [_tensor(p, dev, dtype) for p in ar_params]
+        self.h_shape, self.n_van = tuple(h.shape), van_reg.shape[0]
+        # (h, van_reg, AR parameters) on each entry's device
+        self.on = {d: (h.to(d), van_reg.to(d), [p.to(d) for p in ar_params])
+                   for _, d in split.entries}
         self.generator = torch.Generator(device=dev)
 
     def stacks(self, codes, counts, batch_size, ref=None):
         """(codes, test counts, train counts or None, reference counts or
-        None) stacked to [steps, B, ...] on the device."""
+        None) stacked to [steps, B, ...] on the device, B a multiple of the
+        mesh's size."""
+        n = self.split.n
         codes, counts = _to_device(codes, counts, self.dtype, self.dev)
-        codes_s, test_s, _ = _stack_batches(codes, counts[:, self.loc_test, :], batch_size)
-        train_s = (_stack_one(counts[:, self.loc_train, :], batch_size)
+        codes_s, test_s, _ = _stack_batches(codes, counts[:, self.loc_test, :], batch_size, n)
+        train_s = (_stack_one(counts[:, self.loc_train, :], batch_size, n)
                    if self.use_train else None)
         ref = _ref_to_device(ref, self.dtype, self.dev)
-        ref_s = None if ref is None else _stack_one(ref, batch_size)
+        ref_s = None if ref is None else _stack_one(ref, batch_size, n)
         return codes_s, test_s, train_s, ref_s
 
     def batch(self, codes_b, test_b, train_b, step, ref_b=None):
         state = np.random.SeedSequence([self.seed, step]).generate_state(2, np.uint32)
         self.generator.manual_seed((int(state[0]) << 31) | (int(state[1]) >> 1))
-        ar_probs = _ar_probs(self.ar_func, codes_b, self.ar_params, ref_b)
-        out = _evaluation_step(test_b, ar_probs, self.h, self.van_reg, self.generator,
-                               counts_train=train_b)
-        return [o.to(torch.float64) for o in out]
+        split = self.split
+        g_ear, g_arm, g_van = _tie_noise(self.generator, self.h_shape, test_b.shape[0],
+                                         test_b.shape[-1], self.n_van, self.use_train, self.dev)
+        van_noise = (split.split(g_van) if self.use_train
+                     else [g_van.to(d) for _, d in split.entries])
+        outs = []
+        for (_, d), c, t, tr, r, ge, ga, gv in zip(
+                split.entries, split.split(codes_b), split.split(test_b), split.split(train_b),
+                split.split(ref_b), split.split(g_ear, len(self.h_shape)), split.split(g_arm),
+                van_noise):
+            h, van_reg, ar_params = self.on[d]
+            ar_probs = _ar_probs(self.ar_func, c, ar_params, r)
+            out = _evaluation_step(t, ar_probs, h, van_reg, (ge, ga, gv), counts_train=tr)
+            outs.append([o.to(torch.float64) for o in out])
+        return [split.sum(list(parts)) for parts in zip(*outs)]
 
 
 def _metrics(ll_ear, ll_arm, ll_van, c_ear, c_arm, c_van, total, exp):
@@ -678,6 +792,8 @@ def evaluation(
     """Evaluate a trained BEAR/AR/BMM model (reference bear_net.py:387-463).
 
     ds_loc_train = -1 disables conditioning on training counts (prior mode).
+    mesh : as in :func:`train`; each entry computes its rows' readings, the
+    float64 sums are added over the entries, then over the processes.
 
     Returns the reference's 9-tuple of numpy values:
     (ll_ear, ll_arm, ll_van, perp_ear, perp_arm, perp_van,
@@ -691,16 +807,16 @@ def evaluation(
     ``ref_counts``: prepared reference counts [N, A+1] for a
     reference-guided AR module, as in :func:`train`.
     """
-    _not_ported(mesh=mesh)
-    dev = resolve_device(device)
+    split = DataSplit(mesh, device)
     ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
-                    seed, dev)
+                    seed, split)
     codes_s, test_s, train_s, ref_s = ev.stacks(codes, counts, batch_size, ref_counts)
     sums = None
     for step in range(codes_s.shape[0]):
         out = ev.batch(codes_s[step], test_s[step], _at(train_s, step), step,
                        _at(ref_s, step))
         sums = out if sums is None else [s + o for s, o in zip(sums, out)]
+    sums = split.allreduce(sums)
     return tuple(m.cpu().numpy() for m in _metrics(*sums, exp=torch.exp))
 
 
@@ -729,11 +845,11 @@ def evaluation_streaming(
     is the shard's prepared reference counts, consumed once. Batches never
     span shards; the tie-break draws are keyed by the global batch index.
     The metrics of each block of ``block_steps`` batches are summed in
-    float64 on the device, and the blocks in float64 on the host."""
-    _not_ported(mesh=mesh)
-    dev = resolve_device(device)
+    float64 on the device, and the blocks in float64 on the host. ``mesh``
+    as in :func:`evaluation`."""
+    split = DataSplit(mesh, device)
     ev = _Evaluator(ds_loc_train, ds_loc_test, h, ar_func, ar_params, van_reg, dtype,
-                    seed, dev)
+                    seed, split)
     K = int(block_steps)
     agree = _RefAgreement()
     totals = None
@@ -758,6 +874,9 @@ def evaluation_streaming(
         step += steps
     if totals is None:
         raise ValueError("shards() yielded no shards")
+    if split.spans:
+        totals = [t.numpy() for t in split.allreduce([torch.from_numpy(np.asarray(t))
+                                                       for t in totals])]
     return _metrics(*totals, exp=np.exp)
 
 

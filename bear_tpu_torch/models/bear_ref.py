@@ -34,7 +34,7 @@ from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.models.ar_funcs import get_ar_func
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops.distributions import EPSILON
-from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.parallel.mesh import DataSplit
 
 
 def counts_to_probs(ref_counts: torch.Tensor, tau, alphabet_size: int) -> torch.Tensor:
@@ -158,8 +158,8 @@ def train(codes, counts, ref_column, num_kmers, net_func, af_kwargs=None, *,
     """Train a reference-guided BEAR/AR model: ``bear_net.train`` with the
     prepared ``ref_column`` ([N, A+1] raw reference counts) and a
     :class:`RefAR` around ``net_func``'s net. Other keywords as
-    ``bear_net.train``."""
-    dev = resolve_device(device)
+    ``bear_net.train`` (``mesh=`` included: its devices decide)."""
+    dev = DataSplit(kwargs.get("mesh"), device).master
     A = alphabets.alphabet_size(alphabet)
     lag = lag if lag is not None else codes.shape[-1]
     ar = make_ref_ar(net_func, lag, A, af_kwargs, dtype=dtype, compute_dtype=compute_dtype,
@@ -176,7 +176,7 @@ def train_streaming(shards, num_kmers, net_func, af_kwargs=None, *, alphabet: st
     shard; see ``bear_net.train_streaming``). ``shards`` yields (codes,
     counts, raw reference column) triples; the column is prepared per
     shard here."""
-    dev = resolve_device(device)
+    dev = DataSplit(kwargs.get("mesh"), device).master
     A = alphabets.alphabet_size(alphabet)
     ar = make_ref_ar(net_func, lag, A, af_kwargs, dtype=dtype, compute_dtype=compute_dtype,
                      device=dev)

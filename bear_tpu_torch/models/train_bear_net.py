@@ -35,26 +35,31 @@ from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.utils.checkpoint import clear_train_state, save_results
 from bear_tpu_torch.utils.cli_common import load_restart, write_config, write_eval_results
 from bear_tpu_torch.utils.config import RunConfig
-from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.parallel.mesh import DataSplit, data_parallel_mesh
 from bear_tpu_torch.utils.metrics import MetricsWriter, save_loss_curve
 
 
-def main(config: configparser.ConfigParser, device="cuda"):
-    """Run training + evaluation from a parsed config on ``device``.
+def main(config: configparser.ConfigParser, mesh=None, device="cuda"):
+    """Run training + evaluation from a parsed config on ``device``, or
+    data-parallel over ``mesh`` (by default, with ``[train] data_parallel
+    = True``, a ``data_parallel_mesh`` of every local device of
+    ``device``'s type) for training, evaluation and streaming alike.
 
     Returns 1, or (1, ll_van, perp_van) when train_test is enabled (the
     reference's contract, train_bear_net.py:198-200)."""
     run = RunConfig.from_configparser(config)
-    dev = resolve_device(device)
+    if mesh is None and run.data_parallel:
+        mesh = data_parallel_mesh(device=device)
+    dev = DataSplit(mesh, device).master
     out_folder = run.resolve_out_folder()
     writer = MetricsWriter(out_folder)
     try:
-        return _main(config, run, out_folder, dev, writer)
+        return _main(config, run, out_folder, dev, mesh, writer)
     finally:
         writer.close()
 
 
-def _main(config, run, out_folder, dev, writer):
+def _main(config, run, out_folder, dev, mesh, writer):
     dtype = run.dtype()
     files = run.resolve_files()
     num_kmers = count_kmers(files, header=run.sparse)
@@ -94,7 +99,7 @@ def _main(config, run, out_folder, dev, writer):
               train_ar=run.train_ar, acc_steps=run.accumulation_steps,
               params_restart=params_restart, opt_state_restart=opt_state_restart,
               seed=run.seed, dtype=dtype, shuffle=run.shuffle, writer=writer, device=dev,
-              **ckpt)
+              mesh=mesh, **ckpt)
 
     if run.train and run.streaming:
         def shards(epoch=0):
@@ -137,10 +142,10 @@ def _main(config, run, out_folder, dev, writer):
         if run.streaming:
             return bear_net.evaluation_streaming(
                 eval_shards, train_loc, test_loc, run.alphabet, h, ar_func, params["ar"],
-                van_reg, dtype=dtype, seed=run.seed, device=dev)
+                van_reg, dtype=dtype, seed=run.seed, device=dev, mesh=mesh)
         return bear_net.evaluation(
             ds.codes, ds.counts, train_loc, test_loc, run.alphabet, h, ar_func,
-            params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev,
+            params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev, mesh=mesh,
         )
 
     if run.test:

@@ -27,25 +27,29 @@ from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.utils.checkpoint import clear_train_state, save_results
 from bear_tpu_torch.utils.cli_common import load_restart, write_config, write_eval_results
 from bear_tpu_torch.utils.config import RunConfig
-from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.parallel.mesh import DataSplit, data_parallel_mesh
 from bear_tpu_torch.utils.metrics import MetricsWriter, save_loss_curve
 
 
-def main(config: configparser.ConfigParser, device="cuda"):
+def main(config: configparser.ConfigParser, mesh=None, device="cuda"):
     """Run reference-guided training + evaluation from a parsed config on
-    ``device``. Returns 1, or (1, ll_van, perp_van) when train_test is
-    enabled (the reference's contract)."""
+    ``device``, or data-parallel over ``mesh`` (by default, with ``[train]
+    data_parallel = True``, a ``data_parallel_mesh`` of every local device
+    of ``device``'s type). Returns 1, or (1, ll_van, perp_van) when
+    train_test is enabled (the reference's contract)."""
     run = RunConfig.from_configparser(config)
-    dev = resolve_device(device)
+    if mesh is None and run.data_parallel:
+        mesh = data_parallel_mesh(device=device)
+    dev = DataSplit(mesh, device).master
     out_folder = run.resolve_out_folder()
     writer = MetricsWriter(out_folder)
     try:
-        return _main(config, run, out_folder, dev, writer)
+        return _main(config, run, out_folder, dev, mesh, writer)
     finally:
         writer.close()
 
 
-def _main(config, run, out_folder, dev, writer):
+def _main(config, run, out_folder, dev, mesh, writer):
     dtype = run.dtype()
     files = run.resolve_files()
     num_kmers = count_kmers(files, header=run.sparse)
@@ -82,7 +86,7 @@ def _main(config, run, out_folder, dev, writer):
               optimizer_name=run.optimizer_name, train_ar=run.train_ar,
               acc_steps=run.accumulation_steps, params_restart=params_restart,
               opt_state_restart=opt_state_restart, seed=run.seed, shuffle=run.shuffle,
-              writer=writer, device=dev, **ckpt)
+              writer=writer, device=dev, mesh=mesh, **ckpt)
 
     if run.train and run.streaming:
         def shards(epoch=0):
@@ -125,10 +129,10 @@ def _main(config, run, out_folder, dev, writer):
         if run.streaming:
             return bear_ref.evaluation_streaming(
                 eval_shards, train_loc, test_loc, ds_loc_ref, run.alphabet, h, ar_func,
-                params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev)
+                params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev, mesh=mesh)
         return bear_ref.evaluation(
             ds.codes, ds.counts, train_loc, test_loc, ds_loc_ref, run.alphabet, h, ar_func,
-            params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev)
+            params["ar"], van_reg, dtype=dtype, seed=run.seed, device=dev, mesh=mesh)
 
     if run.test:
         write_eval_results(config, out_folder, "heldout_", _evaluate(ds_loc, run.test_column))

@@ -17,8 +17,10 @@ generator under ``fold_in(key(seed + 1), t)`` (bear_tpu keys JAX's draw the
 same way), so a run is a function of its seed; the streams differ from
 JAX's, so trajectories match bear_tpu's in distribution only. Batches are
 stacked as ``bear_net.train`` stacks them and apply t takes batch
-``t % steps_per_epoch``; Adam takes eps 1e-7. ``mesh`` is not ported yet
-(ROADMAP.md Queue 1 item 13, half 2).
+``t % steps_per_epoch``; Adam takes eps 1e-7. With ``mesh=`` the batch
+rows split over the mesh's entries as in ``bear_net.train``: the draw of
+apply t is made once, so a mesh changes no draw, and the KL term is added
+once, by the process that owns the mesh's first entry.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.ops import keyed_random as kr
-from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.parallel.mesh import DataSplit
 
 
 @dataclass
@@ -73,16 +75,24 @@ def _eps(seed: int, n_apply: int, dtype, device) -> torch.Tensor:
 
 
 def _loss(params, ar_func, codes_b, counts_b, actual_size, eps, num_kmers, prior_mu,
-          prior_sigma):
+          prior_sigma, split=None):
     """-ELBO of one batch at one draw ``eps`` of the reparameterised log h
     (bear_tpu/models/vbear.py:115-127): the batch's DM log-likelihood at
-    h = exp(mu + sigma * eps), scaled by num_kmers / actual_size, minus
-    KL(q || p)."""
+    h = exp(mu + sigma * eps), summed over this process's mesh entries and
+    scaled by num_kmers / actual_size, minus KL(q || p) (on the process
+    that owns the mesh's first entry; the others' share of the sum over
+    processes is the likelihood alone). ``split``: the mesh's
+    :class:`DataSplit`, by default the batch's own device."""
+    split = split if split is not None else DataSplit(None, codes_b.device)
     sigma = torch.exp(params["h_log_sigma"])
-    log_h = params["h_mu"] + sigma * eps
-    probs = ar_func.apply_codes(codes_b, params["ar"])
-    ll = bear_net.bear_log_prob(counts_b, probs, torch.exp(log_h)).sum()
+    h = torch.exp(params["h_mu"] + sigma * eps)
+    ll = split.sum([
+        bear_net.bear_log_prob(n, ar_func.apply_codes(c, [p.to(d) for p in params["ar"]]),
+                               h.to(d)).sum()
+        for (_, d), c, n in zip(split.entries, split.split(codes_b), split.split(counts_b))])
     expected_ll = (num_kmers / actual_size) * ll
+    if split.entries[0][0] != 0:
+        return -expected_ll
     kl = (torch.log(prior_sigma / sigma)
           + (sigma**2 + (params["h_mu"] - prior_mu) ** 2) / (2.0 * prior_sigma**2)
           - 0.5)
@@ -99,9 +109,10 @@ def train_variational_h(codes, counts, num_kmers, ar_func, *, alphabet: str = "d
     codes [N, lag] and counts [N, A+1] as ``bear_net.train``; the AR
     parameters start from ``ar_func.init(torch.Generator().manual_seed(seed))``,
     mu from 0 and sigma from ``init_sigma``. Runs on ``device``; "cuda"
-    (default) raises without a card."""
-    bear_net._not_ported(mesh=mesh)
-    dev = resolve_device(device)
+    (default) raises without a card. ``mesh``: data parallelism as in
+    ``bear_net.train`` (the mesh's devices decide)."""
+    split = DataSplit(mesh, device)
+    dev = split.master
     init = ar_func.init(torch.Generator().manual_seed(seed))
     params = {
         "h_mu": torch.zeros((), dtype=dtype, device=dev),
@@ -115,19 +126,22 @@ def train_variational_h(codes, counts, num_kmers, ar_func, *, alphabet: str = "d
     optimizer = bear_net.make_optimizer(optimizer_name, learning_rate, leaves)
 
     codes, counts = bear_net._to_device(codes, counts, dtype, dev)
-    codes_s, counts_s, sizes = bear_net._stack_batches(codes, counts, batch_size)
+    codes_s, counts_s, sizes = bear_net._stack_batches(codes, counts, batch_size, split.n)
     steps_per_epoch = codes_s.shape[0]
     total_steps = steps_per_epoch * int(epochs)
     prior = (torch.tensor(float(prior_mu), dtype=dtype, device=dev),
              torch.tensor(float(prior_sigma), dtype=dtype, device=dev))
     eps = _eps(seed, total_steps, dtype, dev)
     losses = torch.empty(total_steps, dtype=dtype, device=dev)
+    sync = bear_net._grad_sync(split, leaves)
     for t in range(total_steps):
         idx = t % steps_per_epoch
         optimizer.zero_grad(set_to_none=False)
         loss = _loss(params, ar_func, codes_s[idx], counts_s[idx], float(sizes[idx]), eps[t],
-                     float(num_kmers), *prior)
+                     float(num_kmers), *prior, split=split)
         loss.backward()
+        if sync is not None:
+            loss = sync(loss.detach())
         optimizer.step()
         losses[t] = loss.detach()
     for p in leaves:

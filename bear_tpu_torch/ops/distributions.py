@@ -47,15 +47,21 @@ def multinomial_perm_logpmf(counts, probs):
     return torch.xlogy(counts, probs).sum(dim=-1)
 
 
-def ml_output(scores, generator: torch.Generator | None = None):
+def gumbel_noise(shape, generator: torch.Generator | None = None, device=None):
+    """Standard Gumbel noise of ``shape`` in float32, from ``generator``."""
+    return -torch.empty(shape, dtype=torch.float32, device=device
+                        ).exponential_(generator=generator).log()
+
+
+def ml_output(scores, generator: torch.Generator | None = None, gumbel=None):
     """Most likely transition: argmax over the last axis, as a float of
     scores' dtype. Exact ties are broken uniformly at random: Gumbel noise
-    from ``generator`` (on scores' device) is consulted only among the
-    entries equal to the row's maximum, so a row without ties gives its
-    plain argmax."""
+    (``gumbel``, shaped like scores, else drawn from ``generator`` on
+    scores' device) is consulted only among the entries equal to the row's
+    maximum, so a row without ties gives its plain argmax."""
     top = scores.amax(dim=-1, keepdim=True)
-    gumbel = -torch.empty(scores.shape, dtype=torch.float32, device=scores.device
-                          ).exponential_(generator=generator).log()
+    if gumbel is None:
+        gumbel = gumbel_noise(scores.shape, generator, scores.device)
     masked = torch.where(scores == top, gumbel, -torch.inf)
     return masked.argmax(dim=-1).to(scores.dtype)
 

@@ -1,12 +1,15 @@
-"""Counting across processes (port of bear_tpu/parallel/multihost.py), on
-``torch.distributed``'s gloo backend.
+"""Counting and training across processes (port of
+bear_tpu/parallel/multihost.py), on ``torch.distributed``'s gloo backend.
 
 - call :func:`initialize` before any other collective: it joins this
   process to the group (a TCP rendezvous at the coordinator's address);
 - shard the input FILES (or reads) across processes with
   :func:`host_shard`: each process counts its share on its own devices;
 - merge the counters' host tables with :func:`allreduce_tables` (exact in
-  int64, idempotent, safe to call after every flush).
+  int64, idempotent, safe to call after every flush);
+- training, evaluation and serving over a mesh that spans the processes
+  sum their gradients, metrics and gathers with :func:`allreduce_sum_`
+  (see ``parallel.mesh.DataSplit``).
 
 The tables merged are host int64 arrays in both packages, so the
 collectives run on the CPU and need no NCCL. Gloo carries int64 exactly,
@@ -84,13 +87,27 @@ def _allreduce_(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def _allgather(arr: np.ndarray) -> np.ndarray:
+def allgather_i64(arr) -> np.ndarray:
     """[process_count, len] of an equal-length int64 array from every
     process."""
     t = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int64))
     out = [torch.empty_like(t) for _ in range(process_count())]
     dist.all_gather(out, t)
     return torch.stack(out).numpy()
+
+
+def allreduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum a tensor across all processes, in place, in ONE gloo collective
+    (a no-op in a single process). A tensor on a card goes through a host
+    copy: gloo sums host memory, so the collective and its order are the
+    same whatever the device. Every rank receives the same bits."""
+    if process_count() == 1:
+        return t
+    host = t.detach().to("cpu", copy=True) if t.device.type != "cpu" else t
+    dist.all_reduce(host)
+    if host is not t:
+        t.copy_(host)
+    return t
 
 
 def allreduce_sum_i64(arr) -> np.ndarray:
@@ -135,10 +152,10 @@ def allreduce_tables(counter) -> None:
                 d_vals[np.searchsorted(keys, b_keys)] -= b_vals
             nz = d_vals > 0
             d_keys, d_vals = keys[nz], d_vals[nz]
-            n_all = _allgather(np.array([len(d_keys)], np.int64)).reshape(-1)
+            n_all = allgather_i64(np.array([len(d_keys)], np.int64)).reshape(-1)
             n_max = int(n_all.max())
-            keys_all = _allgather(np.pad(d_keys, (0, n_max - len(d_keys))))
-            vals_all = _allgather(np.pad(d_vals, (0, n_max - len(d_vals))))
+            keys_all = allgather_i64(np.pad(d_keys, (0, n_max - len(d_keys))))
+            vals_all = allgather_i64(np.pad(d_vals, (0, n_max - len(d_vals))))
             parts = [(b_keys, b_vals)] if len(b_keys) else []
             parts += [(keys_all[p, : n_all[p]], vals_all[p, : n_all[p]])
                       for p in range(len(n_all)) if n_all[p]]

@@ -24,8 +24,9 @@ Semantics kept:
   the AR network in that type (``RunConfig.compute_dtype``) while the
   parameters and the likelihood stay in ``precision``.
 
-Not ported yet, and refused when asked for: ``data_parallel`` (training
-over a mesh, ROADMAP.md Queue 1 item 13, half 2).
+- [train] data_parallel = True splits every batch over all local devices
+  (a ``data_parallel_mesh``), the CLI's counterpart of passing ``mesh=``
+  to training and evaluation (a bear_tpu extension).
 """
 
 from __future__ import annotations
@@ -93,12 +94,12 @@ class RunConfig:
     streaming: bool = False  # [train] streaming: one count file at a time
     checkpoint_every: int = 0  # [train] checkpoint_every: mid-run state cadence
     compute_precision: str = ""  # [model] compute_precision: the AR network's type
+    data_parallel: bool = False  # [train] data_parallel: batches over all local devices
 
     @classmethod
     def from_configparser(cls, config: configparser.ConfigParser) -> "RunConfig":
         g, d, hp = config["general"], config["data"], config["hyperp"]
         tr, te, mo = config["train"], config["test"], config["model"]
-        _refuse_not_ported(tr)
         return cls(
             out_folder=g["out_folder"],
             seed=int(g["seed"]),
@@ -125,6 +126,7 @@ class RunConfig:
             cache=tr.get("cache", "True") == "True",
             streaming=tr.get("streaming", "False") == "True",
             checkpoint_every=int(tr.get("checkpoint_every", "0")),
+            data_parallel=tr.get("data_parallel", "False") == "True",
             test=te["test"] == "True",
             train_test=te["train_test"] == "True",
             van_reg=json.loads(te["van_reg"]),
@@ -185,11 +187,3 @@ class RunConfig:
             f"unknown compute_precision {self.compute_precision!r} "
             "(expected '', 'bfloat16' or 'float32')"
         )
-
-
-def _refuse_not_ported(tr) -> None:
-    """Raise on the bear_tpu extension the port does not have yet."""
-    if tr.get("data_parallel", "False") == "True":
-        raise NotImplementedError(
-            "[train] data_parallel = True (training over a mesh) is not ported to PyTorch "
-            "yet; see ROADMAP.md Queue 1 item 13, half 2 (slice 10)")

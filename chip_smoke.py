@@ -87,7 +87,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    float64 from the same parameters), training alone timed and profiled;
    (Q) the seven optax optimizers (adamw, adamax, rmsprop, adagrad, nadam,
    adadelta, lion) on the YSD1 linear BEAR, 200 float64 applies on the card
-   against the CPU, then 1,000 float32 applies each, timed; (R) bfloat16
+   against the CPU, then 300 float32 applies each, timed; (R) bfloat16
    compute on 4c's lag-13 handoff, the CNN and a lag-13 attention AR, each
    against float32 from the same start (last ELBO within 1%, float32
    probabilities summing to 1), with one bfloat16 run traced by
@@ -110,6 +110,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tables against phase 4's and (U)'s (python3 chip_smoke.py --child
    SPEC RANK runs one process; a child that fails or outlasts its timeout
    fails the run);
+4j. data parallelism on the card, one card playing each mesh's entries:
+   (W) count -> serve's chunks counted again and handed off, 4c's CNN BEAR
+   over a 2-entry data mesh: 5 float64 applies on the mesh against off it,
+   4c's float32 protocol (first ELBOs against 4c's CPU float64, applies/s
+   beside 4c's, a profile), evaluation(mesh=) against evaluation in
+   float64, train_streaming(mesh=) on 4e's lag-13 shards (32 applies, a
+   checkpoint every 16, resumed after completion) and
+   evaluation_streaming(mesh=) against the calls without; (X)
+   train_bear_net.main with [train] data_parallel = True on YSD1 (h and
+   BEAR as 4b), train_bear_ref.main over the mesh (BMM against
+   bmm_likelihood), vBEAR over it (200 float64 applies against off it,
+   then 4f (I)'s protocol); (Y) 4c's CNN served by from_model_dir(mesh=)
+   with the lag-13 table's rows split over a 2-entry kmer mesh (MAP bits
+   equal to 4c's unsplit server's; float64 MAP, MC-41 and SNV Δ against
+   unsplit), bmm_likelihood(mesh=); (Z) in (V)'s children, after their
+   dense merge: (W)'s CNN trained 16 float32 applies and evaluated over a
+   mesh that spans both processes (ranks bit-equal, first ELBOs against
+   (W)'s), and YSD1 train_streaming resumed from a shared checkpoint
+   directory and aborted on diverged rank-local ones;
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -151,6 +170,7 @@ SCORE_ATOL = 1e-3
 # does not depend on training: card float32 against CPU float64 at 1e-5
 # (float32 lgamma of counts up to ~1e5, summed over 1,365 rows).
 YSD1_H, YSD1_H_RTOL = 0.04326, 0.02
+YSD1_TIMED_APPLIES = 2000  # training alone, timed (the CLI runs all 10,000)
 YSD1_PERPLEXITY, YSD1_PERPLEXITY_ATOL = 3.79, 0.01
 BMM_RTOL = 1e-5
 VAN_REG = [0.1, 1.0, 10.0]
@@ -230,11 +250,11 @@ ATTN_LR = 0.002
 # of (P) (NVIDIA H100 80GB HBM3, 700 W): BEAR 3.790651 (the counts dominate,
 # as the linear BEAR's 3.790637), held within 0.01 as (A)'s.
 ATTN_PERPLEXITY, ATTN_PERPLEXITY_ATOL = 3.790651, 0.01
-ATTN_TIMED_APPLIES = 1000
+ATTN_TIMED_APPLIES = 300
 OPTAX_NAMES = ["adamw", "adamax", "rmsprop", "adagrad", "nadam", "adadelta", "lion"]
 OPT_CHECK_APPLIES = 200
 OPT_RTOL = 1e-9
-OPT_TIMED_APPLIES = 1000
+OPT_TIMED_APPLIES = 300
 BF16_EPOCHS = 3  # 108 applies of 2^15 rows on 4c's 1,158,428
 BF16_LOSS_RTOL = 1e-2
 BF16_SUM_ATOL = 1e-5
@@ -249,6 +269,22 @@ MESH_ROWS = 3
 MESH_ROW_LAG = 14
 MESH_PROCS = 2
 CHILD_TIMEOUT_S = 600
+# Phase 4j: data parallelism on the card. (W) 4c's CNN BEAR over a mesh that
+# names the card twice: float64 on it against off it at bear_tpu's shard-
+# invariance tolerance (tests/test_bear_net.py:243-278), parameters with an
+# atol for those near 0; the float32 protocol within ELBO_RTOL of CPU
+# float64; 32 streamed applies with a checkpoint every 16. (X) the CLIs and
+# vBEAR (200 float64 applies at MESH_RTOL). (Y) row-split serving: float32
+# bit-equal (the gather is exact), float64 at 1e-12, as bear_tpu's
+# tests/test_serving.py:120-155. (Z) 16 applies over two processes.
+MESH_TRAIN = 2
+MESH_F64_APPLIES = 5
+MESH_RTOL, MESH_ATOL = 1e-9, 1e-12
+MESH_STREAM_APPLIES, MESH_STREAM_EVERY = 32, 16
+MESH_VBEAR_CHECK = 200
+SPLIT_RTOL = 1e-12
+SPLIT_READS, SPLIT_SNV_BP = 256, 1000
+Z_APPLIES = 16
 
 
 def ysd1_config(out_folder):
@@ -595,7 +631,7 @@ def ysd1_phase(out_dir, card, device="cuda"):
               device=device)
     synchronize(device)
     t0 = time.perf_counter()
-    alone = bear_net.train(ds.codes, ds.counts[:, 0], epochs=applies, **kw)
+    alone = bear_net.train(ds.codes, ds.counts[:, 0], epochs=YSD1_TIMED_APPLIES, **kw)
     synchronize(device)
     train_s = time.perf_counter() - t0
 
@@ -606,8 +642,8 @@ def ysd1_phase(out_dir, card, device="cuda"):
     bmm_err = float(np.max(np.abs(np.asarray(perp["BMM"]) / ref[5] - 1)))
     print(f"[ysd1] train_bear_net.main, bear_lin_bear.cfg values in float32: {applies:,} "
           f"optimizer applies; the CLI run (load, train, evaluate twice, write) "
-          f"{cli_s:.3f} s; training alone {train_s:.3f} s = {applies / train_s:.6g} "
-          f"applies/s (h {alone.h:.6g}) [{card}]")
+          f"{cli_s:.3f} s; training alone, {YSD1_TIMED_APPLIES:,} applies, {train_s:.3f} s = "
+          f"{YSD1_TIMED_APPLIES / train_s:.6g} applies/s (h {alone.h:.6g}) [{card}]")
     print(f"[ysd1] h {h:.6g} (published {YSD1_H}); held-out perplexity BEAR "
           f"{perp['BEAR']:.6f} AR {perp['AR']:.6f} BMM {perp['BMM']}; accuracy BEAR "
           f"{acc['BEAR']:.6f} AR {acc['AR']:.6f} BMM {acc['BMM']}; BMM vs CPU float64 "
@@ -648,13 +684,15 @@ def write_model_dir(out_dir, res, lag, ar_name, af_kwargs, epochs, batch, lr=TRA
 
 def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=LAG,
                       cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-                      n_score=N_SCORE):
+                      n_score=N_SCORE, record=None):
     """4c: count the chunks into a fresh TransitionCounter, hand the counts
     off on the device before any flush, train the CNN BEAR, evaluate,
     write and reload the model and serve held-out reads with it. Checks
     conservation of the handoff, the first applies' ELBOs against CPU
     float64 and the trained model's scores against CPU float64. Returns
-    what the profiles reuse."""
+    what the profiles reuse; ``record`` (a dict) receives what phase 4j
+    holds its mesh runs against: the CPU float64 ELBOs, the applies/s, the
+    trained parameters and h, the reads and their scores."""
     import torch
     from bear_tpu_torch.counting import engine
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
@@ -760,6 +798,10 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
           f"CNN: {len(seqs)} held-out reads in {serve_s:.4f} s = {len(seqs) / serve_s:.6g} "
           f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e}; scores "
           f"{ref_scores.min():.3f}..{ref_scores.max():.3f} [{card}]")
+    if record is not None:
+        record.update(elbo_ref=ref.elbos[:k], applies_per_s=len(elbos) / train_s,
+                      params=res.params_list, h=res.h, seqs=seqs, scores=scores,
+                      sequences_per_s=len(seqs) / serve_s, p0=p0)
     return launches, codes, counts, ar, p0, n_rows
 
 
@@ -1181,7 +1223,7 @@ def stream_config(out_folder, counts_prefix, lag=LAG, cnn_kw=CNN_KW, batch=TRAIN
 
 def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="cuda",
                           lag=LAG, cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-                          n_cli=CLI_READS, profile=True):
+                          n_cli=CLI_READS, profile=True, record=None):
     """4e, training: the streaming training CLI on the lag-``lag`` shards,
     timed by wrapping its load, train and evaluation calls. Checks the
     first ELBOs against train_streaming on the CPU in float64 from the same
@@ -1189,7 +1231,9 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
     perplexities against the in-memory evaluation of the concatenated
     shards on ``device``, that the mid-run state is gone and the shard
     cache is there, and scores held-out reads with the score CLI. With
-    ``profile``, profiles one epoch of streamed training without loads."""
+    ``profile``, profiles one epoch of streamed training without loads.
+    ``record`` (a dict) receives the run's ELBOs, its initial parameters,
+    seed and k-mer count, and the CLI's data config, for phase 4j."""
     import contextlib
     import io
 
@@ -1243,6 +1287,9 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
         bear_net.train_streaming, bear_net.evaluation_streaming = real[1], real[2]
     res, kw = seen["result"], seen["kw"]
     elbos = res.elbos
+    if record is not None:
+        record.update(elbos=elbos, p0=seen["p0"], seed=seed, num_kmers=kw["num_kmers"],
+                      data=dict(cfg["data"]))
     F = len(shards)
     n_rows = kw["num_kmers"]
     n_batches = sum(-(-count_kmers([f]) // batch) for f in shards)
@@ -2679,7 +2726,8 @@ def sparse_mesh_phase(s_run, ref_rows, m_prefix, work, card, device="cuda", lag=
 
 def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, device="cuda",
                       procs=MESH_PROCS, reads_kw=None, rows=CHUNK_ROWS, lag=LAG,
-                      sparse_lag=SPARSE_LAG, timeout=CHILD_TIMEOUT_S, threads=None):
+                      sparse_lag=SPARSE_LAG, timeout=CHILD_TIMEOUT_S, threads=None, z=None,
+                      record=None):
     """4i (V): ``procs`` processes on the card, joined by multihost.initialize
     over TCP on 127.0.0.1. Each counts its host_shard of count -> serve's
     chunks at lag ``lag`` (dense), then of (G)'s FASTQ files at lags
@@ -2688,7 +2736,11 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
     ``timeout``, that the second merge changed nothing (in the child),
     and that every rank's merged tables equal phase 4's nonzero rows and
     counts and ``sparse_ref``'s keys and counts (the one-process count
-    whose shards equal (M)'s). Returns (count_chunk launches, s)."""
+    whose shards equal (M)'s). With ``z`` (phase 4j (Z): ``cnn_kw``,
+    ``batch``, ``applies``), each child then trains and evaluates over a
+    mesh that spans the processes (:func:`z_train`, :func:`z_checkpoints`),
+    and every rank's results must be bit-equal; ``record`` receives them.
+    Returns (count_chunk launches, s)."""
     import socket
     import subprocess
 
@@ -2698,10 +2750,12 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
         port = s.getsockname()[1]
     spec_path = os.path.join(work, "two_process.json")
     outs = [os.path.join(work, f"rank{r}.npz") for r in range(procs)]
+    if z is not None:
+        z = dict(z, ck_dir=os.path.join(work, "z_checkpoints"))
     with open(spec_path, "w") as fh:
         json.dump(dict(port=port, procs=procs, device=device, reads=reads_kw or {}, rows=rows,
                        lag=lag, sparse_lag=sparse_lag, csv=s_run["csv"], outs=outs,
-                       timeout=timeout, threads=threads), fh)
+                       timeout=timeout, threads=threads, z=z), fh)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     script = os.path.abspath(__file__)
     children = [subprocess.Popen([sys.executable, script, "--child", spec_path, str(r)],
@@ -2721,7 +2775,7 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
         for line in log.splitlines():
             print(f"[4i] (V) rank {r}: {line}")
         check(c.returncode == 0, f"(V) rank {r} exited {c.returncode}")
-    reports = []
+    reports, z_ranks = [], []
     for r, out in enumerate(outs):
         with np.load(out) as got:
             check(np.array_equal(got["dense_rows"], want_rows)
@@ -2733,7 +2787,23 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
                       and np.array_equal(got[f"vals_{l}"], vals),
                       f"(V) rank {r}'s merged lag-{l} counts differ from the one-process count")
             reports.append(json.loads(str(got["report"])))
+            z_ranks.append({k: got[k] for k in got.files if k.startswith("z_")})
         os.remove(out)
+    if z is not None:
+        for k in z_ranks[0]:
+            check(all(np.array_equal(zr[k], z_ranks[0][k]) for zr in z_ranks[1:]),
+                  f"(Z) the ranks' {k} differ")
+        zrep = [rep["z"] for rep in reports]
+        print(f"[4j] (Z) {procs} processes, one mesh over their {zrep[0]['entries']} entries: "
+              f"{z['applies']} float32 applies of the CNN BEAR and evaluation(mesh=); every "
+              f"rank's ELBOs, parameters and metrics bit-equal; the gradient sum (one gloo "
+              f"collective of {zrep[0]['grad_numel']:,} values) "
+              f"{[rep['sync_ms'] for rep in zrep]} ms per apply by rank; training "
+              f"{[rep['train_s'] for rep in zrep]} s; YSD1 train_streaming with a shared "
+              f"checkpoint directory resumed identically, rank-local directories with "
+              f"diverged state aborted both ranks ('differs across processes') [{card}]")
+        if record is not None:
+            record.update(z_ranks[0], reports=zrep)
     launches = sum(rep["launches"] for rep in reports)
     print(f"[4i] (V) {procs} processes: every rank's merged tables == phase 4's lag-{lag} "
           f"table ({len(want_rows):,} rows) and the one-process lag 1..{sparse_lag} counts "
@@ -2786,6 +2856,10 @@ def child(spec_path, rank):
           "the second dense merge changed the table")
     dense.validate(len(reads) * (reads.shape[1] + 1))
     launches = count_chunk_update.launches
+    z_out, z_report = {}, {}
+    if spec["z"]:
+        z_out, z_report = z_train(dense, spec["z"], device, lag)
+        z_out.update(z_checkpoints(spec["z"], rank, device))
     del dense
 
     files = multihost.host_shard(fastx.read_input_csv(spec["csv"]))
@@ -2810,11 +2884,472 @@ def child(spec_path, rank):
     print(f"{len(files)} of the FASTQ files counted at lags 1..{spec['sparse_lag']} "
           f"(sparse-first) in {count_s:.3f} s; merges {merge_s} s; both merges' results equal")
     np.savez(spec["outs"][rank], dense_rows=answers[0][0], dense_counts=answers[0][1],
-             report=json.dumps({"launches": launches, "merge_s": merge_s}),
+             report=json.dumps({"launches": launches, "merge_s": merge_s, "z": z_report}),
+             **z_out,
              **{f"{k}_{l}": a for l, (keys, vals) in got[1].items()
                 for k, a in (("keys", keys), ("vals", vals))})
     torch.distributed.destroy_process_group()
     return 0
+
+
+def close(a, b, rtol, atol=0.0):
+    """Whether a and b agree as np.allclose(a, b, rtol, atol) does, and the
+    largest |a - b| (for the message)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return bool(np.allclose(a, b, rtol=rtol, atol=atol)), float(np.max(np.abs(a - b)))
+
+
+def same_params(a, b, rtol, atol=MESH_ATOL):
+    """(all parameters agree, the largest |difference|) of two lists."""
+    got = [close(x, y, rtol, atol) for x, y in zip(a, b)]
+    return all(ok for ok, _ in got), max(d for _, d in got)
+
+
+def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", lag=LAG,
+                     cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                     entries=MESH_TRAIN, f64_applies=MESH_F64_APPLIES,
+                     stream_applies=MESH_STREAM_APPLIES, stream_every=MESH_STREAM_EVERY,
+                     profile=True):
+    """4j (W): data-parallel training at full width over a mesh that names
+    ``device`` ``entries`` times. count -> serve's chunks counted again and
+    handed off on the device (their count_chunk launches counted from 0);
+    float64 applies on the mesh and off it from 4c's start (ELBOs and
+    parameters at MESH_RTOL); 4c's float32 protocol on the mesh (its first
+    ELBOs against 4c's CPU float64 ones, applies/s beside 4c's);
+    evaluation(mesh=) against evaluation, float64; train_streaming(mesh=)
+    on 4e's lag-13 shards, 4e's first ``stream_applies`` batches, a
+    checkpoint every ``stream_every`` applies, resumed after completion
+    (the same parameters; its first ELBOs against 4e's streamed run's);
+    evaluation_streaming(mesh=) against the call without a mesh, float64.
+    Returns (count_chunk launches, what (Y) and (Z) reuse)."""
+    import torch
+    from bear_tpu_torch.counting import engine
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    mesh = mesh_of(device, entries, "data")
+    count_chunk_update.launches = 0
+    counter = engine.TransitionCounter(lags=[lag], n_groups=N_GROUPS, device=device)
+    for chunk in chunks:
+        counter.add_chunk(chunk)
+    codes, counts = counter.to_device_dataset(lag)
+    launches = count_chunk_update.launches
+    del counter
+    n_rows = codes.shape[0]
+    on_card = torch.device(device).type == "cuda"  # the plain version launches nothing
+    check(launches == (len(chunks) if on_card else 0),
+          f"(W) {launches} count_chunk launches for {len(chunks)} chunks")
+    p0 = b_rec["p0"]
+
+    # float64 from 4c's start, on the mesh and off it
+    n5 = f64_applies * batch
+    ar64 = get_ar_func("cnn", lag, 4, cnn_kw, dtype=torch.float64, device=device)
+    kw64 = dict(num_kmers=n_rows, ar_func=ar64, batch_size=batch, epochs=1,
+                learning_rate=TRAIN_LR, params_restart=p0, dtype=torch.float64, device=device)
+    off = bear_net.train(codes[:n5], counts[:n5, 0], **kw64)
+    on = bear_net.train(codes[:n5], counts[:n5, 0], mesh=mesh, **kw64)
+    ok_e, d_e = close(on.elbos, off.elbos, MESH_RTOL)
+    ok_p, d_p = same_params(on.params_list, off.params_list, MESH_RTOL)
+    check(len(on.elbos) == len(off.elbos) == f64_applies and ok_e and ok_p,
+          f"(W) float64 on the mesh differs from off it: ELBOs {d_e:.3e}, parameters {d_p:.3e}")
+    print(f"[4j] (W) count -> serve's chunks counted again ({launches} count_chunk launches) "
+          f"and handed off on {device}: {n_rows:,} rows; {f64_applies} float64 applies of the "
+          f"CNN BEAR over {mesh} against off it, from 4c's start: max |dELBO| {d_e:.3e}, max "
+          f"|dparam| {d_p:.3e} (rtol {MESH_RTOL})")
+
+    # 4c's float32 protocol over the mesh
+    cnn = get_ar_func("cnn", lag, 4, cnn_kw, device=device)
+    kw = dict(num_kmers=n_rows, ar_func=cnn, batch_size=batch, learning_rate=TRAIN_LR,
+              params_restart=p0, dtype=torch.float32, device=device, mesh=mesh)
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bear_net.train(codes, counts[:, 0], epochs=epochs, **kw)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+    ref = b_rec["elbo_ref"]
+    k = len(ref)
+    elbo_err = rel_err(res.elbos[:k], ref)
+    check(np.isfinite(res.elbos).all() and elbo_err <= ELBO_RTOL,
+          f"(W) first {k} ELBOs on the mesh {res.elbos[:k]} differ from 4c's CPU float64 "
+          f"{ref} by {elbo_err:.3e}")
+    rate = len(res.elbos) / train_s
+    print(f"[4j] (W) 4c's protocol over the mesh, float32: {len(res.elbos)} applies in "
+          f"{train_s:.3f} s = {rate:.6g} applies/s; 4c's without a mesh {b_rec['applies_per_s']:.6g} "
+          f"applies/s in this run ({rate / b_rec['applies_per_s']:.3f}x); first {k} ELBOs vs "
+          f"4c's CPU float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL}); h {res.h:.6g} "
+          f"[{card}]")
+    if profile:
+        n20 = 20 * batch
+        device_breakdown(f"(W) train lag-13 CNN BEAR over {entries} entries, 20 applies",
+                         lambda: bear_net.train(codes[:n20], counts[:n20, 0], epochs=1, **kw),
+                         card, top=10)
+
+    # evaluation, float64, on the mesh and off it
+    args = (codes, counts, 0, 1, "dna", res.h, ar64, res.params_list[1:], VAN_REG)
+    synchronize(device)
+    t0 = time.perf_counter()
+    ev_on = bear_net.evaluation(*args, dtype=torch.float64, device=device, mesh=mesh)
+    eval_s = time.perf_counter() - t0
+    ev_off = bear_net.evaluation(*args, dtype=torch.float64, device=device)
+    ok = [close(a, b, MESH_RTOL) for a, b in zip(ev_on[:6], ev_off[:6])]
+    same_acc = all(np.array_equal(a, b) for a, b in zip(ev_on[6:], ev_off[6:]))
+    check(all(o for o, _ in ok) and same_acc,
+          f"(W) evaluation(mesh=) differs from evaluation: {[d for _, d in ok]}, accuracies "
+          f"equal {same_acc}")
+    print(f"[4j] (W) evaluation(mesh=) float64 {eval_s:.3f} s == evaluation without a mesh "
+          f"(max |d| {max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; accuracies equal); "
+          f"held-out perplexity BEAR {float(ev_on[3]):.6f} [{card}]")
+
+    # train_streaming over the mesh on 4e's lag-13 shards: 4e's first batches
+    F, seed = len(shards), s_rec["seed"]
+    order = list(range(F))
+    np.random.default_rng([seed, 0]).shuffle(order)
+    loaded = {}
+
+    def shard(fi):
+        if fi not in loaded:
+            loaded[fi] = load_dense(shards[fi], "dna", N_GROUPS)
+        return loaded[fi]
+
+    def stream():
+        """4e's epoch-0 stream (file order, in-shard permutation), cut
+        after ``stream_applies`` batches."""
+        left = stream_applies
+        for pos, fi in enumerate(order):
+            if left == 0:
+                return
+            d = shard(fi)
+            perm = np.random.default_rng([seed, 0, pos]).permutation(d.num_kmers)
+            take = min(-(-d.num_kmers // batch), left)
+            left -= take
+            rows = perm[: min(d.num_kmers, take * batch)]
+            yield d.codes[rows], d.counts[rows, 0]
+
+    ck = os.path.join(work, "w_checkpoints")
+    os.makedirs(ck, exist_ok=True)
+    skw = dict(num_kmers=s_rec["num_kmers"], ar_func=get_ar_func("cnn", lag, 4, cnn_kw,
+                                                                 device=device),
+               batch_size=batch, epochs=1, learning_rate=TRAIN_LR, params_restart=s_rec["p0"],
+               dtype=torch.float32, device=device, mesh=mesh, block_steps=stream_every,
+               checkpoint_every=stream_every, checkpoint_dir=ck)
+    synchronize(device)
+    t0 = time.perf_counter()
+    first = bear_net.train_streaming(stream, **skw)
+    synchronize(device)
+    stream_s = time.perf_counter() - t0
+    again = bear_net.train_streaming(stream, **skw)
+    resumed_same = all(np.array_equal(a, b) for a, b in zip(first.params_list,
+                                                            again.params_list))
+    k = min(N_ELBO_CHECK, stream_applies)
+    s_err = rel_err(first.elbos[:k], s_rec["elbos"][:k])
+    check(len(first.elbos) == stream_applies and len(again.elbos) == 0 and resumed_same
+          and s_err <= ELBO_RTOL,
+          f"(W) train_streaming(mesh=): {len(first.elbos)} applies, {len(again.elbos)} on "
+          f"resume, parameters equal {resumed_same}, first ELBOs vs 4e's {s_err:.3e}")
+    print(f"[4j] (W) train_streaming(mesh=) on 4e's lag-13 shards: {stream_applies} applies "
+          f"({stream_applies / stream_s:.6g} applies/s, shard loads included), a checkpoint "
+          f"every {stream_every}; resumed after completion: no apply run, the same parameters; "
+          f"first {k} ELBOs vs 4e's streamed run max rel err {s_err:.3e} (tolerance "
+          f"{ELBO_RTOL}) [{card}]")
+
+    # evaluation_streaming, float64, on the mesh and off it
+    for fi in range(F):
+        shard(fi)
+    eargs = (lambda: ((loaded[fi].codes, loaded[fi].counts) for fi in range(F)), 0, 1, "dna",
+             first.h, ar64, first.params_list[1:], VAN_REG)
+    synchronize(device)
+    t0 = time.perf_counter()
+    es_on = bear_net.evaluation_streaming(*eargs, dtype=torch.float64, seed=seed, device=device,
+                                          mesh=mesh)
+    es_s = time.perf_counter() - t0
+    es_off = bear_net.evaluation_streaming(*eargs, dtype=torch.float64, seed=seed,
+                                           device=device)
+    ok = [close(a, b, MESH_RTOL) for a, b in zip(es_on[:6], es_off[:6])]
+    same_acc = all(np.array_equal(a, b) for a, b in zip(es_on[6:], es_off[6:]))
+    check(all(o for o, _ in ok) and same_acc,
+          f"(W) evaluation_streaming(mesh=) differs: {[d for _, d in ok]}, accuracies equal "
+          f"{same_acc}")
+    print(f"[4j] (W) evaluation_streaming(mesh=) float64 over {F} shards {es_s:.3f} s == the "
+          f"call without a mesh (max |d| {max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; "
+          f"accuracies equal) [{card}]")
+    return launches, dict(codes=codes, counts=counts, elbos=res.elbos, applies_per_s=rate)
+
+
+def mesh_cli_phase(out_dir, card, device="cuda", epochs=None, gate=True,
+                   check_applies=MESH_VBEAR_CHECK, vbear_applies=VBEAR_APPLIES,
+                   entries=MESH_TRAIN):
+    """4j (X): train_bear_net.main on bear_lin_bear.cfg's values with
+    ``[train] data_parallel = True`` (a mesh of every local card; with
+    ``gate``, h and the BEAR held-out perplexity as 4b's), train_bear_ref.main
+    with data_parallel over ``entries`` entries on YSD1 (its BMM against
+    bmm_likelihood), and vBEAR over those entries: ``check_applies``
+    float64 applies against the run without a mesh (MESH_RTOL), then 4f
+    (I)'s float32 protocol (h within 25% of 0.0433, sigma < 0.25, with
+    ``gate``)."""
+    import torch
+    from bear_tpu_torch.data import bmm_likelihood, load_dense
+    from bear_tpu_torch.models import train_bear_net, train_bear_ref, vbear
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.ops.distributions import EPSILON
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    mesh = mesh_of(device, entries, "data")
+    cfg = ysd1_config(os.path.join(out_dir, "ysd1_dp") + "*")
+    cfg["train"]["data_parallel"] = "True"
+    if epochs is not None:
+        cfg["train"]["epochs"] = str(epochs)
+    t0 = time.perf_counter()
+    train_bear_net.main(cfg, device=device)
+    cli_s = time.perf_counter() - t0
+    h, perp = float(cfg["results"]["h"]), float(cfg["results"]["heldout_perplex_BEAR"])
+    print(f"[4j] (X) train_bear_net.main, bear_lin_bear.cfg's values, data_parallel = True: "
+          f"{cli_s:.3f} s; h {h:.6g} (published {YSD1_H}), held-out perplexity BEAR "
+          f"{perp:.6f} [{card}]")
+    if gate:
+        check(abs(h / YSD1_H - 1) <= YSD1_H_RTOL and abs(perp - YSD1_PERPLEXITY)
+              <= YSD1_PERPLEXITY_ATOL, f"(X) h {h} or BEAR {perp} off the published values")
+
+    cfg = ysd1_config(os.path.join(out_dir, "ysd1_ref_dp") + "*")
+    cfg["train"].update(epochs="1", train_ar="True", data_parallel="True")
+    t0 = time.perf_counter()
+    _, _, perp_van = train_bear_ref.main(cfg, mesh=mesh, device=device)
+    ref_s = time.perf_counter() - t0
+    ds = load_dense(bundled_ysd1_path(), "dna", 3)
+    calc = bmm_likelihood(ds.counts, np.array(VAN_REG) + EPSILON, device="cpu")[0]
+    bmm_err = rel_err(perp_van, np.exp(-calc / ds.counts[:, 0].sum()))
+    check(bmm_err <= BMM_RTOL, f"(X) train_bear_ref BMM {perp_van} off bmm_likelihood's by "
+          f"{bmm_err:.3e}")
+    print(f"[4j] (X) train_bear_ref.main on YSD1, data_parallel over {mesh}: {ref_s:.3f} s; "
+          f"BMM vs bmm_likelihood float64 max rel err {bmm_err:.3e} (tolerance {BMM_RTOL}) "
+          f"[{card}]")
+
+    kw = dict(batch_size=1500, learning_rate=0.01, seed=10, device=device)
+    ar64 = get_ar_func("linear", 5, 4, dtype=torch.float64, device=device)
+    args = (ds.codes, ds.counts[:, 0], ds.num_kmers, ar64)
+    off = vbear.train_variational_h(*args, epochs=check_applies, dtype=torch.float64, **kw)
+    on = vbear.train_variational_h(*args, epochs=check_applies, dtype=torch.float64, mesh=mesh,
+                                   **kw)
+    ok, d = close(on.losses, off.losses, MESH_RTOL)
+    ok_h, d_h = close(on.h_posterior, off.h_posterior, MESH_RTOL)
+    check(ok and ok_h, f"(X) vBEAR float64 on the mesh differs: losses {d:.3e}, (mu, sigma) "
+          f"{d_h:.3e}")
+    ar = get_ar_func("linear", 5, 4, device=device)
+    synchronize(device)
+    t0 = time.perf_counter()
+    vb = vbear.train_variational_h(ds.codes, ds.counts[:, 0], ds.num_kmers, ar,
+                                   epochs=vbear_applies, dtype=torch.float32, mesh=mesh, **kw)
+    synchronize(device)
+    vb_s = time.perf_counter() - t0
+    mu, sigma = vb.h_posterior
+    print(f"[4j] (X) vBEAR over the mesh: {check_applies} float64 applies == without a mesh "
+          f"(max |dloss| {d:.3e}, rtol {MESH_RTOL}); {vbear_applies:,} float32 applies in "
+          f"{vb_s:.3f} s = {vbear_applies / vb_s:.6g} applies/s; h {vb.h:.6g}, sigma "
+          f"{sigma:.6g} [{card}]")
+    if gate:
+        check(abs(vb.h - YSD1_VBEAR_H) / YSD1_VBEAR_H < VBEAR_H_RTOL and sigma < VBEAR_SIGMA_MAX,
+              f"(X) vBEAR h {vb.h} not within 25% of {YSD1_VBEAR_H}, or sigma {sigma} >= 0.25")
+
+
+def split_serving_phase(b_rec, s_rec, w_out, out_dir, card, device="cuda", lag=LAG,
+                        cnn_kw=CNN_KW, entries=MESH_TRAIN, n_check=SPLIT_READS,
+                        snv_bp=SPLIT_SNV_BP, genome_mb=GENOME_MB):
+    """4j (Y): 4c's CNN written to a model directory whose counts are 4e's
+    lag-13 shards (the train column == count -> serve's train table), served
+    by from_model_dir(mesh=) with the table's rows split over ``entries``
+    entries of a ``kmer`` mesh: the held-out reads' MAP scores bit-equal to
+    4c's unsplit server's and to an unsplit server's of the same directory
+    (float32); float64 on ``n_check`` reads, MC-41 on them, MAP and MC-41
+    SNV Δ on the genome's first ``snv_bp`` bases, split against unsplit at
+    SPLIT_RTOL; bmm_likelihood(mesh=) over a ``data`` mesh on (W)'s handoff
+    counts against the call without. Rates and the peak device memory."""
+    import configparser
+    import types
+
+    import torch
+    from bear_tpu_torch.data import bmm_likelihood
+    from bear_tpu_torch.inference import BearServer, load_bear
+    from bear_tpu_torch.inference.scoring import load_bear_dataset
+    from bear_tpu_torch.inference.serving import table_from_dataset
+    from bear_tpu_torch.ops import keyed_random as kr
+    from bear_tpu_torch.utils.cli_common import write_config
+
+    res = types.SimpleNamespace(h=b_rec["h"], params_list=b_rec["params"], opt_state=None)
+    dir64 = write_model_dir(out_dir, res, lag, "cnn", cnn_kw, TRAIN_EPOCHS, TRAIN_BATCH)
+    for d in (out_dir, dir64):  # the counts: 4e's lag-13 shards
+        cfg = configparser.ConfigParser()
+        cfg.read(os.path.join(d, "config.cfg"))
+        cfg["data"].update(s_rec["data"])
+        write_config(cfg, d)
+    mesh = mesh_of(device, entries, "kmer")
+    seqs = b_rec["seqs"]
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    split = BearServer.from_model_dir(out_dir, mesh=mesh, device=device)
+    setup_s = time.perf_counter() - t0
+    split.score(seqs)  # warm-up
+    synchronize(device)
+    t0 = time.perf_counter()
+    got = split.score(seqs)
+    split_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
+    lag_, _, h, ar_apply, info = load_bear(out_dir, device=device)
+    table = table_from_dataset(load_bear_dataset(info), lag)
+    dense = BearServer(table, lag, h=h, ar_apply=ar_apply, device=device)
+    dense.score(seqs)
+    synchronize(device)
+    t0 = time.perf_counter()
+    want = dense.score(seqs)
+    dense_s = time.perf_counter() - t0
+    del dense
+    gap = float(np.max(np.abs(got - b_rec["scores"])))
+    check(np.array_equal(got, b_rec["scores"]) and np.array_equal(got, want),
+          f"(Y) row-split MAP scores differ from 4c's unsplit server's by {gap:.3e}")
+    print(f"[4j] (Y) from_model_dir(mesh={mesh}): set-up {setup_s:.3f} s, {len(seqs)} held-out "
+          f"reads MAP in {split_s:.4f} s = {len(seqs) / split_s:.6g} sequences/s; unsplit "
+          f"{len(seqs) / dense_s:.6g} sequences/s in this run (4c's "
+          f"{b_rec['sequences_per_s']:.6g}); float32 scores bit-equal to 4c's unsplit "
+          f"server's; peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    del split
+    _, _, h64, ar64, _ = load_bear(dir64, device=device)
+    kw = dict(h=h64, ar_apply=ar64, dtype=torch.float64, device=device)
+    split64 = BearServer(table, lag, mesh=mesh, **kw)
+    dense64 = BearServer(table, lag, **kw)
+    wt = genome_prefix(snv_bp, genome_mb=genome_mb)
+    pos, alts = snv_grid(wt)
+    key = kr.key(SEED)
+    calls = {
+        f"MAP, {n_check} reads": lambda s: s.score(seqs[:n_check]),
+        f"MC-{MC}, {n_check} reads": lambda s: s.score(seqs[:n_check], mode="sample", key=key,
+                                                       mc_samples=MC),
+        f"MAP SNV, {len(pos):,}": lambda s: s.delta_scores_snv(wt, pos, alts),
+        f"MC-{MC} SNV, {len(pos):,}": lambda s: s.delta_scores_snv(
+            wt, pos, alts, mode="sample", key=key, mc_samples=MC),
+    }
+    diffs = {}
+    for name, call in calls.items():
+        ok, diffs[name] = close(call(split64), call(dense64), SPLIT_RTOL)
+        check(ok, f"(Y) float64 {name}: row-split differs from unsplit by {diffs[name]:.3e}")
+    del split64, dense64
+    print(f"[4j] (Y) float64 row-split == unsplit (rtol {SPLIT_RTOL}), max |d|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) + f" [{card}]")
+    counts = w_out["counts"].double()
+    alpha = np.array(VAN_REG)
+    data_mesh = mesh_of(device, entries, "data")
+    t0 = time.perf_counter()
+    on = bmm_likelihood(counts, alpha, mesh=data_mesh, device=device)
+    bmm_s = time.perf_counter() - t0
+    off = bmm_likelihood(counts, alpha, device=device)
+    ok, d = close(on, off, SPLIT_RTOL)
+    check(ok, f"(Y) bmm_likelihood(mesh=) differs from the call without by {d:.3e}")
+    print(f"[4j] (Y) bmm_likelihood(mesh={data_mesh}) on (W)'s handoff counts "
+          f"({counts.shape[0]:,} rows, float64): {bmm_s:.3f} s, == without a mesh (max |d| "
+          f"{d:.3e}, rtol {SPLIT_RTOL}) [{card}]")
+
+
+def z_against_w(z_rec, w_out, k=N_ELBO_CHECK):
+    """4j (Z) against (W): the first ``k`` ELBOs of the mesh that spans two
+    processes within ELBO_RTOL of (W)'s 2-entry mesh on one process (the
+    same start and batches; the sums taken over gloo instead of on the
+    card)."""
+    z_err = rel_err(z_rec["z_elbos"][:k], w_out["elbos"][:k])
+    check(z_err <= ELBO_RTOL, f"(Z) the two processes' first {k} ELBOs differ from (W)'s "
+          f"2-entry run by {z_err:.3e}")
+    print(f"[4j] (Z) first {k} ELBOs over two processes vs (W)'s 2-entry mesh on one process: "
+          f"max rel err {z_err:.3e} (tolerance {ELBO_RTOL})")
+
+
+def z_train(dense, z, device, lag):
+    """4j (Z) in one process of (V), after the dense merge: the lag-``lag``
+    dataset of the merged table, (W)'s CNN BEAR from the same seed trained
+    ``z["applies"]`` float32 applies over ``data_parallel_mesh()``, which
+    spans every process (one entry each on the card), then evaluated over
+    it; the gradient sum alone timed. Returns (arrays, report)."""
+    import torch
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.parallel import data_parallel_mesh, multihost
+    from bear_tpu_torch.parallel.mesh import DataSplit
+
+    ds = dense.to_dataset(lag)
+    mesh = data_parallel_mesh(device=device)
+    check(mesh.spans_processes and mesh.size == multihost.process_count(),
+          f"data_parallel_mesh() does not span the processes: {mesh}")
+    ar = get_ar_func("cnn", lag, 4, z["cnn_kw"], device=device)
+    init = bear_net.init_params(torch.Generator().manual_seed(SEED), ar)
+    n = z["applies"] * z["batch"]
+    synchronize(device)
+    t0 = time.perf_counter()
+    res = bear_net.train(ds.codes[:n], ds.counts[:n, 0], num_kmers=len(ds.codes), ar_func=ar,
+                         batch_size=z["batch"], epochs=1, learning_rate=TRAIN_LR,
+                         params_restart=[init["h_signed"]] + init["ar"], dtype=torch.float32,
+                         mesh=mesh, device=device)
+    synchronize(device)
+    train_s = time.perf_counter() - t0
+    check(len(res.elbos) == z["applies"], f"(Z) {len(res.elbos)} applies")
+    ev = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", res.h, ar, res.params_list[1:],
+                             VAN_REG, dtype=torch.float32, mesh=mesh, device=device)
+    split = DataSplit(mesh, device)
+    grads = [torch.ones_like(p) for p in res.params["ar"]] + [torch.ones(2, device=device)]
+    split.allreduce(grads)  # warm-up
+    reps = 20
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        split.allreduce(grads)
+    synchronize(device)
+    sync_ms = (time.perf_counter() - t0) / reps * 1e3
+    out = {"z_elbos": res.elbos,
+           "z_metrics": np.concatenate([np.asarray(m, np.float64).reshape(-1) for m in ev])}
+    out.update({f"z_p{i}": p for i, p in enumerate(res.params_list)})
+    return out, {"entries": mesh.size, "train_s": round(train_s, 3),
+                 "sync_ms": round(sync_ms, 3), "grad_numel": sum(g.numel() for g in grads)}
+
+
+def z_checkpoints(z, rank, device):
+    """4j (Z), at YSD1 size: train_streaming over the spanning mesh with a
+    checkpoint directory every process shares (run, then resumed after
+    completion: the same parameters, no apply run again), then with
+    rank-local directories, rank 0's holding a mid-run state: both ranks
+    must abort with the "differs across processes" error."""
+    import torch
+    from bear_tpu_torch.data import load_dense
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.parallel import data_parallel_mesh
+    from bear_tpu_torch.utils.checkpoint import save_train_state
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    ds = load_dense(bundled_ysd1_path(), "dna", 3)
+    os.makedirs(z["ck_dir"], exist_ok=True)
+
+    def shards():
+        yield ds.codes[:700], ds.counts[:700, 0]
+        yield ds.codes[700:], ds.counts[700:, 0]
+
+    kw = dict(num_kmers=ds.num_kmers, ar_func=get_ar_func("linear", 5, 4, device=device),
+              batch_size=256, epochs=2, learning_rate=0.01, seed=10, dtype=torch.float32,
+              block_steps=2, checkpoint_every=2, mesh=data_parallel_mesh(device=device),
+              device=device)
+    first = bear_net.train_streaming(shards, checkpoint_dir=z["ck_dir"], **kw)
+    again = bear_net.train_streaming(shards, checkpoint_dir=z["ck_dir"], **kw)
+    check(len(again.elbos) == 0 and all(np.array_equal(a, b) for a, b in zip(
+        first.params_list, again.params_list)), "(Z) the shared resume moved the parameters")
+    mine = os.path.join(z["ck_dir"] + "_local", f"rank{rank}")
+    os.makedirs(mine, exist_ok=True)
+    if rank == 0:
+        save_train_state(mine, {"params": first.params_list, "torch_opt_state": first.opt_state,
+                                "applies_done": 4})
+    try:
+        bear_net.train_streaming(shards, checkpoint_dir=mine, **kw)
+    except RuntimeError as e:
+        check("differs across processes" in str(e), f"(Z) another error: {e}")
+    else:
+        raise RuntimeError("(Z) the diverged resume was not detected")
+    return {"z_stream_elbos": first.elbos,
+            **{f"z_stream_p{i}": p for i, p in enumerate(first.params_list)}}
 
 
 def main() -> int:
@@ -3084,8 +3619,9 @@ def main() -> int:
     # path's table, and the score CLI on 4b's model
     with tempfile.TemporaryDirectory() as tmp:
         ysd1, ysd1_kw = ysd1_phase(os.path.join(tmp, "ysd1"), card)
+        b_rec = {}  # what phase 4j holds its mesh runs against
         launches_4c, codes_d, counts_d, cnn, p0, n_rows = lag13_train_phase(
-            chunks, reads, groups, os.path.join(tmp, "cnn"), card)
+            chunks, reads, groups, os.path.join(tmp, "cnn"), card, record=b_rec)
         check(launches_4c == len(chunks),
               f"4c launched count_chunk {launches_4c} times for {len(chunks)} chunks")
         torch.cuda.empty_cache()
@@ -3123,8 +3659,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         s_chunk = summarize_chunk_timing(s_run["files"][0][0], card, dev)
         torch.cuda.empty_cache()
+        s_rec = {}
         streaming_train_phase(s_run["prefix"], s_run["shards"], reads, groups,
-                              os.path.join(tmp, "stream"), card)
+                              os.path.join(tmp, "stream"), card, record=s_rec)
         print(f"[stream] phase 4e {time.perf_counter() - t_4e:.3f} s (profiles and checks "
               f"included) [{card}]")
 
@@ -3208,17 +3745,44 @@ def main() -> int:
         mesh_counter, u_s = sparse_mesh_phase(s_run, ref_rows, os.path.join(work, "sparse", "run"),
                                               work, card)
         torch.cuda.empty_cache()
-        launches_v, v_s = two_process_phase(s_run, p4_rows, p4_counts, mesh_counter, work, card)
+        z_rec = {}  # (V)'s children also run phase 4j (Z)
+        launches_v, v_s = two_process_phase(
+            s_run, p4_rows, p4_counts, mesh_counter, work, card,
+            z=dict(cnn_kw=CNN_KW, batch=TRAIN_BATCH, applies=Z_APPLIES), record=z_rec)
         del mesh_counter
         print(f"[4i] phase 4i {time.perf_counter() - t_4i:.3f} s: (S) {s_s:.3f} s, (T) "
-              f"{t_s:.3f} s, (U) {u_s:.3f} s, (V) {v_s:.3f} s (checks included); count_chunk "
-              f"launches (S) {launches_s}, (T) {launches_t}, (V) {launches_v} [{card}]")
+              f"{t_s:.3f} s, (U) {u_s:.3f} s, (V) {v_s:.3f} s (checks and (Z) included); "
+              f"count_chunk launches (S) {launches_s}, (T) {launches_t}, (V) {launches_v} "
+              f"[{card}]")
+        torch.cuda.empty_cache()
+
+        # 4j. data parallelism on the card, in 4e's directory: (W) training
+        # over a mesh (its recount's count_chunk launches counted from 0 just
+        # before it), (X) the CLIs and vBEAR, (Y) row-split serving and the
+        # likelihood; (Z) ran in (V)'s children and is held against (W) here
+        t_4j = [time.perf_counter()]
+        launches_w, w_out = mesh_train_phase(chunks, b_rec, s_rec, s_run["shards"], work, card)
+        z_against_w(z_rec, w_out)
+        torch.cuda.empty_cache()
+        t_4j.append(time.perf_counter())
+        mesh_cli_phase(os.path.join(tmp, "dp"), card)
+        torch.cuda.empty_cache()
+        t_4j.append(time.perf_counter())
+        split_serving_phase(b_rec, s_rec, w_out, os.path.join(tmp, "split"), card)
+        del w_out
+        torch.cuda.empty_cache()
+        t_4j.append(time.perf_counter())
+        spans_4j = np.diff(t_4j)
+        print(f"[4j] phase 4j {t_4j[-1] - t_4j[0]:.3f} s: (W) {spans_4j[0]:.3f} s, (X) "
+              f"{spans_4j[1]:.3f} s, (Y) {spans_4j[2]:.3f} s ((Z) inside 4i's (V)); checks and "
+              f"profiles included; count_chunk launches (W) {launches_w} [{card}]")
 
     count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
                "ref_recount": ref_launches, **lag_launches, **asm_launches,
                "multipass": p_run["launches"], "lag_select_cli_passes": cli_passes,
-               "data_sharded": launches_s, **launches_t, "two_process": launches_v}
+               "data_sharded": launches_s, **launches_t, "two_process": launches_v,
+               "mesh_training": launches_w}
     check(all(n > 0 for n in by_path.values()),
           f"a path ran without launching count_chunk: {by_path}")
     spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)

@@ -28,12 +28,14 @@ from bear_tpu.models import bear_ref as jref
 from bear_tpu.models import train_bear_ref as jcli
 from bear_tpu.models.ar_funcs import make_ar_func_cnn, make_ar_func_linear, make_ar_func_stop
 from bear_tpu.ops import alphabets as jalphabets
+from bear_tpu.parallel import data_parallel_mesh as jdata_parallel_mesh
 from bear_tpu.utils import checkpoint as jckpt
 from bear_tpu_torch.data import bmm_likelihood, load_dense
 from bear_tpu_torch.inference.scoring import load_bear
 from bear_tpu_torch.models import bear_net, bear_ref, train_bear_ref
 from bear_tpu_torch.models.ar_funcs import StopAR
 from bear_tpu_torch.ops.distributions import EPSILON
+from bear_tpu_torch.parallel import Mesh
 from bear_tpu_torch.utils import checkpoint
 from bear_tpu_torch.utils.config import bundled_ysd1_path
 
@@ -334,9 +336,16 @@ def test_refusals():
                          compute_dtype=torch.bfloat16, dtype=torch.float32, device="cpu")
     assert np.isfinite(res.losses).all()
     assert all(p.dtype == torch.float32 for p in res.params["ar"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8,
-                       mesh=object(), dtype=torch.float64, device="cpu")
+    # mesh= is ported: 4 CPU entries against bear_tpu's 4 virtual devices
+    jar = jref.make_ref_ar_func(codes.shape[1], 4, make_ar_func_linear, dtype=jnp.float64)
+    p0 = jbn.params_to_list(jbn.init_params(jax.random.key(1), jar, dtype=jnp.float64))
+    got = bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8,
+                         epochs=3, params_restart=p0, mesh=Mesh(["cpu"] * 4, ("data",)),
+                         dtype=torch.float64, device="cpu")
+    want = jref.train(codes, counts[:, 0], counts[:, 2], 20, make_ar_func_linear, batch_size=8,
+                      epochs=3, params_restart=p0, mesh=jdata_parallel_mesh(4),
+                      dtype=jnp.float64)
+    np.testing.assert_allclose(got.losses, np.asarray(want.losses), rtol=1e-8)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bear_ref.train(codes, counts[:, 0], counts[:, 2], 20, "linear", batch_size=8)

@@ -29,6 +29,7 @@ from bear_tpu.models import bear_net as jbn
 from bear_tpu.models import get_ar_func as jget_ar_func
 from bear_tpu.models import train_bear_net as jcli
 from bear_tpu.utils import checkpoint as jckpt
+from bear_tpu.utils import config as jconfig
 from bear_tpu_torch.counting import summarize
 from bear_tpu_torch.data import load_dense
 from bear_tpu_torch.inference.scoring import load_bear
@@ -137,9 +138,15 @@ def test_eval_only_restart_and_refusals(tmp_path):
     got = train_bear_net.main(cfg, device="cpu")
     want = jcli.main(jcfg)
     np.testing.assert_allclose(got[2], want[2], rtol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        RunConfig.from_configparser(_config("bear_test.cfg", tmp_path,
-                                            train__data_parallel="True"))
+    # data_parallel is ported: the config reads it as bear_tpu's does, and
+    # the eval-only run over a data-parallel mesh gives the same results
+    dp_cfg = _config("bear_test.cfg", tmp_path, train__data_parallel="True")
+    assert RunConfig.from_configparser(dp_cfg).data_parallel
+    assert jconfig.RunConfig.from_configparser(dp_cfg).data_parallel
+    dp = train_bear_net.main(_config("bear_test.cfg", tmp_path / "dp", train__train="False",
+                                     train__restart=True, train__restart_path=init,
+                                     train__data_parallel="True"), device="cpu")
+    np.testing.assert_allclose(dp[2], want[2], rtol=1e-10)
     # compute_precision is ported: the config reads it as bear_tpu's does.
     bf16 = RunConfig.from_configparser(_config("bear_test.cfg", tmp_path,
                                                model__compute_precision="bfloat16"))

@@ -392,3 +392,57 @@ def test_mesh_refuses_more_cards_than_exist(cuda, tmp_path):
     csv.write_text(f"{fa},0,fa\n")
     with pytest.raises(ValueError, match=f"needs that many devices; have {n}"):
         summarize.run_counting(str(csv), [3], kmer_shards=n + 1)
+
+
+@pytest.mark.parametrize("layout", ["every_card", "cuda0_repeated"])
+def test_mesh_training_on_card_equals_cpu(cuda, layout):
+    # Data-parallel training and evaluation over a mesh of the cards (or
+    # cuda:0 named twice) in float64: the same ELBOs, parameters and
+    # metrics as the CPU run without a mesh, to reassociation.
+    from bear_tpu_torch.models import bear_net
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.parallel import Mesh, data_parallel_mesh
+
+    mesh = {"every_card": lambda: data_parallel_mesh(),
+            "cuda0_repeated": lambda: Mesh([cuda] * 2, ("data",))}[layout]()
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 4, (300, 6)).astype(np.int8)
+    counts = rng.poisson(4.0, (300, 2, 5)).astype(np.float64)
+    kw = dict(num_kmers=300, batch_size=64, epochs=4, learning_rate=0.02, seed=3,
+              acc_steps=2, dtype=torch.float64)
+    want = bear_net.train(codes, counts[:, 0], ar_func=get_ar_func(
+        "cnn", 6, 4, {"num_filters": 8, "filter_width": 3, "kmer_layer1_width": 8},
+        dtype=torch.float64, device="cpu"), device="cpu", **kw)
+    ar = get_ar_func("cnn", 6, 4, {"num_filters": 8, "filter_width": 3, "kmer_layer1_width": 8},
+                     dtype=torch.float64, device=mesh.devices.flat[0])
+    got = bear_net.train(codes, counts[:, 0], ar_func=ar, mesh=mesh, **kw)
+    np.testing.assert_allclose(got.elbos, want.elbos, rtol=1e-9)
+    for a, b in zip(got.params_list, want.params_list):
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-12)
+    ev = bear_net.evaluation(codes, counts, 0, 1, "dna", got.h, ar, got.params_list[1:],
+                             [1.0], batch_size=64, dtype=torch.float64, mesh=mesh)
+    ev1 = bear_net.evaluation(codes, counts, 0, 1, "dna", got.h, ar, got.params_list[1:],
+                              [1.0], batch_size=64, dtype=torch.float64)
+    for a, b in zip(ev[:6], ev1[:6]):
+        np.testing.assert_allclose(a, b, rtol=1e-9)
+
+
+@pytest.mark.parametrize("layout", ["every_card", "cuda0_repeated"])
+def test_row_split_serving_on_card_equals_dense(cuda, layout):
+    # The table row-split over the cards (or cuda:0 named three times):
+    # MAP and sampled scores bit-equal to the dense table's on the card.
+    from bear_tpu_torch.parallel import Mesh, data_parallel_mesh
+
+    mesh = {"every_card": lambda: data_parallel_mesh(axis_name="kmer"),
+            "cuda0_repeated": lambda: Mesh([cuda] * 3, ("kmer",))}[layout]()
+    rng = np.random.default_rng(6)
+    table = rng.poisson(0.5, (engine.table_rows(5), 5)).astype(np.int32)
+    seqs = ["".join(rng.choice(list("ACGT"), int(n))) for n in rng.integers(5, 90, 40)]
+    ar = LinearAR(5, 4, generator=torch.Generator().manual_seed(0), device=cuda)
+    for dtype in (torch.float32, torch.float64):
+        dense = BearServer(table, 5, h=0.1, ar_apply=ar, dtype=dtype)
+        split = BearServer(table, 5, h=0.1, ar_apply=ar, dtype=dtype, mesh=mesh)
+        np.testing.assert_array_equal(dense.score(seqs), split.score(seqs))
+        key = kr.key(2)
+        np.testing.assert_array_equal(dense.score(seqs, mode="sample", key=key, mc_samples=3),
+                                      split.score(seqs, mode="sample", key=key, mc_samples=3))

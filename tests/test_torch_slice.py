@@ -355,6 +355,66 @@ def test_chip_smoke_mesh_phase_rehearsal(tmp_path, capsys):
         assert part in out, part
 
 
+def test_chip_smoke_data_parallel_phase_rehearsal(tmp_path, capsys):
+    # chip_smoke.py's phase 4j on the CPU at a small size, on 4c's and 4e's
+    # outputs: (W) training and evaluation over a 2-entry CPU mesh, (X) the
+    # CLIs and vBEAR over it, (Y) row-split serving and the likelihood, (Z)
+    # two gloo processes training over a mesh that spans them (inside
+    # (V)'s children); their own checks raise on a fault.
+    from bear_tpu_torch.counting import summarize
+    from bear_tpu_torch.counting.fastx import read_input_csv
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+
+    reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    cnn_kw = {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}
+    b_rec, s_rec, z_rec = {}, {}, {}
+    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), "CPU",
+                                 device="cpu", lag=LAG, cnn_kw=cnn_kw, batch=256, epochs=2,
+                                 n_score=100, record=b_rec)
+    counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
+    for c in chunks:
+        counter.add_chunk(c)
+    rows = counter.nonzero_rows(LAG)
+    counts = counter.row_counts(LAG, rows)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"), "CPU",
+                                     device="cpu", lag=LAG, profile=False)
+    chip_smoke.streaming_train_phase(run["prefix"], run["shards"], reads, groups,
+                                     str(tmp_path / "stream"), "CPU", device="cpu", lag=LAG,
+                                     cnn_kw=cnn_kw, batch=256, epochs=1, n_cli=4,
+                                     profile=False, record=s_rec)
+    work = tmp_path / "work"
+    work.mkdir()
+    launches, w_out = chip_smoke.mesh_train_phase(
+        chunks, b_rec, s_rec, run["shards"], str(work), "CPU", device="cpu", lag=LAG,
+        cnn_kw=cnn_kw, batch=256, epochs=2, stream_applies=4, stream_every=2, profile=False)
+    assert launches == 0  # the plain version runs on the CPU: no kernel
+    chip_smoke.mesh_cli_phase(str(tmp_path / "dp"), "CPU", device="cpu", epochs=50, gate=False,
+                              check_applies=20, vbear_applies=50)
+    chip_smoke.split_serving_phase(b_rec, s_rec, w_out, str(tmp_path / "split"), "CPU",
+                                   device="cpu", lag=LAG, cnn_kw=cnn_kw, n_check=40,
+                                   snv_bp=60, genome_mb=0.05)
+    sparse = SparseTransitionCounter(range(1, 18), n_groups=2, device="cpu")
+    for chunk in summarize.iter_chunks(read_input_csv(run["csv"]), 17):
+        sparse.add_chunk(chunk)
+    sparse.flush()
+    assert chip_smoke.two_process_phase(
+        run, rows, counts, sparse, str(work), "CPU", device="cpu",
+        reads_kw=dict(genome_mb=0.05, coverage=4, read_len=60, seed=4), rows=1024, lag=LAG,
+        sparse_lag=17, timeout=300, threads=2, z=dict(cnn_kw=cnn_kw, batch=256, applies=4),
+        record=z_rec)[0] == 0
+    chip_smoke.z_against_w(z_rec, w_out, k=4)
+    out = capsys.readouterr().out
+    for part in ("(W) count -> serve's chunks counted again", "applies/s in this run",
+                 "evaluation(mesh=) float64", "resumed after completion: no apply run",
+                 "evaluation_streaming(mesh=) float64", "(X) train_bear_net.main",
+                 "(X) train_bear_ref.main", "(X) vBEAR over the mesh",
+                 "float32 scores bit-equal to 4c's", "float64 row-split == unsplit",
+                 "bmm_likelihood(mesh=", "every rank's ELBOs, parameters and metrics bit-equal",
+                 "(Z) first 4 ELBOs over two processes"):
+        assert part in out, part
+
+
 def test_chip_smoke_options_phase_rehearsal(tmp_path, capsys):
     # chip_smoke.py's phase 4h on the CPU at a small size: (P) the attention
     # CLI on YSD1 with its checks against float64, (Q) the optimizers, (R)

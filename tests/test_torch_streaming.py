@@ -19,9 +19,11 @@ import torch
 
 from bear_tpu.models import bear_net as jbn
 from bear_tpu.models import get_ar_func as jget_ar_func
+from bear_tpu.parallel import data_parallel_mesh as jdata_parallel_mesh
 from bear_tpu_torch.data import load_dense
 from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.models.ar_funcs import get_ar_func
+from bear_tpu_torch.parallel import Mesh
 from bear_tpu_torch.utils import checkpoint
 from bear_tpu_torch.utils.config import bundled_ysd1_path
 
@@ -256,8 +258,15 @@ def test_streaming_refusals(ysd1):
                           (ysd1.codes, ysd1.counts[:, 0], ysd1.counts[:, 1])])
     with pytest.raises(ValueError, match="agree"):
         bear_net.train_streaming(three, ar_func=ar, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_net.train_streaming(_shards(ysd1), ar_func=ar, mesh=object(), **kw)
+    # mesh= is ported: the ragged shards over 4 CPU entries (batch 100 pads
+    # to 100) against bear_tpu's 4 virtual devices
+    jar, _, _ = _models("linear")
+    got = bear_net.train_streaming(_shards(ysd1), ar_func=ar, mesh=Mesh(["cpu"] * 4, ("data",)),
+                                   params_restart=p0, dtype=torch.float64, **kw)
+    want = jbn.train_streaming(_shards(ysd1), ysd1.num_kmers, jar, batch_size=100,
+                               mesh=jdata_parallel_mesh(4), params_restart=p0,
+                               dtype=jnp.float64)
+    np.testing.assert_allclose(got.elbos, np.asarray(want.elbos), rtol=1e-8)
     with pytest.raises(ValueError, match="agree"):
         bear_net.evaluation_streaming(
             lambda: iter([(ysd1.codes, ysd1.counts), (ysd1.codes, ysd1.counts,

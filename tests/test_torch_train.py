@@ -19,9 +19,11 @@ import torch
 
 from bear_tpu.models import bear_net as jbn
 from bear_tpu.models import get_ar_func as jget_ar_func
+from bear_tpu.parallel import data_parallel_mesh as jdata_parallel_mesh
 from bear_tpu_torch.data import load_dense
 from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.models.ar_funcs import get_ar_func
+from bear_tpu_torch.parallel import Mesh
 from bear_tpu_torch.utils.config import bundled_ysd1_path
 
 torch.set_num_threads(2)
@@ -180,23 +182,36 @@ def test_evaluation_float32_sums_in_float64(ysd1, trained):
     np.testing.assert_allclose(out[5], ref[5], rtol=1e-5)
 
 
-def test_arguments_not_ported_raise(ysd1):
+def test_mesh_optimizers_and_refusals(ysd1):
     jar, ar, p0 = _models("linear")
     kw = dict(num_kmers=ysd1.num_kmers, batch_size=700, device="cpu")
     c, n = ysd1.codes, ysd1.counts[:, 0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_net.train(c, n, ar_func=ar, mesh=object(), **kw)
+    # mesh= is ported: 8 CPU entries against bear_tpu's 8 virtual devices
+    # (batch 700 pads to 704 on both)
+    mesh, jmesh = Mesh(["cpu"] * 8, ("data",)), jdata_parallel_mesh(8)
+    got = bear_net.train(c, n, ar_func=ar, mesh=mesh, params_restart=p0, epochs=3,
+                         dtype=torch.float64, **kw)
+    want = jbn.train(c, n, ysd1.num_kmers, jar, batch_size=700, mesh=jmesh, epochs=3,
+                     params_restart=p0, dtype=jnp.float64)
+    np.testing.assert_allclose(got.elbos, want.elbos, rtol=1e-8)
     # Reference counts are ported (bear_ref): a plain AR module takes none,
     # and a stream must not mix shards with and without them.
     with pytest.raises(TypeError):
         bear_net.train(c, n, ar_func=ar, ref_counts=n, **kw)
     with pytest.raises(ValueError, match="agree"):
         bear_net.train_streaming(lambda: iter([(c, n), (c, n, n)]), ar_func=ar, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_net.train_streaming(lambda: iter([(c, n)]), ar_func=ar, mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bear_net.evaluation(c, ysd1.counts, 0, 1, "dna", 0.1, ar, p0[1:], VAN,
-                            device="cpu", mesh=object())
+    streamed = bear_net.train_streaming(lambda: iter([(c, n)]), ar_func=ar, mesh=mesh,
+                                        params_restart=p0, dtype=torch.float64,
+                                        **dict(kw, batch_size=704))
+    np.testing.assert_allclose(streamed.elbos, want.elbos[:2], rtol=1e-8)
+    got_ev = bear_net.evaluation(c, ysd1.counts, 0, 1, "dna", 0.1, ar, p0[1:], VAN,
+                                 dtype=torch.float64, device="cpu", mesh=mesh)
+    want_ev = jbn.evaluation(c, ysd1.counts, 0, 1, "dna", 0.1, jar, p0[1:], VAN,
+                             dtype=jnp.float64, mesh=jmesh)
+    for g, w in zip(got_ev[:6], want_ev[:6]):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-10)
+    with pytest.raises(AttributeError):  # a mesh is a Mesh
+        bear_net.train(c, n, ar_func=ar, mesh=object(), **kw)
     for name in ("adamw", "rmsprop"):  # ported: optax's rules, as bear_tpu's
         got = bear_net.train(c, n, ar_func=ar, optimizer_name=name, params_restart=p0,
                              dtype=torch.float64, **kw)

@@ -20,10 +20,12 @@ from bear_tpu.models import bear_net as jbn
 from bear_tpu.models.ar_funcs import ARFunc, make_ar_func_linear
 from bear_tpu.models.vbear import train_variational_h as jtrain_vh
 from bear_tpu.ops import alphabets as jalphabets
+from bear_tpu.parallel import data_parallel_mesh as jdata_parallel_mesh
 from bear_tpu_torch.data import load_dense
 from bear_tpu_torch.models import bear_net, vbear
 from bear_tpu_torch.models.ar_funcs import LinearAR
 from bear_tpu_torch.ops import keyed_random as kr
+from bear_tpu_torch.parallel import Mesh
 from bear_tpu_torch.utils.config import bundled_ysd1_path
 
 torch.set_num_threads(2)
@@ -133,7 +135,22 @@ def test_identifiable_case_matches_point_h_and_bear_tpu():
 def test_refusals():
     ar = UniformAR()
     codes, counts = np.zeros((4, 3), np.int8), np.ones((4, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported: the draws are the run's without a mesh, and the
+    # estimate is bear_tpu's over its 4 virtual devices, in distribution
+    rng = np.random.default_rng(3)
+    big = np.stack([rng.multinomial(25, p) for p in rng.dirichlet(np.full(5, 0.4), 256)])
+    kw = dict(num_kmers=256, batch_size=64, epochs=20, learning_rate=0.05, seed=5)
+    one = vbear.train_variational_h(codes[:1].repeat(256, 0), big.astype(np.float64), ar_func=ar,
+                                    dtype=torch.float64, device="cpu", **kw)
+    four = vbear.train_variational_h(codes[:1].repeat(256, 0), big.astype(np.float64),
+                                     ar_func=ar, dtype=torch.float64, device="cpu",
+                                     mesh=Mesh(["cpu"] * 4, ("data",)), **kw)
+    np.testing.assert_allclose(four.losses, one.losses, rtol=1e-8)
+    jvb = jtrain_vh(codes[:1].repeat(256, 0), big.astype(np.float64), ar_func=_juniform(),
+                    dtype=jnp.float64, mesh=jdata_parallel_mesh(4), **kw)
+    (mu, sigma), (jmu, jsigma) = four.h_posterior, jvb.h_posterior
+    assert abs(mu - jmu) < 3 * max(sigma, jsigma)
+    with pytest.raises(AttributeError):  # a mesh is a Mesh
         vbear.train_variational_h(codes, counts, 4, ar, batch_size=4, mesh=object(),
                                   device="cpu")
     if not torch.cuda.is_available():
