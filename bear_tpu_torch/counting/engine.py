@@ -155,6 +155,11 @@ def rows_to_contexts(rows, lag: int, alphabet: str = "dna") -> np.ndarray:
     return np.char.decode(rows_to_context_bytes(rows, lag, alphabet), "ascii")
 
 
+def row_to_context(row: int, lag: int, alphabet: str = "dna") -> str:
+    """Host-side inverse of context_to_row."""
+    return str(rows_to_contexts(np.array([row]), lag, alphabet)[0])
+
+
 @dataclass
 class ReadChunk:
     """A padded batch of encoded reads/segments ready for the device.

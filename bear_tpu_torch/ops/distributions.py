@@ -66,6 +66,16 @@ def ml_output(scores, generator: torch.Generator | None = None, gumbel=None):
     return masked.argmax(dim=-1).to(scores.dtype)
 
 
+def ml_output_dm(concentration, generator: torch.Generator | None = None, gumbel=None):
+    """ml_output for the Dirichlet-multinomial (reference core.py:69-71)."""
+    return ml_output(concentration, generator, gumbel)
+
+
+def ml_output_mult(probs, generator: torch.Generator | None = None, gumbel=None):
+    """ml_output for the multinomial (reference core.py:134-136)."""
+    return ml_output(probs, generator, gumbel)
+
+
 def bmm_marginal_logpmf(counts, alpha):
     """Vanilla-BEAR (BMM) marginal likelihood of one batch of counts:
     ``lbeta(counts + alpha) - lbeta(alpha)`` for a symmetric Dirichlet prior

@@ -129,6 +129,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    mesh that spans both processes (ranks bit-equal, first ELBOs against
    (W)'s), and YSD1 train_streaming resumed from a shared checkpoint
    directory and aborted on diverged rank-local ones;
+4k. the example programs, at their defaults on the card: (AA)
+   examples/torch_genome_lag13.py's main([]) in this process (19
+   count_chunk launches, 4c's rows, conservation, BMM against 4c's);
+   (AB) examples/torch_multihost_counting.py --nproc 2 --bench (two gloo
+   processes on the card, lags 1..5, 4 files x 20,000 reads x 150 bp);
+   (AC) examples/torch_multihost_train.py --nproc 2 --bench, then with
+   --streaming (ranks' h bit-equal, the same k-mers in both);
 5. one JSON line of the kernels, then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
@@ -138,12 +145,17 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
 
 import numpy as np
+
+# The main path's workload is the genome example's: its genome, reads and
+# constant-shape chunks (zero-length pad rows fill the last).
+from examples.torch_genome_lag13 import read_chunks, synth_genome, synth_reads
 
 GENOME_MB = 4.6
 COVERAGE = 10.0
@@ -285,6 +297,14 @@ MESH_VBEAR_CHECK = 200
 SPLIT_RTOL = 1e-12
 SPLIT_READS, SPLIT_SNV_BP = 256, 1000
 Z_APPLIES = 16
+# Phase 4k: the example programs at their defaults. (AA) is 4c's count ->
+# train -> evaluate, so its handoff has 4c's rows and its BMM perplexities
+# (which do not depend on training) 4c's, up to float32 batch sums.
+GENOME_ROWS = 1_158_428
+GENOME_TRANSITIONS = 306_666 * 151  # reads x (150 bases + 1 stop)
+GENOME_BMM_RTOL = 1e-6
+MH_COUNT_TRANSITIONS = 4 * 20_000 * 151  # files x reads x (150 bases + 1 stop)
+EXAMPLE_TIMEOUT_S = 600
 
 
 def ysd1_config(out_folder):
@@ -324,47 +344,11 @@ def attn_config(out_folder):
     return cfg
 
 
-def synth_genome(rng, length, template_len=100_000, mutation_rate=0.01):
-    """Repeat-with-mutations genome (the generator of
-    examples/genome_lag13.py): a random template tiled to `length` with
-    point substitutions."""
-    template = rng.integers(0, 4, template_len, dtype=np.int8)
-    reps = -(-length // template_len)
-    genome = np.tile(template, reps)[:length]
-    mut = rng.random(length) < mutation_rate
-    genome[mut] = (genome[mut] + rng.integers(1, 4, mut.sum())) % 4
-    return genome
-
-
 def make_reads(genome_mb=GENOME_MB, coverage=COVERAGE, read_len=READ_LEN,
                seed=SEED):
-    """(reads [n, read_len] int8, groups [n] int32: 1 = held-out test)."""
-    rng = np.random.default_rng(seed)
-    G = int(genome_mb * 1e6)
-    genome = synth_genome(rng, G)
-    n_reads = int(G * coverage / read_len)
-    starts = rng.integers(0, G - read_len, size=n_reads)
-    reads = genome[starts[:, None] + np.arange(read_len)[None, :]]
-    groups = (rng.random(n_reads) < 0.25).astype(np.int32)
-    return reads, groups
-
-
-def read_chunks(reads, groups, rows=CHUNK_ROWS):
-    """Constant-shape ReadChunks (zero-length pad rows fill the last)."""
-    from bear_tpu_torch.counting.engine import ReadChunk
-
-    n_reads, read_len = reads.shape
-    for s in range(0, n_reads, rows):
-        n = min(rows, n_reads - s)
-        codes = np.zeros((rows, read_len), np.int8)
-        codes[:n] = reads[s : s + n]
-        lengths = np.zeros(rows, np.int32)
-        lengths[:n] = read_len
-        stopped = np.zeros(rows, bool)
-        stopped[:n] = True
-        grp = np.zeros(rows, np.int32)
-        grp[:n] = groups[s : s + n]
-        yield ReadChunk(codes, lengths, np.zeros(rows, np.int32), stopped, grp)
+    """(reads [n, read_len] int8, groups [n] int32: 1 = held-out test):
+    examples/torch_genome_lag13.py's reads, by default at its size."""
+    return synth_reads(genome_mb, coverage, read_len, seed)
 
 
 def genome_prefix(n, genome_mb=GENOME_MB, seed=SEED):
@@ -799,7 +783,8 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
           f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e}; scores "
           f"{ref_scores.min():.3f}..{ref_scores.max():.3f} [{card}]")
     if record is not None:
-        record.update(elbo_ref=ref.elbos[:k], applies_per_s=len(elbos) / train_s,
+        record.update(bmm=np.asarray(out[5]), rows=n_rows,
+                      elbo_ref=ref.elbos[:k], applies_per_s=len(elbos) / train_s,
                       params=res.params_list, h=res.h, seqs=seqs, scores=scores,
                       sequences_per_s=len(seqs) / serve_s, p0=p0)
     return launches, codes, counts, ar, p0, n_rows
@@ -3352,6 +3337,106 @@ def z_checkpoints(z, rank, device):
             **{f"z_stream_p{i}": p for i, p in enumerate(first.params_list)}}
 
 
+def run_example(script, args, timeout=EXAMPLE_TIMEOUT_S):
+    """examples/``script`` as a program; its output lines printed with the
+    phase's tag. Returns (rc, stdout, seconds)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", script)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, path, *args], capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in (out.stdout + out.stderr).splitlines():
+        if "socket.cpp" not in line:  # gloo's hostname warning
+            print(f"[4k] {script}: {line}")
+    return out.returncode, out.stdout, wall
+
+
+def bench_line(stdout):
+    lines = [l for l in stdout.splitlines() if l.startswith("BENCH ")]
+    check(len(lines) == 1, f"{len(lines)} BENCH lines")
+    return json.loads(lines[0][len("BENCH "):])
+
+
+def genome_example_phase(b_rec, card, argv=(), device="cuda", want_rows=GENOME_ROWS,
+                         want_transitions=GENOME_TRANSITIONS):
+    """4k (AA): examples/torch_genome_lag13.py's main(argv) in this process,
+    by default at its defaults on the card. Gates: one count_chunk launch
+    per chunk (none on the CPU), 4c's rows, conservation of the handoff,
+    and BMM perplexities against 4c's evaluation of the same counts
+    (``b_rec``). Returns its count_chunk launches."""
+    import torch
+    import examples.torch_genome_lag13 as genome
+    from bear_tpu_torch.counting.count_chunk import count_chunk_update
+
+    count_chunk_update.launches = 0
+    t0 = time.perf_counter()
+    out = genome.main(list(argv))
+    wall = time.perf_counter() - t0
+    launches = count_chunk_update.launches
+    n_chunks = -(-out["reads"] // CHUNK_ROWS) if device == "cuda" else 0
+    check(launches == n_chunks, f"(AA) launched count_chunk {launches} times for "
+          f"{n_chunks} chunks")
+    check(out["rows"] == want_rows == b_rec["rows"],
+          f"(AA) {out['rows']:,} rows; 4c handed off {b_rec['rows']:,}")
+    handed = int(out["counts"].sum(dtype=np.float64))
+    check(handed == out["transitions"] == want_transitions,
+          f"(AA) the handoff holds {handed:,} transitions, not {want_transitions:,}")
+    bmm, bmm_4c = np.asarray(out["evaluation"][5]), b_rec["bmm"]
+    bmm_err = float(np.max(np.abs(bmm / bmm_4c - 1)))
+    check(bmm_err <= GENOME_BMM_RTOL, f"(AA) BMM {bmm} differs from 4c's {bmm_4c} by "
+          f"{bmm_err:.3e}")
+    check(all(np.isfinite(np.asarray(o)).all() for o in out["evaluation"]),
+          "(AA) evaluation not finite")
+    print(f"[4k] (AA) torch_genome_lag13.main({list(argv)}) in {wall:.3f} s: {launches} "
+          f"count_chunk launches, {out['rows']:,} rows (== 4c's), {handed:,} transitions conserved, "
+          f"counting {out['count_s']:.4f} s = {out['transitions'] / out['count_s']:.6g} "
+          f"transitions/s; BMM {bmm.tolist()} vs 4c's max rel err {bmm_err:.3e} "
+          f"(tolerance {GENOME_BMM_RTOL}); stages "
+          f"{[(n, round(t, 3)) for n, t in out['stages']]} [{card}]")
+    del out
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def multihost_examples_phase(work, card, extra=(), want_transitions=MH_COUNT_TRANSITIONS):
+    """4k (AB) and (AC): the two multi-process programs, two gloo processes
+    each, by default at their defaults on the card (``extra`` arguments go
+    to every run). Returns the seconds of each run."""
+    rc, stdout, ab_s = run_example("torch_multihost_counting.py",
+                                   ["--nproc", "2", "--bench", "--workdir",
+                                    os.path.join(work, "mh_count"), *extra])
+    check(rc == 0, f"(AB) torch_multihost_counting exited {rc}")
+    rec = bench_line(stdout)
+    check(rec["global_transitions_per_lag"] == want_transitions,
+          f"(AB) {rec['global_transitions_per_lag']:,} transitions per lag, not "
+          f"{want_transitions:,}")
+    print(f"[4k] (AB) torch_multihost_counting --nproc 2 --bench in {ab_s:.3f} s: "
+          f"{rec['global_transitions_per_lag']:,} transitions per lag at lags {rec['lags']}, "
+          f"per process {rec['per_host_transitions_per_sec']} transitions/s, count "
+          f"{rec['count_seconds']} s, merge {rec['merge_seconds']} s on {rec['device']} "
+          f"[{card}]")
+    recs, walls = [], [ab_s]
+    for mode in ([], ["--streaming"]):
+        rc, stdout, wall = run_example("torch_multihost_train.py",
+                                       ["--nproc", "2", "--bench", "--workdir",
+                                        os.path.join(work, "mh_train"), *mode, *extra])
+        check(rc == 0, f"(AC) torch_multihost_train {mode} exited {rc}")
+        rec = bench_line(stdout)
+        hs = re.findall(r"^\[rank \d+\] OK h=(.*)$", stdout, re.M)
+        check(len(hs) == 2 and float(hs[0]) == float(hs[1]) == rec["h"],
+              f"(AC) the ranks' h differ: {hs}")
+        recs.append(rec)
+        walls.append(wall)
+        print(f"[4k] (AC) torch_multihost_train --nproc 2 --bench {' '.join(mode)} in "
+              f"{wall:.3f} s: {rec['kmers']:,} k-mers, {rec['devices']} mesh entries, "
+              f"{rec['steps_per_sec']} steps/s, h {rec['h']!r} on both ranks, BEAR perplexity "
+              f"{rec['bear_perplexity']:.6f} on {rec['device']} [{card}]")
+    check(recs[0]["kmers"] == recs[1]["kmers"],
+          f"(AC) k-mers differ between the runs: {[r['kmers'] for r in recs]}")
+    return walls
+
+
 def main() -> int:
     import torch
 
@@ -3777,12 +3862,23 @@ def main() -> int:
               f"{spans_4j[1]:.3f} s, (Y) {spans_4j[2]:.3f} s ((Z) inside 4i's (V)); checks and "
               f"profiles included; count_chunk launches (W) {launches_w} [{card}]")
 
+        # 4k. the example programs: (AA) torch_genome_lag13 in this process
+        # (its count_chunk launches counted from 0 just before it), (AB) and
+        # (AC) the multi-process programs, each process on the card
+        t_4k = time.perf_counter()
+        launches_aa = genome_example_phase(b_rec, card)
+        aa_s = time.perf_counter() - t_4k
+        walls = multihost_examples_phase(work, card)
+        print(f"[4k] phase 4k {time.perf_counter() - t_4k:.3f} s: (AA) {aa_s:.3f} s, (AB) "
+              f"{walls[0]:.3f} s, (AC) {walls[1]:.3f} + {walls[2]:.3f} s; count_chunk "
+              f"launches (AA) {launches_aa} [{card}]")
+
     count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
                "ref_recount": ref_launches, **lag_launches, **asm_launches,
                "multipass": p_run["launches"], "lag_select_cli_passes": cli_passes,
                "data_sharded": launches_s, **launches_t, "two_process": launches_v,
-               "mesh_training": launches_w}
+               "mesh_training": launches_w, "torch_genome_lag13": launches_aa}
     check(all(n > 0 for n in by_path.values()),
           f"a path ran without launching count_chunk: {by_path}")
     spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)

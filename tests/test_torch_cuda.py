@@ -446,3 +446,31 @@ def test_row_split_serving_on_card_equals_dense(cuda, layout):
         key = kr.key(2)
         np.testing.assert_array_equal(dense.score(seqs, mode="sample", key=key, mc_samples=3),
                                       split.score(seqs, mode="sample", key=key, mc_samples=3))
+
+
+@pytest.mark.parametrize("what", ["bmm_likelihood", "data_split"])
+def test_no_mesh_on_card_names_cuda0(cuda, what):
+    # device="cuda" without an index over cuda:0 tensors, with no mesh: the
+    # split resolves the card to cuda:0, so the tensors' device is its key
+    # (tests/test_torch_mesh_training.py's bmm_likelihood tolerance).
+    from bear_tpu_torch.data import bmm_likelihood, load_dense
+    from bear_tpu_torch.parallel.mesh import DataSplit
+    from bear_tpu_torch.utils.config import bundled_ysd1_path
+
+    counts = torch.from_numpy(load_dense(bundled_ysd1_path(), "dna", 3).counts)
+    if what == "bmm_likelihood":
+        alpha = np.array([0.1, 1.0, 10.0])
+        got = bmm_likelihood(counts.to(cuda), alpha, batch_size=400, device="cuda")
+        want = bmm_likelihood(counts, alpha, batch_size=400, device="cpu")
+        np.testing.assert_allclose(got, want, rtol=1e-12)
+        return
+    split = DataSplit(None, "cuda")
+    assert split.master == cuda and split.n == 1 and not split.spans
+    x = counts.to(cuda)
+    parts = split.split(x)
+    assert [p.device for p in parts] == [cuda] and parts[0].data_ptr() == x.data_ptr()
+    total = split.sum([torch.lgamma(p + 1.0).sum(dim=0) for p in parts])
+    cpu = DataSplit(None, "cpu")
+    want = cpu.sum([torch.lgamma(p + 1.0).sum(dim=0) for p in cpu.split(counts)])
+    assert total.device == cuda and split.allreduce([total])[0] is total
+    np.testing.assert_allclose(total.cpu().numpy(), want.numpy(), rtol=1e-12)

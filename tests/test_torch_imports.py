@@ -88,22 +88,26 @@ def test_row_split_counters_import_first(first):
 
 
 def test_no_forbidden_import_statements():
+    # The package, and the example programs that run it.
+    examples = os.path.join(REPO, "examples")
+    paths = [os.path.join(root, f) for root, _, files in os.walk(PKG)
+             for f in files if f.endswith(".py")]
+    ported = sorted(f for f in os.listdir(examples) if fnmatch.fnmatch(f, "torch_*.py"))
+    assert ported == ["torch_genome_lag13.py", "torch_multihost_counting.py",
+                      "torch_multihost_train.py"]
+    paths += [os.path.join(examples, f) for f in ported]
     hits = []
-    for root, _, files in os.walk(PKG):
-        for f in files:
-            if not f.endswith(".py"):
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
                 continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    names = [node.module or ""]
-                else:
-                    continue
-                hits += [(path, n) for n in names if _forbidden(n)]
+            hits += [(path, n) for n in names if _forbidden(n)]
     assert hits == []
     assert not _forbidden("bear_tpu_torch") and _forbidden("bear_tpu.ops")
 

@@ -459,3 +459,38 @@ def test_chip_smoke_attention_config_is_bear_attn_bear_cfg():
     assert json.loads(ours["model"]["af_kwargs"]) == json.loads(shipped["model"]["af_kwargs"])
     assert ours["general"]["seed"] == shipped["general"]["seed"]
     assert ours["general"]["precision"] == "float32"
+
+
+def test_chip_smoke_examples_phase_rehearsal(tmp_path, capsys, monkeypatch):
+    # chip_smoke.py's phase 4k on the CPU at a small size: (AA) the genome
+    # example in-process against 4c's rows and BMM perplexities on the same
+    # reads (the example draws them from seed 0), (AB) and (AC) the
+    # multi-process examples over two gloo processes each; their own checks
+    # raise on a fault.
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")  # the examples' worker processes
+    size = dict(genome_mb=0.05, coverage=4, read_len=60)
+    reads, groups = chip_smoke.make_reads(**size)
+    chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
+    b_rec = {}
+    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), "CPU",
+                                 device="cpu", lag=LAG,
+                                 cnn_kw={"filter_width": 3, "num_filters": 8,
+                                         "kmer_layer1_width": 6},
+                                 batch=1024, epochs=1, n_score=50, record=b_rec)
+    argv = ["--genome-mb", "0.05", "--coverage", "4", "--read-len", "60", "--lag", str(LAG),
+            "--epochs", "1", "--batch-size", "1024", "--device", "cpu"]
+    assert chip_smoke.genome_example_phase(
+        b_rec, "CPU", argv=argv, device="cpu", want_rows=b_rec["rows"],
+        want_transitions=len(reads) * 61) == 0  # the plain version: no kernel
+    walls = chip_smoke.multihost_examples_phase(
+        str(tmp_path), "CPU", extra=["--device", "cpu", "--lag", "2", "--reads-per-file", "60",
+                                     "--read-len", "30"],
+        want_transitions=4 * 60 * 31)
+    assert len(walls) == 3
+    out = capsys.readouterr().out
+    for part in (f"(AA) torch_genome_lag13.main({argv}) in", "(== 4c's)",
+                 "(AB) torch_multihost_counting --nproc 2 --bench in",
+                 "(AC) torch_multihost_train --nproc 2 --bench  in",
+                 "(AC) torch_multihost_train --nproc 2 --bench --streaming in",
+                 "h identical on all 2 ranks"):
+        assert part in out, part
