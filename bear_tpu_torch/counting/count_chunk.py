@@ -35,6 +35,18 @@ row - idx * stride``; transitions of other rows are dropped (bear_tpu's
 and parallel/counting.py drive). The whole table stays below 2^31 entries
 while the global one (lags 14-15) need not.
 
+Launch shape
+------------
+:func:`launch_shape` picks the kernel's work decomposition from the chunk
+and the card's SM count: tiles of ``(THREADS / groups) * run`` positions,
+``run`` consecutive positions per thread and ``groups`` lag groups (a
+thread counts the lags ``g, g + groups, ...`` of its run). Starting from
+runs of 8 and one group, it halves the tile, alternately by splitting the
+lags and by shortening the run, until the chunk has ``BLOCKS_PER_SM``
+tiles per SM: the main path's 16,384 x 150 one-lag chunk keeps (8, 1);
+summarize's and the row-range passes' 1,024 x 192 chunk over 13-15 lags
+takes (4, 4).
+
 ``count_chunk_update(table, codes, meta, lags, n_groups, A, shard=None)``
 adds every counted transition of the chunk into ``table`` in place. On a
 CUDA tensor the hand-written kernel ``csrc/count_chunk.cu`` is launched
@@ -48,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,9 +71,12 @@ from bear_tpu_torch.counting.window_hist import window_update_plain
 
 SOURCE = "count_chunk"
 # Mirrors of csrc/count_chunk.cu.
-TILE = 2048  # most positions of a tile (256 threads x runs of 8)
-RUN = 8  # consecutive positions a thread takes
+THREADS = 256  # threads of a block
+RUN = 8  # most consecutive positions a thread takes
+MAX_GROUPS = 8  # most lag groups of a tile (a warp each)
+TILE = THREADS * RUN  # most positions of a tile
 MAX_ROWS = 32  # most rows a tile spans
+BLOCKS_PER_SM = 4  # tiles per SM the launch shape aims for, and the grid's cap
 MAX_LAGS = 16
 MAX_LAG = 15
 STOPPED, FRESH = 1, 2  # meta flag bits
@@ -178,10 +194,49 @@ def unpack_meta(meta: torch.Tensor):
             (flags & FRESH) != 0)
 
 
-def tile_positions(row_len: int) -> int:
-    """Positions per kernel tile for rows of ``row_len`` codes: at most
-    TILE, and few enough that a tile spans at most MAX_ROWS rows."""
-    return min(TILE, (MAX_ROWS - 1) * (row_len + 1))
+def tile_positions(row_len: int, run: int = RUN, groups: int = 1) -> int:
+    """Positions per kernel tile for rows of ``row_len`` codes: the
+    ``THREADS // groups`` runs of ``run`` positions, and few enough that a
+    tile spans at most MAX_ROWS rows."""
+    return min(THREADS // groups * run, (MAX_ROWS - 1) * (row_len + 1))
+
+
+class LaunchShape(NamedTuple):
+    """How one launch divides its chunk: positions per tile, positions per
+    thread, lag groups, and the persistent grid's blocks."""
+
+    tile: int
+    run: int
+    groups: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(n_rows: int, row_len: int, n_lags: int, sms: int) -> LaunchShape:
+    """The launch shape of an [n_rows, row_len] chunk over ``n_lags`` lags on
+    a card of ``sms`` SMs. From runs of RUN positions and one lag group, the
+    tile halves, alternately by doubling the lag groups (at most MAX_GROUPS
+    and ``n_lags``) and by halving the run, until the chunk has
+    ``BLOCKS_PER_SM * sms`` tiles or neither can change. The grid is that
+    many blocks, or one per tile when there are fewer."""
+    n_pos = n_rows * (row_len + 1)
+    target = BLOCKS_PER_SM * sms
+    max_groups = min(MAX_GROUPS, 1 << (max(n_lags, 1).bit_length() - 1))
+    run, groups, split = RUN, 1, True
+
+    def n_tiles():
+        return -(-n_pos // tile_positions(row_len, run, groups))
+
+    while n_tiles() < target:
+        if groups < max_groups and (split or run == 1):
+            groups *= 2
+        elif run > 1:
+            run //= 2
+        else:
+            break
+        split = not split
+    return LaunchShape(tile_positions(row_len, run, groups), run, groups,
+                       max(1, min(n_tiles(), target)))
 
 
 class _Lag(ctypes.Structure):
@@ -196,7 +251,7 @@ class LagTable(ctypes.Structure):
 
     _fields_ = [("n_lags", ctypes.c_int32), ("max_lag", ctypes.c_int32),
                 ("A", ctypes.c_int32), ("top_power", ctypes.c_uint32),
-                ("lag", _Lag * MAX_LAGS)]
+                ("a_shift", ctypes.c_int32), ("lag", _Lag * MAX_LAGS)]
 
 
 @functools.lru_cache(maxsize=64)
@@ -207,7 +262,8 @@ def lag_table(lags: tuple, n_groups: int, A: int, per_lag: tuple | None = None) 
     mutated."""
     offsets, _ = lag_offsets(lags, n_groups, A)
     t = LagTable(n_lags=len(lags), max_lag=max(lags), A=A,
-                 top_power=A ** (max(lags) - 1))
+                 top_power=A ** (max(lags) - 1),
+                 a_shift=A.bit_length() - 1 if A & (A - 1) == 0 else 0)
     ranges = dict(per_lag) if per_lag is not None else {
         l: (table_rows(l, A), table_rows(l, A), offsets[l]) for l in lags}
     for k, l in enumerate(lags):
@@ -241,7 +297,8 @@ def _check(table, codes, meta, lags, n_groups, A, shard=None) -> tuple:
     if not lags or not 1 <= lags[0] <= lags[-1] <= MAX_LAG:
         # At most MAX_LAG distinct lags, so the MAX_LAGS slots always suffice.
         raise ValueError(f"count_chunk takes lags in 1..{MAX_LAG}, got {lags}")
-    if A < 2 or A ** lags[-1] > _INT32_MAX:
+    if A < 2 or table_rows(lags[-1], A) > _INT32_MAX:
+        # The kernel's context codes (A^lag) and rows lie below 2^31.
         raise ValueError(f"lag {lags[-1]} context codes exceed int32 for A = {A}")
     if shard is None:
         _, total = lag_offsets(lags, n_groups, A)
@@ -280,10 +337,37 @@ def _library() -> ctypes.CDLL:
     fn = lib.count_chunk_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(LagTable),
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch(table: torch.Tensor, codes: torch.Tensor, meta: torch.Tensor, lt: LagTable,
+           shard_idx: int, shape: LaunchShape) -> torch.Tensor:
+    """One kernel launch on the tensors' card with lag table ``lt`` and
+    launch shape ``shape``, on the current stream; raises if the launcher
+    refuses or the launch fails. :func:`count_chunk_update` checks the
+    arguments and picks both; a caller may pass others (count_chunk_timing.py's
+    ablation of the shape and of the key math, the card tests)."""
+    B, L = codes.shape
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = _library().count_chunk_launch(
+            table.data_ptr(), table.numel(), codes.data_ptr(), meta.data_ptr(), B, L,
+            shape.tile, shape.run, shape.groups, shape.blocks, shard_idx,
+            ctypes.byref(lt), stream)
+    if rc != 0:
+        raise RuntimeError(f"count_chunk kernel launch failed: CUDA error {rc}")
+    count_chunk_update.launches += 1
+    return table
 
 
 def count_chunk_update(table: torch.Tensor, codes: torch.Tensor, meta: torch.Tensor,
@@ -305,18 +389,10 @@ def count_chunk_update(table: torch.Tensor, codes: torch.Tensor, meta: torch.Ten
     B, L = codes.shape
     if B == 0:
         return table
-    lib = _library()
     idx, per_lag = (0, None) if shard is None else (int(shard[0]), tuple(sorted(shard[1].items())))
     lt = lag_table(lags, n_groups, A, per_lag)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = lib.count_chunk_launch(
-            table.data_ptr(), table.numel(), codes.data_ptr(), meta.data_ptr(),
-            B, L, tile_positions(L), idx, ctypes.byref(lt), stream)
-    if rc != 0:
-        raise RuntimeError(f"count_chunk kernel launch failed: CUDA error {rc}")
-    count_chunk_update.launches += 1
-    return table
+    shape = launch_shape(B, L, len(lags), sm_count(table.device.index))
+    return launch(table, codes, meta, lt, idx, shape)
 
 
 count_chunk_update.launches = 0

@@ -23,7 +23,7 @@ import os
 import warnings
 import zipfile
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -62,6 +62,19 @@ class CountDataset:
     @property
     def num_ds(self) -> int:
         return self.counts.shape[1]
+
+    def batches(self, batch_size: int, *, epochs: int = 1,
+                drop_remainder: bool = False) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+        """Yield (codes, counts) minibatches in order, ``epochs`` times over
+        (no shuffle: summarize's random binning pre-shuffles the files);
+        ``drop_remainder`` drops each epoch's short last batch."""
+        n = self.num_kmers
+        for _ in range(epochs):
+            for start in range(0, n, batch_size):
+                end = min(start + batch_size, n)
+                if drop_remainder and end - start < batch_size:
+                    break
+                yield self.codes[start:end], self.counts[start:end]
 
     def concat(self, other: "CountDataset") -> "CountDataset":
         if self.alphabet != other.alphabet:

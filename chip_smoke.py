@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    at the main path's chunk beside its bound and a library call:
    window_hist (keys -> counts, off the main path since count_chunk) with
    an ablation of what holds its atomics back, and count_chunk (codes ->
-   counts, the main path's kernel) beside the earlier keys design;
+   counts, the main path's kernel) beside the earlier keys design, with
+   the launch shape it picks there (and at 4e's and 4g's chunks);
 4. main path: the examples/genome_lag13.py workload — a 4.6 Mb synthetic
    genome (seed 0) cut into 150 bp reads at coverage 10, train/test groups —
    counted at lag 13 by TransitionCounter on the card (one count_chunk
@@ -1107,6 +1108,19 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
                 shards=shards, csv=csv, n_bins=n_bins)
 
 
+def launch_fields(B, L, n_lags):
+    """The launch shape count_chunk_update picks for a [B, L] chunk over
+    ``n_lags`` lags on card 0, for the kernels line: blocks of the grid,
+    threads per block, positions per tile and per thread, lag groups and
+    lags per thread."""
+    from bear_tpu_torch.counting import count_chunk
+
+    s = count_chunk.launch_shape(B, L, n_lags, count_chunk.sm_count(0))
+    return {"blocks": s.blocks, "threads": count_chunk.THREADS, "tile": s.tile,
+            "positions_per_thread": s.run, "lag_groups": s.groups,
+            "lags_per_thread": -(-n_lags // s.groups)}
+
+
 def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20, passes=None):
     """count_chunk at the summarize geometry: the first chunk that
     chunks_from_packed makes of ``first_file`` (1,024 reads, padded), over
@@ -1174,14 +1188,15 @@ def summarize_chunk_timing(first_file, card, dev, lag=LAG, reps=20, passes=None)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     form = ("" if passes is None else
             f" in row-range form, held in all {passes} passes, timed in pass 0")
+    shape = launch_fields(*codes.shape, len(lags))
     print(f"[kernel] count_chunk at the summarize chunk{form}: {codes.shape[0]:,} x "
           f"{codes.shape[1]} codes over lags 1..{lag} ({valid.numel():,} keys counted, "
           f"{sectors:,} table sectors of {total:,} int32): == plain, max_abs_err {err}; ms "
           f"{ms:.6f} plain_ms {plain_ms:.6f} bound_ms {bound_ms:.6f} ({bound_by}) library_ms "
-          f"{library_ms:.6f} (index_put_ on the chunk's keys) [{card}]")
+          f"{library_ms:.6f} (index_put_ on the chunk's keys); launch {shape} [{card}]")
     out = {"shape": list(codes.shape), "lags": len(lags), "max_abs_err": float(err),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms, "launch_shape": shape}
     if passes is not None:
         out.update(passes=passes, timed_pass=0, table_entries=total, keys=valid.numel())
     return out
@@ -3595,12 +3610,13 @@ def main() -> int:
     count_ops_ms = n_pos * (ROLL_OPS + KEY_OPS) / FP32_OPS_PER_S * 1e3
     count_bound_ms = max(count_bytes_ms, count_ops_ms)
     count_bound_by = "bytes" if count_bytes_ms >= count_ops_ms else "operations"
+    count_shape = launch_fields(*codes.shape, 1)
     print(f"[kernel] count_chunk at the main path's chunk: {codes.shape[0]:,} x "
           f"{codes.shape[1]} codes, {n_pos:,} positions ({valid.numel():,} counted, "
           f"{sectors:,} table sectors): ms {count_ms:.6f} plain_ms {count_plain_ms:.6f} "
           f"bound_ms {count_bound_ms:.6f} ({count_bound_by}) earlier_ms {earlier_ms:.6f} "
           f"(chunk_keys + window_hist) library_ms {library_ms:.6f} (index_put_ on the "
-          f"chunk's keys) [{card}]")
+          f"chunk's keys); launch {count_shape} [{card}]")
     del table, l2_flush, valid, valid_long, ones, keys, codes, meta
     del lengths, skip, stopped, grp
     torch.cuda.empty_cache()
@@ -3907,6 +3923,7 @@ def main() -> int:
         "max_abs_err": float(count_err),
         "ms": count_ms, "plain_ms": count_plain_ms, "bound_ms": count_bound_ms,
         "bound_by": count_bound_by, "library_ms": library_ms,
+        "launch_shape": count_shape,
         "summarize_chunk": s_chunk,
         "shard_chunk": shard_chunk,
     }]}))

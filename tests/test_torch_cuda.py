@@ -260,6 +260,129 @@ def test_count_chunk_row_range_equals_plain(cuda, case):
     assert total > 0
 
 
+def _wide_chunk(alphabet, max_lag, seed=0):
+    """(codes, meta, A) of summarize's chunk shape: the first chunk
+    chunks_from_packed makes of 1,100 reads of 150 residues in two groups
+    (1,024 rows of 192). DNA reads carry a few ambiguous bases, so some rows
+    are pieces that are not fresh."""
+    from bear_tpu_torch.counting.count_chunk import pack_meta
+
+    A = 4 if alphabet == "dna" else 20
+    rng = np.random.default_rng(seed)
+    reads = rng.integers(0, A, size=(1100, 150)).astype(np.int8)
+    if alphabet == "dna":
+        reads[rng.random(reads.shape) < 0.002] = 4
+    offsets = np.arange(len(reads) + 1, dtype=np.int64) * reads.shape[1]
+    chunk = next(iter(engine.chunks_from_packed(
+        reads.reshape(-1), offsets, rng.integers(0, 2, len(reads)), max_lag,
+        ambig_code=4 if alphabet == "dna" else None, native=False)))
+    assert chunk.codes.shape[0] == 1024
+    meta = pack_meta(chunk.lengths, chunk.skip, chunk.stopped, chunk.groups, chunk.fresh)
+    return np.ascontiguousarray(chunk.codes, np.int8), meta, A
+
+
+def _on_card(cuda, codes, meta):
+    return torch.from_numpy(codes).to(cuda), torch.from_numpy(meta).to(cuda)
+
+
+def _equal_to_plain(cuda, total, launch, plain):
+    a = torch.zeros(total, dtype=torch.int32, device=cuda)
+    b = torch.zeros(total, dtype=torch.int32, device=cuda)
+    launch(a)
+    plain(b)
+    torch.cuda.synchronize()
+    same, n = torch.equal(a, b), int(a.sum(dtype=torch.int64))
+    del a, b
+    torch.cuda.empty_cache()
+    return same, n
+
+
+@pytest.mark.parametrize("alphabet", ["dna", "prot"])
+def test_count_chunk_summarize_chunk_equals_plain(cuda, alphabet):
+    # Summarize's 1,024 x 192 chunk in one launch over lags 1..13 (protein:
+    # 1..5, the dense table's int32 limit for two groups).
+    lags = tuple(range(1, 14 if alphabet == "dna" else 6))
+    codes, meta, A = _wide_chunk(alphabet, max(lags))
+    c, m = _on_card(cuda, codes, meta)
+    _, total = count_chunk.lag_offsets(lags, 2, A)
+    before = count_chunk_update.launches
+    same, n = _equal_to_plain(
+        cuda, total, lambda t: count_chunk_update(t, c, m, lags, 2, A),
+        lambda t: count_chunk.count_chunk_plain(t, c, m, lags, 2, A))
+    assert count_chunk_update.launches == before + 1
+    assert same and n > len(lags) * 1000 * 100
+
+
+@pytest.mark.parametrize("alphabet", ["dna", "prot"])
+def test_count_chunk_row_range_every_pass_equals_plain(cuda, alphabet):
+    # The row-range form in each of 9 passes: DNA over lags 1..15 (phase
+    # 4g's layout), protein over lags 1..6.
+    from bear_tpu_torch.counting.multipass import MultiPassTransitionCounter
+
+    lags = tuple(range(1, 16 if alphabet == "dna" else 7))
+    codes, meta, A = _wide_chunk(alphabet, max(lags), seed=1)
+    c, m = _on_card(cuda, codes, meta)
+    layout = MultiPassTransitionCounter(lags, n_groups=2, passes=9, alphabet=alphabet,
+                                        device=cuda)
+    per_pass = []
+    for d in range(9):
+        shard = (d, layout._per_lag)
+        same, n = _equal_to_plain(
+            cuda, layout.table_size,
+            lambda t: count_chunk_update(t, c, m, lags, 2, A, shard=shard),
+            lambda t: count_chunk.count_chunk_plain(t, c, m, lags, 2, A, shard=shard))
+        assert same, f"pass {d}"
+        per_pass.append(n)
+    # Each transition lands in exactly one pass's row range.
+    length, skip, _, flags = meta.astype(np.int64).T[:, :, None]
+    j = np.arange(codes.shape[1] + 1)[None, :]
+    live = (j >= skip) & ((j < length) | ((j == length) & (flags & 1 != 0)))
+    assert sum(per_pass) == sum(int((live & ((flags & 2 != 0) | (j >= l))).sum()) for l in lags)
+    assert all(n > 0 for n in per_pass)
+
+
+@pytest.mark.parametrize("key_math", ["mask", "mod"])
+@pytest.mark.parametrize("shape", ["chosen", "runs_of_8", "split"])
+def test_count_chunk_every_launch_shape_equals_plain(cuda, shape, key_math):
+    # One kernel, any launch shape the launcher takes and either key math
+    # for DNA (the remainder is protein's): the same counts as plain.
+    lags = tuple(range(1, 14))
+    codes, meta, A = _wide_chunk("dna", max(lags), seed=2)
+    c, m = _on_card(cuda, codes, meta)
+    B, L = codes.shape
+    lt = count_chunk.lag_table(lags, 2, A)
+    if key_math == "mod":
+        lt = count_chunk.LagTable.from_buffer_copy(lt)
+        lt.a_shift = 0
+    sms = count_chunk.sm_count(cuda.index)
+    pick = {"chosen": count_chunk.launch_shape(B, L, len(lags), sms),
+            "runs_of_8": count_chunk.LaunchShape(count_chunk.tile_positions(L), 8, 1, 5),
+            "split": count_chunk.LaunchShape(count_chunk.tile_positions(L, 1, 8), 1, 8, 7)}
+    _, total = count_chunk.lag_offsets(lags, 2, A)
+    same, _ = _equal_to_plain(
+        cuda, total, lambda t: count_chunk.launch(t, c, m, lt, 0, pick[shape]),
+        lambda t: count_chunk.count_chunk_plain(t, c, m, lags, 2, A))
+    assert same
+
+
+def test_count_chunk_launcher_refuses_a_bad_shape(cuda):
+    lags = (1, 2)
+    codes, meta, A = _wide_chunk("dna", 2)
+    c, m = _on_card(cuda, codes, meta)
+    _, total = count_chunk.lag_offsets(lags, 2, A)
+    table = torch.zeros(total, dtype=torch.int32, device=cuda)
+    lt = count_chunk.lag_table(lags, 2, A)
+    for bad in [count_chunk.LaunchShape(256, 4, 4, 8),     # more groups than lags
+                count_chunk.LaunchShape(2048, 4, 1, 8),    # tile beyond its threads' runs
+                count_chunk.LaunchShape(64, 3, 3, 8),      # groups not 1, 2, 4 or 8
+                count_chunk.LaunchShape(64, 9, 1, 8),      # run beyond 8
+                count_chunk.LaunchShape(64, 2, 1, 0)]:     # no block
+        with pytest.raises(RuntimeError, match="launch failed"):
+            count_chunk.launch(table, c, m, lt, 0, bad)
+    torch.cuda.synchronize()
+    assert int(table.sum()) == 0
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 def test_multipass_and_sparse_counters_on_card_equal_cpu(cuda, reverse):
     from bear_tpu_torch.counting.multipass import count_multipass

@@ -87,3 +87,25 @@ def test_bmm_likelihood_default_device_needs_a_card():
         pytest.skip("a CUDA card is present: the default device is valid")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         data.bmm_likelihood(np.zeros((2, 1, 5)), [1.0])
+
+
+@pytest.mark.parametrize("batch_size,epochs,drop", [(4, 1, False), (4, 2, True), (500, 3, False),
+                                                     (1365, 1, True), (2000, 2, True)])
+def test_batches_equal_bear_tpu(batch_size, epochs, drop):
+    # The same seeded dataset through both packages' CountDataset.batches:
+    # the same batches, in the same order, as views of the same rows.
+    rng = np.random.default_rng(batch_size + epochs)
+    n = 1365 if batch_size >= 500 else 10
+    kmers = np.array(["".join(rng.choice(list("ACGT"), 5)) for _ in range(n)])
+    codes = rng.integers(0, 4, size=(n, 5)).astype(np.int8)
+    counts = rng.integers(0, 50, size=(n, 2, 5)).astype(np.float64)
+    got = list(data.CountDataset(kmers, codes, counts, "dna").batches(
+        batch_size, epochs=epochs, drop_remainder=drop))
+    want = list(jdata.CountDataset(kmers, codes, counts, "dna").batches(
+        batch_size, epochs=epochs, drop_remainder=drop))
+    assert len(got) == len(want)
+    for (gc, gn), (wc, wn) in zip(got, want):
+        np.testing.assert_array_equal(gc, wc)
+        np.testing.assert_array_equal(gn, wn)
+        assert gc.dtype == wc.dtype and gn.dtype == wn.dtype
+    assert sum(len(c) for c, _ in got) == (n // batch_size * batch_size if drop else n) * epochs

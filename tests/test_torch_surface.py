@@ -1,5 +1,8 @@
 """The port's package surface against bear_tpu's: every name a bear_tpu
-subpackage exports exists in the port's (less the JAX-only names), the
+subpackage exports exists in the port's (less the JAX-only names); every
+public class and function each bear_tpu module defines exists in the
+port's module of the same path, and every public attribute of such a class
+on the port's class (less the named exceptions, each with its reason); the
 three functions the surface added agree with bear_tpu's, and every
 bear-tpu-* console script has a bear-tpu-torch-* counterpart whose target
 imports without JAX and answers --help.
@@ -9,6 +12,7 @@ Tolerances: row_to_context exact; ml_output_dm / ml_output_mult exact
 
 import ast
 import importlib
+import inspect
 import os
 import subprocess
 import sys
@@ -35,6 +39,92 @@ SUBPACKAGES = ["counting", "ops", "utils", "models", "inference", "data", "paral
 JAX_ONLY = {"models": {"ARFunc", "AR_FUNCS", "make_ar_func_attention", "make_ar_func_cnn",
                        "make_ar_func_linear", "make_ar_func_stop"},
             "utils": {"enable_compilation_cache"}}
+
+
+# bear_tpu modules without a port module of the same path, by design.
+NO_PORT_MODULE = {
+    "bear_tpu.counting.pallas_hist": "the TPU kernel itself: its port is csrc/count_chunk.cu "
+                                     "behind counting/count_chunk.py",
+    "bear_tpu.counting._native_build": "builds bear_tpu's host library; the port builds its "
+                                       "own with _build.build_host",
+}
+# Names a bear_tpu module defines (``Class.attribute`` for a class's) that
+# its port module lacks, by design.
+NOT_PORTED = {
+    "bear_tpu.counting.engine": {
+        # Selection among counting methods: the port has one kernel.
+        "resolve_method": "picks scatter or sorted; the port always runs count_chunk",
+        "device_nonzero": "the sorted method's on-device nonzero step",
+        "TransitionCounter.SORTED_MIN_TRANSITIONS": "the sorted method's threshold",
+    },
+    "bear_tpu.models.ar_funcs": {
+        # JAX-functional AR constructors: the port's AR functions are
+        # nn.Modules built by get_ar_func.
+        "ARFunc": "the (init, apply) pair of a JAX AR function",
+        "make_ar_func_linear": "a JAX AR constructor",
+        "make_ar_func_cnn": "a JAX AR constructor",
+        "make_ar_func_stop": "a JAX AR constructor",
+        "make_ar_func_attention": "a JAX AR constructor",
+    },
+    "bear_tpu.models.bear_ref": {
+        "make_ref_ar_func": "a JAX AR constructor (the port's is make_ref_ar, a module)",
+    },
+    "bear_tpu.utils.cli_common": {
+        "enable_compilation_cache": "XLA's compilation cache; torch has none",
+    },
+}
+
+
+def _modules():
+    """Every Python module under bear_tpu/, by dotted name (from the files:
+    the list does not depend on what imports)."""
+    names = []
+    for dirpath, _, files in os.walk(os.path.join(REPO, "bear_tpu")):
+        rel = os.path.relpath(dirpath, REPO).replace(os.sep, ".")
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                names.append(f"{rel}.{f[:-3]}")
+    return sorted(names)
+
+
+def test_module_walk_finds_the_package():
+    names = _modules()
+    assert len(names) >= 30
+    assert set(NO_PORT_MODULE) <= set(names) and set(NOT_PORTED) <= set(names)
+
+
+@pytest.mark.parametrize("name", _modules())
+def test_port_module_has_every_class_function_and_attribute(name):
+    if name in NO_PORT_MODULE:
+        return
+    want = importlib.import_module(name)
+    port = importlib.import_module("bear_tpu_torch" + name[len("bear_tpu"):])
+    skip = NOT_PORTED.get(name, {})
+    missing, checked = [], 0
+    for attr, obj in vars(want).items():
+        if attr.startswith("_") or getattr(obj, "__module__", None) != name or not (
+                inspect.isclass(obj) or inspect.isfunction(obj)):
+            continue
+        checked += 1
+        if attr in skip:
+            assert not hasattr(port, attr), f"{attr} is ported: drop its exception"
+            continue
+        if not hasattr(port, attr):
+            missing.append(attr)
+            continue
+        if inspect.isclass(obj):
+            ported = getattr(port, attr)
+            for member in dir(obj):
+                if member.startswith("_") or f"{attr}.{member}" in skip:
+                    continue
+                if not hasattr(ported, member):
+                    missing.append(f"{attr}.{member}")
+    assert missing == []
+    # Every exception names something bear_tpu still has.
+    for key in skip:
+        cls, _, member = key.partition(".")
+        assert hasattr(getattr(want, cls), member) if member else hasattr(want, key), key
+    assert checked or not skip
 
 
 def _exported(sub):
