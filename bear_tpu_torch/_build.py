@@ -4,9 +4,11 @@ Each ``csrc/<name>.cu`` has a plain ``extern "C"`` launcher and is compiled
 by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
 ``ctypes``. The digest covers the source, every shared header
 ``csrc/*.cuh`` and the flags, so an edited source or header never loads a
-stale library. Sources are compiled in parallel, one ``nvcc``
-process each. ``ptxas -v`` output (registers, shared memory, spills) is kept
-beside each library as ``.log``.
+stale library. ``SOURCE_FLAGS`` adds a source's own flags: ``keyed_draw.cu``
+is compiled with ``-fmad=false``, so that its float chain rounds each
+multiply and add as its plain PyTorch version does. Sources are compiled
+in parallel, one ``nvcc`` process each. ``ptxas -v`` output (registers,
+shared memory, spills) is kept beside each library as ``.log``.
 
 The host route (:func:`build_host`) compiles ``csrc/<name>.cpp`` with
 ``g++`` the same way, linking zlib where it links (``-DBEAR_HAS_ZLIB
@@ -30,6 +32,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+SOURCE_FLAGS = {"keyed_draw": ("-fmad=false",)}
+
+
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
 def _nvcc() -> str:
@@ -49,7 +56,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -65,7 +72,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         # Per-process temp name + atomic rename: concurrent first uses never
         # load a half-written library.
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)

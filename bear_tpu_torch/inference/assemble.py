@@ -15,7 +15,10 @@ reverse complement, for a batch of sequences at once on the device:
 - MAP mode takes ``log(max(conc, 1e-30) / sum(conc[:4]))``; sampled mode a
   Dirichlet draw keyed by ``fold_in(fold_in(key, sequence), row)``, so a
   sequence that revisits a context reuses its draw while sequences stay
-  independent (the reference's per-sequence sampled model, stateless);
+  independent (the reference's per-sequence sampled model, stateless): on
+  the card one launch of the keyed-draw kernel per step
+  (:func:`bear_tpu_torch.ops.keyed_draw.keyed_draw_full`), on the CPU its
+  plain version, ``log_dirichlet_draw_keyed`` of the folded keys;
 - the next letter is the Gumbel-max over the four residues, with a Gumbel
   key per step.
 
@@ -40,6 +43,7 @@ from torch.profiler import record_function
 from bear_tpu_torch.counting.count_chunk import table_rows
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops import keyed_random as kr
+from bear_tpu_torch.ops.keyed_draw import keyed_draw_full
 from bear_tpu_torch.ops.loggamma import log_dirichlet_draw_keyed
 from bear_tpu_torch.utils.device import resolve_device
 
@@ -81,6 +85,16 @@ def _sparse_gather(rows_sorted: torch.Tensor, counts: torch.Tensor):
     return gather
 
 
+def _keyed_draw(seq_keys, seq_index, rows, conc):
+    """Unnormalised log-Dirichlet draws [B, 5], sequence b's under
+    ``fold_in(seq_keys[b], rows[b])``: the kernel on the card (base keys
+    [1, B], group b), its plain version on the CPU, looked up in this
+    module (tests/test_torch_assemble.py replaces it to watch the draws)."""
+    if conc.device.type == "cpu":
+        return log_dirichlet_draw_keyed(kr.fold_in(seq_keys, rows), conc, n_iter=DRAW_ITERS)
+    return keyed_draw_full(seq_keys[None], seq_index, rows, conc, DRAW_ITERS)[0]
+
+
 def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, get_map,
              max_steps, dtype):
     """Generate ``max_steps`` letters for a batch of sequences.
@@ -101,7 +115,8 @@ def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, ge
     pow4 = 4 ** torch.arange(lag - 1, -1, -1, dtype=torch.int64, device=dev)
     ctx = (seed_codes * pow4).sum(dim=-1)
     window = seed_codes
-    seq_keys = kr.fold_in(batch_key, torch.arange(B, device=dev))
+    seq_index = torch.arange(B, device=dev)
+    seq_keys = kr.fold_in(batch_key, seq_index)
     no_stop = torch.ones(5, dtype=dtype, device=dev)
     no_stop[-1] = 0.0
     out = torch.empty((B, max_steps), dtype=torch.int64, device=dev)
@@ -121,8 +136,7 @@ def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, ge
                                       / conc[:, :-1].sum(dim=-1, keepdim=True))
             else:
                 with record_function(DRAW_SPAN):
-                    lg = log_dirichlet_draw_keyed(kr.fold_in(seq_keys, rows), conc,
-                                                  n_iter=DRAW_ITERS)
+                    lg = _keyed_draw(seq_keys, seq_index, rows, conc)
                 log_probs = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
             letters = torch.argmax(gumbel[t - t0] + log_probs[:, :4], dim=-1)
             active = t < lengths

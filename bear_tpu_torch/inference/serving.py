@@ -16,8 +16,10 @@ draw of a row is a function of its key alone, so a context repeated within
 a sequence reuses one draw, wild type and mutant share the draws of their
 shared windows (Δ contributions cancel exactly), and results do not depend
 on batching. Rows, gathers and concentrations are computed once per call;
-only the draw carries the sample axis, in slices of elements that keep its
-temporaries within ``SAMPLE_BUDGET_BYTES``.
+only the draw carries the sample axis (:mod:`bear_tpu_torch.ops.keyed_draw`:
+one kernel launch on the card, whose words and floats stay in registers; on
+the CPU the plain version, in slices of elements that keep its temporaries
+within ``SAMPLE_BUDGET_BYTES``).
 
 ``mesh=`` splits the table's rows over a mesh axis (serving a table too
 large for one device): each slice is built on its own device from the
@@ -38,7 +40,8 @@ from bear_tpu_torch.counting.engine import pad_offset, table_rows
 from bear_tpu_torch.inference.scoring import load_bear, load_bear_dataset, parse_var
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops import keyed_random as kr
-from bear_tpu_torch.ops.loggamma import _pairs, fold_in_many, log_dirichlet_draw_keyed
+from bear_tpu_torch.ops.keyed_draw import keyed_draw_picked, logp_picked
+from bear_tpu_torch.ops.loggamma import _pairs
 from bear_tpu_torch.parallel import multihost
 from bear_tpu_torch.parallel.mesh import DataSplit, check_device
 
@@ -47,7 +50,7 @@ from bear_tpu_torch.parallel.mesh import DataSplit, check_device
 # falls back to the Wilson-Hilferty cube, so 3 keeps that ~1e-4 of lanes
 # near the distribution.
 SAMPLE_PROPOSALS = 3
-# Device memory the draw's temporaries may take in one slice of elements.
+# Memory the plain draw's temporaries may take in one slice of elements.
 SAMPLE_BUDGET_BYTES = 4 << 30
 # Rows per AR call when the sampled and Δ paths form concentrations: the
 # lag-13 CNN of examples/genome_lag13.py holds ~10 KB of activations per
@@ -56,23 +59,24 @@ SAMPLE_BUDGET_BYTES = 4 << 30
 AR_SLICE_ROWS = 1 << 18
 
 
-def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS) -> int:
-    """Peak bytes of one (sample, element) draw, estimated from its
-    tensors: ~9 live int64 Philox states per counter block while the rounds
-    run, then ~16 float temporaries per proposal lane in the accept test."""
+def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS,
+                device_type: str = "cpu") -> int:
+    """Peak temporary bytes of one (sample, element) draw. The kernel on
+    the card keeps none in device memory; the plain version's are estimated
+    from its tensors: ~9 live int64 Philox states per counter block while
+    the rounds run, then ~16 float temporaries per proposal lane in the
+    accept test."""
+    if device_type == "cuda":
+        return 0
     blocks = -(-_pairs(F * A1) // 4) + -(-F * A1 // 4) + -(-A1 // 4)
     return 80 * blocks + 16 * F * A1 * itemsize
 
 
 def _sampled_logp_picked(keys, conc, nxt):
-    """Posterior-sampled log-prob of the chosen category: one Dirichlet
-    draw per key (keys [...], conc [..., A1] and nxt [...] broadcast).
-    Same key and concentrations, same draw; a zero concentration that is
-    picked scores -inf."""
-    lg = log_dirichlet_draw_keyed(keys, conc, n_iter=SAMPLE_PROPOSALS)
-    lse = torch.logsumexp(lg, dim=-1)
-    idx = nxt.long().expand(lg.shape[:-1])[..., None]
-    return lg.gather(-1, idx)[..., 0] - lse
+    """Posterior-sampled log-prob of the chosen category under one
+    Dirichlet draw per key, with the serving samplers' proposals
+    (:func:`bear_tpu_torch.ops.keyed_draw.logp_picked`)."""
+    return logp_picked(keys, conc, nxt, SAMPLE_PROPOSALS)
 
 
 def _map_picked(conc, nxt):
@@ -327,16 +331,20 @@ class BearServer:
     def _draw_picked(self, base_keys, group, rows, nxt, conc):
         """Sampled log-prob of the chosen symbol of E elements: element e
         draws under fold_in(base_keys[:, group[e]], rows[e]). base_keys
-        [S, G], group/rows/nxt [E], conc [E, A1] -> [S, E]. The draw runs
-        in slices of elements within SAMPLE_BUDGET_BYTES."""
+        [S, G], group/rows/nxt [E], conc [E, A1] -> [S, E], by
+        ``keyed_draw_picked``: on the card in one launch, on the CPU in
+        slices of elements within SAMPLE_BUDGET_BYTES."""
         S, E = base_keys.shape[0], rows.shape[0]
+        per = S * _draw_bytes(conc.shape[-1], conc.element_size(),
+                              device_type=conc.device.type)
+        if per == 0:
+            return keyed_draw_picked(base_keys, group, rows, conc, nxt, SAMPLE_PROPOSALS)
         out = torch.empty((S, E), dtype=conc.dtype, device=conc.device)
-        per = S * _draw_bytes(conc.shape[-1], conc.element_size())
         step = max(1, SAMPLE_BUDGET_BYTES // per)
         for s in range(0, E, step):
             sl = slice(s, s + step)
-            keys = fold_in_many(base_keys[:, group[sl]], rows[sl])
-            out[:, sl] = _sampled_logp_picked(keys, conc[sl], nxt[sl])
+            out[:, sl] = keyed_draw_picked(base_keys, group[sl], rows[sl], conc[sl], nxt[sl],
+                                           SAMPLE_PROPOSALS)
         return out
 
     def _window_logp(self, rows, nxt, keys):

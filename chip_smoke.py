@@ -14,7 +14,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    window_hist (keys -> counts, off the main path since count_chunk) with
    an ablation of what holds its atomics back, and count_chunk (codes ->
    counts, the main path's kernel) beside the earlier keys design, with
-   the launch shape it picks there (and at 4e's and 4g's chunks);
+   the launch shape it picks there (and at 4e's and 4g's chunks); and
+   keyed_draw (the keyed Dirichlet sampler) on seeded rows of both
+   alphabets, every proposal count, both float types and both modes,
+   against its plain version (KEYED_DRAW_CASES);
 4. main path: the examples/genome_lag13.py workload — a 4.6 Mb synthetic
    genome (seed 0) cut into 150 bp reads at coverage 10, train/test groups —
    counted at lag 13 by TransitionCounter on the card (one count_chunk
@@ -42,8 +45,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    4b's YSD1 model (snv --all --sample --std, variants --device, seqs
    --map). MAP against the port on the CPU in float64; sampled float64 on
    the card against the CPU in float64 from the same keys, on subsets; the
-   in-call reductions against the raw draws. Rates, peak device memory,
-   the sampler's share of device time, and profiles of (C) and (D);
+   in-call reductions against the raw draws. (C)'s draw input held
+   keyed_draw against its plain version (float32 and float64, picked and
+   full) and timed beside the plain version and the bound. Rates, peak
+   device memory, the sampler's share of device time, and profiles of (C)
+   and (D). keyed_draw's launches are counted on (C), (D), (E), (F) and in
+   4f (K) and 4g (O) (sampled assembly), each from 0 just before its path;
 4e. the on-disk workflow: phase 4's reads written as FASTQ (the train
    group over 3 files, one gzip-compressed; the held-out group in 1), the
    summarize CLI at -l 13 through its parser on the card (native parser for
@@ -209,6 +216,20 @@ SAMPLED_CHECK = (256, 2000, 1000)  # reads, SNVs, variants
 MAP_CHECK = (3000, 1000)  # SNVs, variants
 SAMPLED_RTOL = 1e-9
 SAMPLED_FLIPS = 1e-4
+# The keyed-draw kernel against its plain version on the card: float64 at
+# rtol 1e-12 and float32 at 2e-6 of the operands' scale (keyed_draw_vs_plain),
+# at most SAMPLED_FLIPS of the lanes beyond (an accept test flipped by an
+# ulp). Its cases: both alphabets' rows, each proposal count, both types and
+# modes, on KEYED_DRAW_SHAPE = (samples, elements, groups) with the element
+# count not a multiple of the 128-thread block.
+KEYED_DRAW_RTOL = {"float64": 1e-12, "float32": 2e-6}
+KEYED_DRAW_CASES = [(A1, F, dtype, mode) for A1 in (5, 21) for F in (3, 4, 6)
+                    for dtype in ("float32", "float64") for mode in ("picked", "full")]
+KEYED_DRAW_SHAPE = (3, 1037, 50)
+# The paths that draw through keyed_draw: (C), (D), (E), (F), (K) as the CLI
+# and its generation called apart, (O).
+KEYED_DRAW_PATHS = ("sampled_serving", "snv_scan", "variants", "score_cli", "assemble_cli",
+                    "assemble", "sparse_assembly")
 PEAK_BUDGET = 8 << 30  # bytes a call may take above what is resident
 CLI_WT_BP = 500
 CLI_READS = 64
@@ -791,26 +812,175 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     return launches, codes, counts, ar, p0, n_rows
 
 
-def sampler_ops_per_draw(A1, F=3):
-    """Operations of one keyed draw of A1 categories with F proposals,
-    counted from the algorithm: 10 Philox rounds of ~10 integer operations
-    (two multiplies, two high-word shifts, four XORs, two masks) for each
-    block (the row key's fold_in, then the normal, exponential and boost
-    words), ~25 float operations per proposal lane (its share of
-    Box-Muller, the cube, the accept test with its log, the selection) and
-    ~10 per category (boost, logsumexp, pick)."""
-    blocks = 1 + -(-(F * A1 + F * A1 % 2) // 4) + -(-F * A1 // 4) + -(-A1 // 4)
-    return 100 * blocks + 25 * F * A1 + 10 * A1
+def sampler_work_per_draw(A1):
+    """(operations, transcendentals) of one keyed draw of A1 categories, as
+    the draw needs them when each category's first Marsaglia-Tsang proposal
+    accepts (>= 95% do; a rejection adds a proposal, not counted): the row
+    key's Philox block and the blocks of the first proposals' normal,
+    exponential and boost words, 10 rounds of ~10 integer operations each
+    (two low and two high multiplies, four XORs, the key schedule); ~25
+    float operations per category (its share of Box-Muller, the cube, the
+    accept test, the boost) and ~10 for the logsumexp and the pick. The
+    transcendentals: log and sqrt per Box-Muller pair, sin or cos per
+    normal, per category the exponential's log, sqrt(9d), log(vs), log(d),
+    log(v), the boost's log and exp(lg - max), and the logsumexp's log."""
+    blocks = 1 + -(-(A1 + A1 % 2) // 4) + 2 * -(-A1 // 4)
+    pairs = -(-A1 // 2)
+    return 100 * blocks + 35 * A1, 2 * pairs + 8 * A1 + 1
+
+
+def keyed_draw_work(base_keys, group, rows, conc, nxt):
+    """(bytes, operations) of one picked keyed-draw call on these inputs:
+    each input read once and the [S, E] output written once; S * E draws
+    of sampler_work_per_draw's operations."""
+    S, (E, A1) = base_keys.shape[0], conc.shape
+    nbytes = S * E * conc.element_size() + sum(
+        t.numel() * t.element_size() for t in (base_keys, group, rows, conc, nxt))
+    return nbytes, S * E * sampler_work_per_draw(A1)[0]
+
+
+def bound_of(nbytes, ops):
+    """(bound ms, bound_by): the larger of the bytes at the HBM rate and the
+    operations at the CUDA cores' float32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def keyed_draw_inputs(A1, dtype, dev, shape=KEYED_DRAW_SHAPE, seed=SEED):
+    """Seeded draw inputs on ``dev``: base keys [S, G] over the whole int64
+    range, group ids, int64 rows (negative and past 2^32), concentrations
+    1e-4..1e4 in ``dtype`` with a tenth at 0 (each row keeps one above 0)
+    and int32 next symbols (a tenth of them at a zero concentration)."""
+    import torch
+
+    S, E, G = shape
+    rng = np.random.default_rng(seed)
+    i64 = np.iinfo(np.int64)
+    base = rng.integers(i64.min, i64.max, (S, G), dtype=np.int64, endpoint=True)
+    conc = 10.0 ** rng.uniform(-4, 4, (E, A1))
+    conc[rng.random((E, A1)) < 0.1] = 0.0
+    conc[np.arange(E), rng.integers(0, A1, E)] = 10.0 ** rng.uniform(-4, 4, E)
+    return (torch.as_tensor(base).to(dev), torch.as_tensor(rng.integers(0, G, E)).to(dev),
+            torch.as_tensor(rng.integers(-(1 << 40), 1 << 40, E)).to(dev),
+            torch.as_tensor(conc, dtype=getattr(torch, dtype)).to(dev),
+            torch.as_tensor(rng.integers(0, A1, E), dtype=torch.int32).to(dev))
+
+
+def keyed_draw_plain_sliced(inputs, F, mode, budget=4 << 30):
+    """The plain version over every element, in slices of elements whose
+    temporaries stay within ``budget`` bytes (as BearServer._draw_picked
+    slices it on the CPU)."""
+    import torch
+    from bear_tpu_torch.inference.serving import _draw_bytes
+    from bear_tpu_torch.ops.keyed_draw import keyed_draw_plain
+
+    base, group, rows, conc, nxt = inputs
+    S, (E, A1) = base.shape[0], conc.shape
+    step = max(1, budget // (S * _draw_bytes(A1, conc.element_size(), F)))
+    parts = [keyed_draw_plain(base, group[s:s + step], rows[s:s + step], conc[s:s + step], F,
+                              None if mode == "full" else nxt[s:s + step])
+             for s in range(0, E, step)]
+    return torch.cat(parts, dim=1)
+
+
+def keyed_draw_vs_plain(inputs, F, mode):
+    """The kernel (through its wrapper) against the plain version on the
+    same card inputs: {lanes, beyond, max_abs_err, max_rel_err,
+    same_special}. A (sample, element) lane is beyond when a value differs
+    by more than KEYED_DRAW_RTOL of its operands' scale: |value| + 1, and
+    + |logsumexp| for a picked log-prob (the difference of the two); -inf,
+    +inf and NaN must sit exactly where the plain version has them."""
+    import torch
+    from bear_tpu_torch.ops.keyed_draw import keyed_draw_full, keyed_draw_picked
+
+    base, group, rows, conc, nxt = inputs
+    got = (keyed_draw_picked(base, group, rows, conc, nxt, F) if mode == "picked"
+           else keyed_draw_full(base, group, rows, conc, F))
+    want = keyed_draw_plain_sliced(inputs, F, mode)
+    synchronize(conc.device)
+    got, want = got.double(), want.double()
+    scale = want.abs() + 1
+    if mode == "picked":
+        scale += torch.logsumexp(keyed_draw_plain_sliced(inputs, F, "full").double(), -1).abs()
+
+    def special(t):
+        return torch.stack([torch.isneginf(t), torch.isposinf(t), torch.isnan(t)])
+
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    err = torch.where(fin, (got - want).abs(), 0.0)
+    rel = torch.where(fin, err / scale, 0.0)
+    beyond = rel > KEYED_DRAW_RTOL[str(conc.dtype).removeprefix("torch.")]
+    if mode == "full":
+        beyond = beyond.any(dim=-1)
+    return dict(lanes=int(beyond.numel()), beyond=int(beyond.sum()),
+                max_abs_err=float(err.max()), max_rel_err=float(rel.max()),
+                same_special=torch.equal(special(got), special(want)))
+
+
+def keyed_draw_held(label, stats):
+    check(stats["same_special"] and stats["beyond"] <= SAMPLED_FLIPS * stats["lanes"],
+          f"keyed_draw differs from its plain version on {label}: {stats}")
+    print(f"[kernel] keyed_draw == plain on {label}: {stats['beyond']} of {stats['lanes']:,} "
+          f"lanes beyond tolerance, max_rel_err {stats['max_rel_err']:.3e}, max_abs_err "
+          f"{stats['max_abs_err']:.3e}, -inf/NaN where the plain version has them")
+
+
+def keyed_draw_timing(server, fn, card, reps=20):
+    """4d: the draw input of one call of fn (BearServer._draw_picked's
+    arguments, captured) held kernel against plain in float32 and float64,
+    picked and full (keyed_draw_vs_plain's gates); then the kernel timed on
+    it (CUDA events, ``reps`` launches) beside the plain version (sliced as
+    on the CPU, the same events) and its bound. Returns the JSON
+    line's fields."""
+    import torch
+    from bear_tpu_torch.inference.serving import SAMPLE_PROPOSALS
+    from bear_tpu_torch.ops.keyed_draw import keyed_draw_picked
+
+    captured = []
+    inner = server._draw_picked
+
+    def capture(base_keys, group, rows, nxt, conc):
+        captured.append((base_keys, group, rows, conc, nxt))
+        return inner(base_keys, group, rows, nxt, conc)
+
+    server._draw_picked = capture
+    try:
+        fn()
+    finally:
+        del server._draw_picked
+    check(len(captured) == 1, f"the call drew {len(captured)} times, not once")
+    inputs = captured[0]
+    S, (E, A1) = inputs[0].shape[0], inputs[3].shape
+    F = SAMPLE_PROPOSALS
+    held = {}
+    for dtype in ("float32", "float64"):
+        cast = inputs[:3] + (inputs[3].to(getattr(torch, dtype)),) + inputs[4:]
+        for mode in ("picked", "full"):
+            held[f"{dtype} {mode}"] = stats = keyed_draw_vs_plain(cast, F, mode)
+            keyed_draw_held(f"(C)'s draw input, (S, E, A1) ({S}, {E:,}, {A1}), F {F}, "
+                            f"{dtype}, {mode}", stats)
+        del cast
+        torch.cuda.empty_cache()
+    ms = timed_ms(lambda: keyed_draw_picked(*inputs[:4], inputs[4], F), reps, None)
+    plain_ms = timed_ms(lambda: keyed_draw_plain_sliced(inputs, F, "picked"), reps, None)
+    bound_ms, bound_by = bound_of(*keyed_draw_work(*inputs))
+    trans = sampler_work_per_draw(A1)[1]
+    print(f"[kernel] keyed_draw at (C)'s draw input ({S} samples x {E:,} elements, A1 {A1}, "
+          f"F {F}, float32, picked): ms {ms:.6f} plain_ms {plain_ms:.6f} bound_ms "
+          f"{bound_ms:.6f} ({bound_by}; {trans} transcendentals a draw) library_ms null (no "
+          f"PyTorch call draws keyed log-Gamma variates) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=held["float32 picked"]["max_abs_err"],
+                max_rel_err=max(h["max_rel_err"] for h in held.values()),
+                transcendentals_per_draw=trans, shape=[S, E, A1])
 
 
 def sampler_share(server, fn):
     """(draw ms, call ms, draw bound ms, bound_by): device time of the keyed
     draws (BearServer._draw_picked) inside one call of fn and of the whole
     call, both between CUDA events, and the least time the card could take
-    for those draws: their inputs (concentrations, rows, next symbols,
-    groups, base keys) read and their [S, E] outputs written once at the
-    HBM rate, against their operations (sampler_ops_per_draw) at the
-    CUDA cores' float32 rate."""
+    for those draws (keyed_draw_work, bound_of)."""
     import torch
 
     spans = []
@@ -818,11 +988,8 @@ def sampler_share(server, fn):
     inner = server._draw_picked
 
     def timed(base_keys, group, rows, nxt, conc):
-        S, E = base_keys.shape[0], rows.shape[0]
-        work[0] += (conc.numel() * conc.element_size() + rows.numel() * rows.element_size()
-                    + nxt.numel() * nxt.element_size() + group.numel() * group.element_size()
-                    + base_keys.numel() * 8 + S * E * conc.element_size())
-        work[1] += S * E * sampler_ops_per_draw(conc.shape[-1])
+        for i, w in enumerate(keyed_draw_work(base_keys, group, rows, conc, nxt)):
+            work[i] += w
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         out = inner(base_keys, group, rows, nxt, conc)
@@ -840,15 +1007,13 @@ def sampler_share(server, fn):
         end.synchronize()
     finally:
         del server._draw_picked
-    bytes_ms = work[0] / HBM_BYTES_PER_S * 1e3
-    ops_ms = work[1] / FP32_OPS_PER_S * 1e3
     return (sum(s.elapsed_time(e) for s, e in spans), start.elapsed_time(end),
-            max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations")
+            *bound_of(*work))
 
 
 def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda",
                   mc=MC, n_variants=N_VARIANTS, sampled_check=SAMPLED_CHECK,
-                  map_check=MAP_CHECK, cli_wt_bp=CLI_WT_BP, profile=True):
+                  map_check=MAP_CHECK, cli_wt_bp=CLI_WT_BP, profile=True, record=None):
     """4d: posterior-sampled serving (C), the SNV scan (D), arbitrary
     variants (E) and the score CLI (F), from ``table`` with the model of
     ``model_dir`` (and its float64 copy ``model_dir + '_float64'``).
@@ -856,12 +1021,16 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
     the CPU from the same keys on subsets, the reductions against the raw
     draws, and finiteness; reports rates and peak device memory, and with
     ``profile`` the sampler's share of device time and the profiles of (C)
-    and (D)."""
+    and (D). On the card, (C)'s draw input is held kernel against plain and
+    timed (keyed_draw_timing). ``record`` gets each path's keyed_draw
+    launches (counted from 0 just before its timed calls, read just after)
+    under "keyed_launches" and the kernel's numbers under "keyed_draw"."""
     import contextlib
     import io
 
     import torch
     from bear_tpu_torch.inference import BearServer, load_bear, score_cli
+    from bear_tpu_torch.ops import keyed_draw
     from bear_tpu_torch.ops.keyed_random import key as make_key
 
     on_card = torch.device(device).type == "cuda"
@@ -923,25 +1092,34 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
         print(f"[sample] {label}: reduce='mean_std' == mean, std of reduce='none' "
               f"(max |diff| {d_mean.max():.3e}, {d_std.max():.3e})")
 
+    record = {} if record is None else record
+    launches = record.setdefault("keyed_launches", {})
+
     # (C) posterior-sampled serving
     n_r, n_s, n_v = sampled_check
     kw = dict(mode="sample", key=key, mc_samples=mc)
     score_ms = lambda: server.score(seqs, reduce="mean_std", **kw)  # noqa: E731
+    keyed_draw.launches = 0
     ms = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='mean_std'", len(seqs),
              "sequences", score_ms)
     raw = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='none'", len(seqs), "sequences",
               lambda: server.score(seqs, **kw))
+    launches["sampled_serving"] = keyed_draw.launches
     check(ms.shape == (len(seqs), 2) and raw.shape == (len(seqs), mc), "(C) shapes")
     reductions_held("(C)", ms, raw)
     held(f"(C) {n_r} reads", dev64.score(seqs[:n_r], **kw), cpu64.score(seqs[:n_r], **kw),
          n_r * mc)
+    if on_card:
+        record["keyed_draw"] = keyed_draw_timing(server, score_ms, card)
 
     # (D) the deep-mutational-scan grid
     pos, alts = snv_grid(wt)
     snv_ms = lambda: server.delta_scores_snv(wt, pos, alts, reduce="mean_std", **kw)  # noqa: E731
+    keyed_draw.launches = 0
     d_map = run(f"(D) {len(pos):,} SNVs, MAP", len(pos), "SNVs",
                 lambda: server.delta_scores_snv(wt, pos, alts))
     d_ms = run(f"(D) {len(pos):,} SNVs, MC-{mc}, reduce='mean_std'", len(pos), "SNVs", snv_ms)
+    launches["snv_scan"] = keyed_draw.launches
     check(d_map.shape == (len(pos),) and d_ms.shape == (len(pos), 2), "(D) shapes")
     k = map_check[0]
     map_held(f"(D) first {k:,} SNVs", d_map[:k],
@@ -953,11 +1131,13 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
 
     # (E) arbitrary variants
     variants = make_variants(wt, n_variants)
+    keyed_draw.launches = 0
     e_map = run(f"(E) {len(variants):,} variants, MAP", len(variants), "variants",
                 lambda: server.delta_scores_variants(wt, variants))
     e_ms = run(f"(E) {len(variants):,} variants, MC-{mc}, reduce='mean_std'", len(variants),
                "variants", lambda: server.delta_scores_variants(wt, variants,
                                                                 reduce="mean_std", **kw))
+    launches["variants"] = keyed_draw.launches
     check(e_map.shape == (len(variants),) and e_ms.shape == (len(variants), 2), "(E) shapes")
     k = map_check[1]
     map_held(f"(E) first {k:,} variants", e_map[:k],
@@ -981,6 +1161,7 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
               f": {rows:,} rows in {sec:.4f} s (model load included) [{card}]")
 
     cli_wt = "".join(np.random.default_rng(SEED).choice(list("ACGT"), cli_wt_bp))
+    keyed_draw.launches = 0
     cli(["snv", ysd1_dir, cli_wt, "--all", "--sample", "--std"], 3 * cli_wt_bp,
         "variant\tBEAR\tmc_std")
     cli_vars = make_variants(cli_wt, 100, seed=1)
@@ -988,6 +1169,7 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
         "target\tBEAR")
     cli(["seqs", ysd1_dir, *seqs[:CLI_READS], "--map"], min(CLI_READS, len(seqs)),
         "target\tAR\tBEAR")
+    launches["score_cli"] = keyed_draw.launches
 
     if profile:
         for label, fn in ((f"(C) serve {len(seqs)} reads MC-{mc} mean_std", score_ms),
@@ -1636,8 +1818,10 @@ def assembly_margin(gen, seed_s, index, direction, step, table, lag, prior, seed
 
 def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
     """One torch.profiler window over a short sampled rollout with the CLI's
-    table and model: the device time of the keyed draws (the kernels under
-    assemble's DRAW_SPAN) against that of all kernels."""
+    table and model: the device time of the keyed draws against that of all
+    kernels. The draws are the keyed_draw kernel's launches, read by name:
+    the profiler attributes no device time to assemble's DRAW_SPAN around
+    them (a ctypes launch belongs to no op)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from bear_tpu_torch.inference import assemble
@@ -1651,10 +1835,10 @@ def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
         wall_us = (time.perf_counter() - t0) * 1e6
     busy = draw_us = 0.0
     for e in prof.key_averages():
-        if e.key == assemble.DRAW_SPAN and e.device_type == DeviceType.CPU:
-            draw_us += getattr(e, "device_time_total", 0)
-        elif e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             busy += getattr(e, "self_device_time_total", 0)
+            if "keyed_draw_kernel" in e.key:
+                draw_us += getattr(e, "self_device_time_total", 0)
     letters = 2 * ASM_PROFILE_FLANK * len(seeds) * num
     if busy == 0:
         print(f"[assemble] sampler share not measured: the profiler recorded no device time "
@@ -1668,7 +1852,7 @@ def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
 
 def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", lag=LAG,
                    genome_mb=GENOME_MB, n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
-                   check_cfg=ASM_CHECK, profile=True):
+                   check_cfg=ASM_CHECK, profile=True, keyed=None):
     """4f (K): the assembly CLI on (G)'s reads (counted with reverse=True at
     ``lag``) with the streamed CNN of ``model_dir``: ``n_seeds`` seeded 150
     bp windows of the genome, ``num`` samples each, ``flank`` letters left
@@ -1682,7 +1866,8 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     BMM and BEAR (a small linear AR), are held against the same on the CPU,
     sequence for sequence (a flip is allowed only at a Gumbel margin below
     ASM_MARGIN). Returns the count_chunk launches of the CLI and of the
-    direct count."""
+    direct count; ``keyed`` gets the keyed_draw launches of the sampled CLI
+    run ("assemble_cli") and of its generation called apart ("assemble")."""
     import torch
     from bear_tpu_torch.counting import engine, fastx
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
@@ -1690,7 +1875,9 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     from bear_tpu_torch.inference import assemble, assemble_cli
     from bear_tpu_torch.inference.scoring import load_bear
     from bear_tpu_torch.models.ar_funcs import LinearAR
+    from bear_tpu_torch.ops import keyed_draw
 
+    keyed = {} if keyed is None else keyed
     seeds = assembly_seeds(genome_mb, n_seeds)
     os.makedirs(out_dir, exist_ok=True)
     seeds_fa = os.path.join(out_dir, "seeds.fa")
@@ -1704,11 +1891,14 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     for mode in ("sampled", "map"):
         out = os.path.join(out_dir, mode)
         count_chunk_update.launches = 0
+        keyed_draw.launches = 0
         t0 = time.perf_counter()
         rc = assemble_cli.main(argv + ["--out", out] + (["--map"] if mode == "map" else []))
         synchronize(device)
         cli_s = time.perf_counter() - t0
         launches["assemble_cli"] += count_chunk_update.launches
+        if mode == "sampled":
+            keyed["assemble_cli"] = keyed_draw.launches
         gen = [s for _, s in fastx.iter_fasta(os.path.join(out, "seqs.fa"))]
         L = ASM_SEED_BP + 2 * flank
         ok = (rc == 0 and len(gen) == n_seeds * num and all(
@@ -1729,12 +1919,15 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
     table = counter.table(lag)[0]
     for mode in ("sampled", "map"):
         synchronize(device)
+        keyed_draw.launches = 0
         t0 = time.perf_counter()
         gen, _ = assemble.assemble_no_ends(
             seeds, [[flank, flank]] * n_seeds, num, lag=lag, counter_table=table, h=h,
             ar_apply=ar_apply, get_map=mode == "map", seed=SEED, device=device)
         synchronize(device)
         gen_s = time.perf_counter() - t0
+        if mode == "sampled":
+            keyed["assemble"] = keyed_draw.launches
         cli_gen, cli_s, cli_launches = cli[mode]
         same = int(np.sum(gen.reshape(-1) == np.array(cli_gen)))
         check(same == len(cli_gen), f"assemble_no_ends {mode} called apart gives {same} of "
@@ -2110,7 +2303,7 @@ def assembly_seeds(genome_mb=GENOME_MB, n_seeds=ASM_SEEDS):
 def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cuda",
                             lag=SPARSE_LAG, dense_lag=LAG, genome_mb=GENOME_MB,
                             n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
-                            check_cfg=ASM_CHECK, n_score=N_SCORE):
+                            check_cfg=ASM_CHECK, n_score=N_SCORE, keyed=None):
     """4g (O): the held-out reads scored through TableCounter on (M)'s
     counter at ``lag`` (get_bear_probs_seqs, MAP: AR, BEAR and BMM columns,
     (M)'s model on the card in float32 against its float64 copy on the
@@ -2118,14 +2311,17 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
     SparseTableIndex, and BMM assembly from it, (K)'s seeds and sizes,
     sampled and MAP; float64 generation of ``check_cfg`` = (seeds, samples,
     -, letters each side) on the card against the CPU, and at ``dense_lag``
-    a sparse index against the dense table of the same reads."""
+    a sparse index against the dense table of the same reads. ``keyed`` gets
+    the sampled generation's keyed_draw launches ("sparse_assembly")."""
     import torch
     from bear_tpu_torch.counting import engine
     from bear_tpu_torch.counting.sparse import SparseTransitionCounter
     from bear_tpu_torch.inference import assemble
     from bear_tpu_torch.inference.scoring import (SparseTableIndex, TableCounter,
                                                   get_bear_probs_seqs)
+    from bear_tpu_torch.ops import keyed_draw
 
+    keyed = {} if keyed is None else keyed
     test = np.flatnonzero(groups == 1)[:n_score]
     seqs = decode_reads(reads[test])
     t0 = time.perf_counter()
@@ -2158,12 +2354,15 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
     van = VAN_REG[0]
     for mode in ("sampled", "map"):
         synchronize(device)
+        keyed_draw.launches = 0
         t0 = time.perf_counter()
         gen, _ = assemble.assemble_no_ends(seeds, [[flank, flank]] * n_seeds, num, lag=lag,
                                            counter_table=index, van=van,
                                            get_map=mode == "map", seed=SEED, device=device)
         synchronize(device)
         gen_s = time.perf_counter() - t0
+        if mode == "sampled":
+            keyed["sparse_assembly"] = keyed_draw.launches
         flat = gen.reshape(-1)
         check(len(flat) == n_seeds * num and all(
             len(s) == ASM_SEED_BP + 2 * flank and set(s) <= set("ACGT")
@@ -3467,6 +3666,7 @@ def main() -> int:
     from bear_tpu_torch.inference.serving import BearServer
     from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import LinearAR
+    from bear_tpu_torch.ops import keyed_draw
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -3477,7 +3677,7 @@ def main() -> int:
 
     # 2. build: every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE])
+    libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE, keyed_draw.SOURCE])
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for p in libs.values():
@@ -3530,6 +3730,13 @@ def main() -> int:
         print(f"[kernel] count_chunk row-range form == plain on {name}: {len(inputs)} "
               f"launches in each of passes {pass_ids} of {passes}, transitions per pass "
               f"{totals}, max_abs_err 0")
+    torch.cuda.empty_cache()
+
+    # keyed_draw on seeded rows of both alphabets, every proposal count,
+    # both types and modes
+    for A1, F, dtype, mode in KEYED_DRAW_CASES:
+        keyed_draw_held(f"A1 {A1}, F {F}, {dtype}, {mode}, (S, E, G) {KEYED_DRAW_SHAPE}",
+                        keyed_draw_vs_plain(keyed_draw_inputs(A1, dtype, dev), F, mode))
     torch.cuda.empty_cache()
 
     reads, groups = make_reads()
@@ -3728,11 +3935,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         window_update.launches = 0
         count_chunk_update.launches = 0
+        d_rec = {}
         sampled_phase(train_table, LAG, os.path.join(tmp, "cnn"), os.path.join(tmp, "ysd1"),
-                      seqs, genome_prefix(DMS_BP), card)
+                      seqs, genome_prefix(DMS_BP), card, record=d_rec)
+        keyed_by_path, d_keyed = dict(d_rec["keyed_launches"]), d_rec["keyed_draw"]
         print(f"[sample] kernel launches in phase 4d: count_chunk "
-              f"{count_chunk_update.launches}, window_hist {window_update.launches} "
-              "(the sampler and the Δ window math are PyTorch ops)")
+              f"{count_chunk_update.launches}, window_hist {window_update.launches}, "
+              f"keyed_draw by path {keyed_by_path} (the Δ window math is PyTorch ops)")
     del train_table
     torch.cuda.empty_cache()
 
@@ -3778,7 +3987,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t_4f.append(time.perf_counter())
         asm_launches = assembly_phase(reads, groups, s_run["csv"], os.path.join(tmp, "stream"),
-                                      os.path.join(tmp, "assemble"), card)
+                                      os.path.join(tmp, "assemble"), card, keyed=keyed_by_path)
         torch.cuda.empty_cache()
         t_4f.append(time.perf_counter())
 
@@ -3805,7 +4014,8 @@ def main() -> int:
                                       p_run["chunks"], card)
         torch.cuda.empty_cache()
         t_4g.append(time.perf_counter())
-        sparse_generation_phase(sparse_counter, model_dir, reads, groups, card)
+        sparse_generation_phase(sparse_counter, model_dir, reads, groups, card,
+                                keyed=keyed_by_path)
         del sparse_counter
         torch.cuda.empty_cache()
         t_4g.append(time.perf_counter())
@@ -3897,6 +4107,10 @@ def main() -> int:
                "mesh_training": launches_w, "torch_genome_lag13": launches_aa}
     check(all(n > 0 for n in by_path.values()),
           f"a path ran without launching count_chunk: {by_path}")
+    check(set(keyed_by_path) == set(KEYED_DRAW_PATHS)
+          and all(n > 0 for n in keyed_by_path.values()),
+          f"a sampled path ran without launching keyed_draw: {keyed_by_path}")
+    print(f"[sample] keyed_draw launches by path {keyed_by_path} [{card}]")
     spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)
     print(f"[4f] phase 4f {t_4f[-1] - t_4f[0]:.3f} s: (H) {spans_4f[0]:.3f} s, (I) "
           f"{spans_4f[1]:.3f} s, (J) {spans_4f[2]:.3f} s, (K) {spans_4f[3]:.3f} s (checks, CPU "
@@ -3926,6 +4140,19 @@ def main() -> int:
         "launch_shape": count_shape,
         "summarize_chunk": s_chunk,
         "shard_chunk": shard_chunk,
+    }, {
+        "name": "keyed_draw", "route": "cuda",
+        "source": "bear_tpu_torch/csrc/keyed_draw.cu",
+        "replaces": "bear_tpu/ops/loggamma.py:144",
+        "replaces_kind": "jitted XLA (log_dirichlet_draw_keyed(_t), with "
+                         "bear_tpu/inference/serving.py:41 _sampled_logp_picked); no pallas_call",
+        "launches": sum(keyed_by_path.values()),
+        "launches_by_path": keyed_by_path,
+        "max_abs_err": d_keyed["max_abs_err"], "max_rel_err": d_keyed["max_rel_err"],
+        "ms": d_keyed["ms"], "plain_ms": d_keyed["plain_ms"], "bound_ms": d_keyed["bound_ms"],
+        "bound_by": d_keyed["bound_by"], "library_ms": None,
+        "transcendentals_per_draw": d_keyed["transcendentals_per_draw"],
+        "shape": d_keyed["shape"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -20,6 +20,7 @@ from bear_tpu_torch.counting.count_chunk import count_chunk_update
 from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models.ar_funcs import LinearAR
+from bear_tpu_torch.ops import keyed_draw
 from bear_tpu_torch.ops import keyed_random as kr
 
 pytestmark = pytest.mark.cuda
@@ -145,6 +146,56 @@ def test_sampled_float64_on_card_equals_cpu(cuda):
     ]
     for call in calls:
         np.testing.assert_allclose(call(gpu), call(cpu), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("A1,F,dtype,mode", chip_smoke.KEYED_DRAW_CASES)
+def test_keyed_draw_equals_plain(cuda, A1, F, dtype, mode):
+    # float64 at rtol 1e-12, float32 at 2e-6 of the operands' scale, -inf
+    # and NaN where the plain version has them, at most SAMPLED_FLIPS of the
+    # lanes beyond (chip_smoke.keyed_draw_vs_plain).
+    before = keyed_draw.launches
+    stats = chip_smoke.keyed_draw_vs_plain(chip_smoke.keyed_draw_inputs(A1, dtype, cuda), F, mode)
+    assert keyed_draw.launches == before + 1
+    assert stats["same_special"], stats
+    assert stats["beyond"] <= chip_smoke.SAMPLED_FLIPS * stats["lanes"], stats
+
+
+def test_keyed_draw_marks_bad_indices_and_skips_empty_launches(cuda):
+    base, group, rows, conc, nxt = chip_smoke.keyed_draw_inputs(5, "float64", cuda)
+    group[:3] = torch.tensor([-1, base.shape[1], 0])
+    nxt[2] = 5
+    got = keyed_draw.keyed_draw_picked(base, group, rows, conc, nxt, 3)
+    assert got[:, :3].isnan().all() and not got[:, 3:].isnan().any()
+    full = keyed_draw.keyed_draw_full(base, group, rows, conc, 3)
+    assert full[:, :2].isnan().all() and not full[:, 2:].isnan().any()
+    before = keyed_draw.launches
+    empty = keyed_draw.keyed_draw_picked(base, group[:0], rows[:0], conc[:0], nxt[:0], 3)
+    assert empty.shape == (base.shape[0], 0) and keyed_draw.launches == before
+    with pytest.raises(ValueError, match="one device"):
+        keyed_draw.keyed_draw_full(base.cpu(), group, rows, conc, 3)
+
+
+def test_sampled_serving_draws_in_one_launch_per_call(cuda, monkeypatch):
+    # The kernel keeps no temporaries in device memory, so the draw is not
+    # sliced by SAMPLE_BUDGET_BYTES on the card; assembly launches once a step.
+    from bear_tpu_torch.inference import serving
+    from bear_tpu_torch.inference.assemble import assemble_no_ends
+
+    rng = np.random.default_rng(5)
+    reads = rng.integers(0, 4, size=(300, 60)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[5], device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(300, np.int32), rows=128):
+        tc.add_chunk(c)
+    server = BearServer(tc.table(5)[0], 5, van=0.3)
+    seqs = chip_smoke.decode_reads(reads[:32])
+    monkeypatch.setattr(serving, "SAMPLE_BUDGET_BYTES", 1)
+    before = keyed_draw.launches
+    server.score(seqs, mode="sample", key=kr.key(1), mc_samples=7)
+    server.delta_scores_snv(seqs[0], [1, 2, 3], ["A", "C", "G"], mode="sample", key=kr.key(2),
+                            mc_samples=7)
+    assert keyed_draw.launches == before + 2
+    assemble_no_ends(seqs[:2], [[3, 4]] * 2, 3, lag=5, counter_table=tc.table(5)[0], van=0.3)
+    assert keyed_draw.launches == before + 2 + 3 + 4
 
 
 @pytest.mark.parametrize("reverse", [False, True])
