@@ -6,9 +6,11 @@ by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, then loaded with
 ``csrc/*.cuh`` and the flags, so an edited source or header never loads a
 stale library. ``SOURCE_FLAGS`` adds a source's own flags: ``keyed_draw.cu``
 is compiled with ``-fmad=false``, so that its float chain rounds each
-multiply and add as its plain PyTorch version does. Sources are compiled
-in parallel, one ``nvcc`` process each. ``ptxas -v`` output (registers,
-shared memory, spills) is kept beside each library as ``.log``.
+multiply and add as its plain PyTorch version does. ``extra`` flags (a
+timing-only ``-D`` build of a source, which no wrapper loads) name a
+library of their own. Sources are compiled in parallel, one ``nvcc``
+process each. ``ptxas -v`` output (registers, shared memory, spills) is
+kept beside each library as ``.log``.
 
 The host route (:func:`build_host`) compiles ``csrc/<name>.cpp`` with
 ``g++`` the same way, linking zlib where it links (``-DBEAR_HAS_ZLIB
@@ -35,8 +37,8 @@ NVCC_FLAGS = (
 SOURCE_FLAGS = {"keyed_draw": ("-fmad=false",)}
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+def _flags(name: str, extra: tuple = ()) -> tuple:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ()) + tuple(extra)
 
 
 def _nvcc() -> str:
@@ -50,21 +52,23 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def library_path(name: str, extra: tuple = ()) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (with ``extra``
+    flags) lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode())
         h.update(header.read_bytes())
-    h.update(" ".join(_flags(name)).encode())
+    h.update(" ".join(_flags(name, extra)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, Path]:
-    """Compile every named source that has no current library, all at once,
-    and return {name: library path}. Raises with nvcc's output on failure."""
+def build(names: Iterable[str], extra: tuple = ()) -> Dict[str, Path]:
+    """Compile every named source that has no current library (with
+    ``extra`` flags), all at once, and return {name: library path}. Raises
+    with nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {n: library_path(n) for n in names}
+    out = {n: library_path(n, extra) for n in names}
     procs = {}
     for name, so in out.items():
         if so.exists():
@@ -72,7 +76,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
         # Per-process temp name + atomic rename: concurrent first uses never
         # load a half-written library.
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name, extra), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)

@@ -68,6 +68,7 @@ import torch.nn.functional as F
 
 from bear_tpu_torch import _build
 from bear_tpu_torch.counting.window_hist import window_update_plain
+from bear_tpu_torch.utils.device import sm_count
 
 SOURCE = "count_chunk"
 # Mirrors of csrc/count_chunk.cu.
@@ -342,12 +343,6 @@ def _library() -> ctypes.CDLL:
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of card ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(table: torch.Tensor, codes: torch.Tensor, meta: torch.Tensor, lt: LagTable,

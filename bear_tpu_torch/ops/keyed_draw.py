@@ -14,7 +14,8 @@ concentrations ``conc[e]`` [A1] with ``n_iter`` Marsaglia-Tsang proposals
 
 The tensors' device decides what runs. On CUDA tensors the hand-written
 kernel ``csrc/keyed_draw.cu`` is launched (built with nvcc at first use; a
-refused launch raises); on CPU tensors the plain PyTorch version
+refused launch raises) in the shape :func:`launch_shape` picks: a thread
+per element and tile of samples; on CPU tensors the plain PyTorch version
 :func:`keyed_draw_plain` runs, the composition of ``fold_in``,
 ``log_dirichlet_draw_keyed`` and the pick that the port used before the
 kernel, so CPU results are unchanged bit for bit. The module's
@@ -28,16 +29,45 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from bear_tpu_torch import _build
 from bear_tpu_torch.ops.loggamma import fold_in_many, log_dirichlet_draw_keyed
+from bear_tpu_torch.utils.device import sm_count
 
 SOURCE = "keyed_draw"
 MAX_A1 = 32  # mirrors of csrc/keyed_draw.cu
 MAX_F = 64
+THREADS = 128  # elements a block
+MAX_GRID_Y = 65535
+MAX_TILE = 16  # samples a thread draws with its element's constants, as a rule
+BLOCKS_PER_SM = 8  # blocks a launch keeps before it tiles samples
 launches = 0  # kernel launches of both modes
+
+
+class LaunchShape(NamedTuple):
+    """How one launch divides its [S, E] draws: block x takes THREADS
+    elements, block y the sample tiles y, y + grid_y, ... of ``tile``
+    samples each; a thread draws its element's samples of the tile."""
+
+    tile: int
+    grid_x: int
+    grid_y: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(S: int, E: int, sms: int) -> LaunchShape:
+    """The launch shape of S samples of E elements on a card of ``sms``
+    SMs. The tile is the most samples (at most MAX_TILE) that still leave
+    BLOCKS_PER_SM blocks per SM, at least one; the sample tiles are then
+    evened out (41 samples: 3 tiles of 14). Beyond MAX_GRID_Y tiles, the
+    tile grows instead. S = 1 (assembly's step) is one sample a thread."""
+    grid_x = -(-E // THREADS)
+    tile = max(1, min(MAX_TILE, grid_x * S // (BLOCKS_PER_SM * sms)))
+    grid_y = min(-(-S // tile), MAX_GRID_Y)
+    return LaunchShape(-(-S // grid_y), grid_x, grid_y)
 
 
 def logp_picked(keys, conc, nxt, n_iter: int):
@@ -84,47 +114,62 @@ def _check(base_keys, group, rows, conc, nxt, n_iter) -> None:
                          f"got {A1} and {n_iter}")
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of a built library's launcher."""
     fn = lib.keyed_draw_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                   ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _draw(base_keys, group, rows, conc, n_iter, nxt):
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return bind(_build.load(SOURCE))
+
+
+def launch(base_keys, group, rows, conc, n_iter, nxt, out, shape: LaunchShape,
+           lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """One kernel launch into ``out`` on the tensors' card, in launch shape
+    ``shape``, on the current stream; raises if the launcher refuses or the
+    launch fails. :func:`keyed_draw_picked` and :func:`keyed_draw_full`
+    check and lay out the arguments and pick the shape; a caller may pass
+    another shape, or ``lib`` a timing-only build of the same source
+    (keyed_draw_timing.py)."""
     global launches
+    S, G = base_keys.shape
+    E, A1 = conc.shape
+    with torch.cuda.device(conc.device):
+        stream = torch.cuda.current_stream(conc.device).cuda_stream
+        rc = (lib or _library()).keyed_draw_launch(
+            base_keys.data_ptr(), G, group.data_ptr(), rows.data_ptr(), conc.data_ptr(),
+            None if nxt is None else nxt.data_ptr(), out.data_ptr(), S, E, A1, int(n_iter),
+            conc.element_size(), shape.tile, shape.grid_x, shape.grid_y, stream)
+    if rc != 0:
+        raise RuntimeError(f"keyed_draw kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def _draw(base_keys, group, rows, conc, n_iter, nxt):
     _check(base_keys, group, rows, conc, nxt, n_iter)
     dev = conc.device
     if dev.type == "cpu":
         return keyed_draw_plain(base_keys, group, rows, conc, n_iter, nxt)
     if dev.type != "cuda":
         raise ValueError(f"keyed_draw has no path for device {dev}")
-    S, G = base_keys.shape
+    S = base_keys.shape[0]
     E, A1 = conc.shape
     out = torch.empty((S, E) if nxt is not None else (S, E, A1), dtype=conc.dtype, device=dev)
     if out.numel() == 0:
         return out
-    base_keys = base_keys.contiguous()
-    group = group.to(torch.int64).contiguous()
-    rows = rows.to(torch.int64).contiguous()
-    conc = conc.contiguous()
     if nxt is not None:
         nxt = nxt.to(torch.int32).contiguous()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _library().keyed_draw_launch(
-            base_keys.data_ptr(), G, group.data_ptr(), rows.data_ptr(), conc.data_ptr(),
-            None if nxt is None else nxt.data_ptr(), out.data_ptr(), S, E, A1, int(n_iter),
-            conc.element_size(), stream)
-    if rc != 0:
-        raise RuntimeError(f"keyed_draw kernel launch failed: CUDA error {rc}")
-    launches += 1
-    return out
+    return launch(base_keys.contiguous(), group.to(torch.int64).contiguous(),
+                  rows.to(torch.int64).contiguous(), conc.contiguous(), n_iter, nxt, out,
+                  launch_shape(S, E, sm_count(dev.index)))
 
 
 def keyed_draw_picked(base_keys, group, rows, conc, nxt, n_iter: int) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -16,3 +18,10 @@ def resolve_device(device) -> torch.device:
             "available; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index`` (the kernels' launch
+    shapes are sized by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

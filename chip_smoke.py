@@ -47,7 +47,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the card against the CPU in float64 from the same keys, on subsets; the
    in-call reductions against the raw draws. (C)'s draw input held
    keyed_draw against its plain version (float32 and float64, picked and
-   full) and timed beside the plain version and the bound. Rates, peak
+   full) and timed beside the plain version and the bound (counted by
+   execution unit: sampler_work_per_draw), in float64 too, and (K)'s
+   per-step draw held and timed on the device alone. Rates, peak
    device memory, the sampler's share of device time, and profiles of (C)
    and (D). keyed_draw's launches are counted on (C), (D), (E), (F) and in
    4f (K) and 4g (O) (sampled assembly), each from 0 just before its path;
@@ -226,6 +228,18 @@ KEYED_DRAW_RTOL = {"float64": 1e-12, "float32": 2e-6}
 KEYED_DRAW_CASES = [(A1, F, dtype, mode) for A1 in (5, 21) for F in (3, 4, 6)
                     for dtype in ("float32", "float64") for mode in ("picked", "full")]
 KEYED_DRAW_SHAPE = (3, 1037, 50)
+# keyed_draw_timing.py's seeded draw inputs at the main path's shapes,
+# (samples, elements, groups), type, proposals, mode: (C)'s draw (41
+# samples of 618,496 transitions of 4,096 reads), in both types; (E)'s
+# (289,737 window transitions under one sample key each); (K)'s per-step
+# draw (one row for each of 64 seeds x 16 sequences, sequence b under group
+# b, assembly's 4 proposals, the whole row).
+KEYED_DRAW_FORMS = {
+    "C_float32": ((41, 618_496, 4096), "float32", 3, "picked"),
+    "C_float64": ((41, 618_496, 4096), "float64", 3, "picked"),
+    "E_float32": ((41, 289_737, 1), "float32", 3, "picked"),
+    "K_step": ((1, 1024, 1024), "float32", 4, "full"),
+}
 # The paths that draw through keyed_draw: (C), (D), (E), (F), (K) as the CLI
 # and its generation called apart, (O).
 KEYED_DRAW_PATHS = ("sampled_serving", "snv_scan", "variants", "score_cli", "assemble_cli",
@@ -444,6 +458,31 @@ def timed_ms(fn, reps, l2_flush):
     for _ in range(reps):
         if l2_flush is not None:
             l2_flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def device_ms(fn, reps, l2_flush=None, sleep_cycles=2_000_000):
+    """Mean device time of fn over reps calls, warmed up: the L2 evicted
+    (``l2_flush`` zeroed; None: not evicted), then a sleep kernel (~1 ms)
+    keeps the card busy while the host enqueues fn, so that the events
+    bracket fn's kernels and not the host's work around them."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(reps):
+        if l2_flush is not None:
+            l2_flush.zero_()
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         fn()
         end.record()
@@ -812,39 +851,151 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     return launches, codes, counts, ar, p0, n_rows
 
 
-def sampler_work_per_draw(A1):
-    """(operations, transcendentals) of one keyed draw of A1 categories, as
-    the draw needs them when each category's first Marsaglia-Tsang proposal
-    accepts (>= 95% do; a rejection adds a proposal, not counted): the row
-    key's Philox block and the blocks of the first proposals' normal,
-    exponential and boost words, 10 rounds of ~10 integer operations each
-    (two low and two high multiplies, four XORs, the key schedule); ~25
-    float operations per category (its share of Box-Muller, the cube, the
-    accept test, the boost) and ~10 for the logsumexp and the pick. The
-    transcendentals: log and sqrt per Box-Muller pair, sin or cos per
-    normal, per category the exponential's log, sqrt(9d), log(vs), log(d),
-    log(v), the boost's log and exp(lg - max), and the logsumexp's log."""
-    blocks = 1 + -(-(A1 + A1 % 2) // 4) + 2 * -(-A1 // 4)
-    pairs = -(-A1 // 2)
-    return 100 * blocks + 35 * A1, 2 * pairs + 8 * A1 + 1
+# One H100 SM's lanes a clock by execution unit (CUDA C++ Programming
+# Guide, "Arithmetic Instructions", compute capability 9.0): every
+# instruction takes an issue slot (4 schedulers x 32 lanes); 32-bit integer
+# multiply-add (IMAD: Philox's products, and the moves the compiler puts on
+# that pipe) and float64 run at half that rate; the special-function and
+# conversion unit (MUFU, I2F, F2I, F2F) at an eighth.
+SM_LANES_PER_CLOCK = {"issue": 128, "imad": 64, "fp64": 64, "sfu": 16}
+# SASS instructions of one call of each library routine, by unit, on the
+# path a normal-range input takes: read by ``keyed_draw_timing.py --sass``
+# (cuobjdump -sass of csrc/keyed_draw.cu built with -DKEYED_DRAW_PROBES and
+# the kernel's flags, -fmad=false, sm_90a, CUDA 12.8; each probe minus its
+# copy baseline, a unit the baseline outnumbers counted 0; the toolkit of
+# an NVIDIA H100 80GB HBM3 machine). The Philox block runs from round keys
+# already scheduled; uniform_f32's int-to-float is I2FP, an ALU instruction.
+ROUTINE_SASS = {
+    "philox_block": {"issue": 42, "imad": 22},
+    "key_schedule": {"issue": 19},
+    "uniform_f32": {"issue": 4},
+    "log_f32": {"issue": 27},
+    "sqrt_f32": {"issue": 10, "sfu": 1},
+    "sincos_f32": {"issue": 34, "imad": 1, "sfu": 1},
+    "cos_f32": {"issue": 28, "imad": 3, "sfu": 1},
+    "exp_f32": {"issue": 10, "sfu": 1},
+    "div_f32": {"issue": 10, "sfu": 1},
+    "uniform_f64": {"issue": 2, "fp64": 2, "sfu": 1},
+    "log_f64": {"issue": 83, "imad": 11, "fp64": 30, "sfu": 1},
+    "sqrt_f64": {"issue": 18, "imad": 2, "fp64": 8, "sfu": 1},
+    "sincos_f64": {"issue": 78, "imad": 5, "fp64": 20, "sfu": 2},
+    "cos_f64": {"issue": 47, "imad": 3, "fp64": 15, "sfu": 2},
+    "exp_f64": {"issue": 60, "imad": 6, "fp64": 18},
+    "div_f64": {"issue": 18, "imad": 1, "fp64": 8, "sfu": 1},
+}
+# The kernel's own instructions around the routines, counted from its
+# source: per category of a draw, the float operations of the proposal,
+# the accept test and the row (d, cc*x, 1 +, t*t, *t, v > 0, vs, 0.5*x, *x,
+# + d, d*vs, -, d*lv, +, <, log d + lv, - boost/safe, the accept's select)
+# and the predicate and mask operations (pos && test, the reject bit, the
+# -inf select); per draw, the base key's address and load, the fold's
+# counter and the sample loop; per element, its load, safe, d and 9d and
+# the concentration's bit.
+FLOAT_OPS_PER_CATEGORY = 18
+INT_OPS_PER_CATEGORY = 4
+OPS_PER_DRAW = 8
+OPS_PER_ELEMENT_CATEGORY = 7
 
 
-def keyed_draw_work(base_keys, group, rows, conc, nxt):
-    """(bytes, operations) of one picked keyed-draw call on these inputs:
-    each input read once and the [S, E] output written once; S * E draws
-    of sampler_work_per_draw's operations."""
+def _add(total, units, times=1):
+    for k, v in units.items():
+        total[k] = total.get(k, 0) + v * times
+    return total
+
+
+def _float_ops(dtype, n):
+    return {"issue": n, "fp64": n} if dtype == "float64" else {"issue": n}
+
+
+def sampler_work_per_draw(A1, dtype="float32", picked=True):
+    """{unit: instructions} of one keyed draw of A1 categories, on the path
+    where every category's first Marsaglia-Tsang proposal accepts (>= 95%
+    do; a rejection adds a proposal, not counted): the fold's and the
+    draw's key schedules, the fold's Philox block and each category quad's
+    NORMAL, EXPONENTIAL and BOOST blocks (ROUTINE_SASS); per Box-Muller
+    pair two uniforms, log, sqrt and sincos (cos alone for a pair whose
+    sine is unused) and its multiplies; per category the exponential's and
+    the boost's uniforms and logs, log(vs), the division boost / safe and
+    FLOAT_OPS_PER_CATEGORY + INT_OPS_PER_CATEGORY of its own; picked: the
+    logsumexp's max, A1 exps, its sum, log and the pick. The element's
+    constants are per element (sampler_work_per_element)."""
+    t = "f64" if dtype == "float64" else "f32"
+
+    def r(name):
+        return ROUTINE_SASS[f"{name}_{t}"]
+
+    w = {}
+    pairs, lone = -(-A1 // 2), A1 % 2
+    _add(w, ROUTINE_SASS["key_schedule"], 2)
+    _add(w, ROUTINE_SASS["philox_block"], 1 + 3 * -(-A1 // 4))
+    _add(w, r("uniform"), 2 * pairs + 2 * A1)
+    _add(w, r("log"), pairs + 3 * A1)
+    _add(w, r("sqrt"), pairs)
+    _add(w, r("sincos"), pairs - lone)
+    _add(w, r("cos"), lone)
+    _add(w, r("div"), A1)
+    _add(w, _float_ops(dtype, 4 * pairs - lone + FLOAT_OPS_PER_CATEGORY * A1))
+    _add(w, {"issue": INT_OPS_PER_CATEGORY * A1 + OPS_PER_DRAW})
+    if picked:  # max, isinf, A1 x (sub, exp, add), log, + max, the pick's select and sub
+        _add(w, r("exp"), A1)
+        _add(w, r("log"))
+        _add(w, _float_ops(dtype, 3 * A1 + 3))
+        _add(w, {"issue": A1 + 2})
+    else:  # the row through the staging and out
+        _add(w, {"issue": 2 * A1})
+    return w
+
+
+def sampler_work_per_element(A1, dtype="float32"):
+    """{unit: instructions} of an element's constants, computed once per
+    sample tile (counted here once per element): per category its load,
+    safe, d, 9d and bit (OPS_PER_ELEMENT_CATEGORY), sqrt(9d), 1 / sqrt and
+    log d."""
+    t = "f64" if dtype == "float64" else "f32"
+    w = {}
+    for name in ("sqrt", "div", "log"):
+        _add(w, ROUTINE_SASS[f"{name}_{t}"], A1)
+    _add(w, _float_ops(dtype, 3 * A1))
+    return _add(w, {"issue": (OPS_PER_ELEMENT_CATEGORY - 3) * A1})
+
+
+def keyed_draw_work(base_keys, group, rows, conc, nxt, picked=True):
+    """(bytes, {unit: instructions}) of one keyed-draw call on these
+    inputs: each input read once and the output ([S, E] picked, [S, E, A1]
+    full) written once; S * E draws (sampler_work_per_draw) and E elements
+    (sampler_work_per_element)."""
     S, (E, A1) = base_keys.shape[0], conc.shape
-    nbytes = S * E * conc.element_size() + sum(
-        t.numel() * t.element_size() for t in (base_keys, group, rows, conc, nxt))
-    return nbytes, S * E * sampler_work_per_draw(A1)[0]
+    dtype = str(conc.dtype).removeprefix("torch.")
+    ins = (base_keys, group, rows, conc) + ((nxt,) if picked else ())
+    nbytes = S * E * (1 if picked else A1) * conc.element_size() + sum(
+        t.numel() * t.element_size() for t in ins)
+    work = _add(_add({}, sampler_work_per_draw(A1, dtype, picked), S * E),
+                sampler_work_per_element(A1, dtype), E)
+    return nbytes, work
 
 
-def bound_of(nbytes, ops):
-    """(bound ms, bound_by): the larger of the bytes at the HBM rate and the
-    operations at the CUDA cores' float32 rate."""
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits", "--id=0"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip()) * 1e6
+
+
+def bound_of(nbytes, work, clock_hz=None, sms=None):
+    """(bound ms, bound_by, {unit: ms}): the largest of the bytes at the HBM
+    rate and each unit's instructions at its SM_LANES_PER_CLOCK on ``sms``
+    SMs at ``clock_hz`` (the card's, read when not given); bound_by is
+    "bytes" or the unit."""
+    import torch
+
+    clock_hz = clock_hz or sm_clock_hz()
+    sms = sms or torch.cuda.get_device_properties(0).multi_processor_count
+    unit_ms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    for unit, n in work.items():
+        unit_ms[unit] = n / (SM_LANES_PER_CLOCK[unit] * sms * clock_hz) * 1e3
+    by = max(unit_ms, key=unit_ms.get)
+    return unit_ms[by], by, unit_ms
 
 
 def keyed_draw_inputs(A1, dtype, dev, shape=KEYED_DRAW_SHAPE, seed=SEED):
@@ -865,6 +1016,41 @@ def keyed_draw_inputs(A1, dtype, dev, shape=KEYED_DRAW_SHAPE, seed=SEED):
             torch.as_tensor(rng.integers(-(1 << 40), 1 << 40, E)).to(dev),
             torch.as_tensor(conc, dtype=getattr(torch, dtype)).to(dev),
             torch.as_tensor(rng.integers(0, A1, E), dtype=torch.int32).to(dev))
+
+
+def ptxas_report(log):
+    """{kernel instantiation: {registers, stack, spill_stores, spill_loads}}
+    from a library's ``-Xptxas -v`` log (the mangled name from the kernel's
+    name on)."""
+    out, name, entry, props = {}, None, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            name = entry[entry.find("kernel"):].split("Ev")[0] if "kernel" in entry else entry
+            out[name] = {}
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name and props == entry:  # not a called function's frame
+            out[name].update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def keyed_draw_form(name, dev):
+    """The seeded draw inputs of KEYED_DRAW_FORMS[name] on ``dev`` (A1 5)."""
+    import torch
+
+    shape, dtype, _, _ = KEYED_DRAW_FORMS[name]
+    inputs = keyed_draw_inputs(5, dtype, dev, shape=shape)
+    if name == "K_step":  # sequence b draws under its own key
+        inputs = (inputs[0], torch.arange(shape[1], device=dev)) + inputs[2:]
+    return inputs
 
 
 def keyed_draw_plain_sliced(inputs, F, mode, budget=4 << 30):
@@ -930,12 +1116,13 @@ def keyed_draw_timing(server, fn, card, reps=20):
     """4d: the draw input of one call of fn (BearServer._draw_picked's
     arguments, captured) held kernel against plain in float32 and float64,
     picked and full (keyed_draw_vs_plain's gates); then the kernel timed on
-    it (CUDA events, ``reps`` launches) beside the plain version (sliced as
-    on the CPU, the same events) and its bound. Returns the JSON
-    line's fields."""
+    it in float32 (CUDA events, ``reps`` launches) beside the plain version
+    (sliced as on the CPU, the same events) and its bound, in float64
+    picked, and at (K)'s per-step full-mode draw (KEYED_DRAW_FORMS,
+    seeded, held the same way; device_ms). Returns the JSON line's fields."""
     import torch
     from bear_tpu_torch.inference.serving import SAMPLE_PROPOSALS
-    from bear_tpu_torch.ops.keyed_draw import keyed_draw_picked
+    from bear_tpu_torch.ops.keyed_draw import keyed_draw_full, keyed_draw_picked
 
     captured = []
     inner = server._draw_picked
@@ -954,42 +1141,58 @@ def keyed_draw_timing(server, fn, card, reps=20):
     S, (E, A1) = inputs[0].shape[0], inputs[3].shape
     F = SAMPLE_PROPOSALS
     held = {}
+    timed = {}
     for dtype in ("float32", "float64"):
         cast = inputs[:3] + (inputs[3].to(getattr(torch, dtype)),) + inputs[4:]
         for mode in ("picked", "full"):
             held[f"{dtype} {mode}"] = stats = keyed_draw_vs_plain(cast, F, mode)
             keyed_draw_held(f"(C)'s draw input, (S, E, A1) ({S}, {E:,}, {A1}), F {F}, "
                             f"{dtype}, {mode}", stats)
+        timed[dtype] = (timed_ms(lambda: keyed_draw_picked(*cast[:4], cast[4], F), reps, None),
+                        *bound_of(*keyed_draw_work(*cast)))
         del cast
         torch.cuda.empty_cache()
-    ms = timed_ms(lambda: keyed_draw_picked(*inputs[:4], inputs[4], F), reps, None)
     plain_ms = timed_ms(lambda: keyed_draw_plain_sliced(inputs, F, "picked"), reps, None)
-    bound_ms, bound_by = bound_of(*keyed_draw_work(*inputs))
-    trans = sampler_work_per_draw(A1)[1]
+    _, _, k_F, _ = KEYED_DRAW_FORMS["K_step"]
+    k_in = keyed_draw_form("K_step", inputs[0].device)
+    held["assembly step"] = stats = keyed_draw_vs_plain(k_in, k_F, "full")
+    keyed_draw_held(f"(K)'s per-step draw {tuple(k_in[3].shape)}, F {k_F}, full", stats)
+    # device-only: at 1,024 draws the wrapper's host work outlasts the kernel
+    timed["step"] = (device_ms(lambda: keyed_draw_full(*k_in[:4], k_F), reps),
+                     *bound_of(*keyed_draw_work(*k_in, picked=False)))
+    out = dict(max_abs_err=held["float32 picked"]["max_abs_err"],
+               max_rel_err=max(h["max_rel_err"] for h in held.values()), shape=[S, E, A1],
+               plain_ms=plain_ms, clock_mhz=sm_clock_hz() / 1e6)
+    for key, field in (("float32", ""), ("float64", "_float64"), ("step", "_assembly_step")):
+        ms, bound_ms, unit, unit_ms = timed[key]
+        out.update({f"ms{field}": ms, f"bound_ms{field}": bound_ms,
+                    f"bound_by{field}": "bytes" if unit == "bytes" else "operations",
+                    f"bound_unit{field}": unit, f"unit_ms{field}": unit_ms})
+        print(f"[kernel] keyed_draw {key} at {'(K)' if key == 'step' else '(C)'}'s draw "
+              f"input: ms {ms:.6f} bound_ms {bound_ms:.6f} ({unit}; " + ", ".join(
+                  f"{u} {v:.6f}" for u, v in unit_ms.items()) + f") [{card}]")
     print(f"[kernel] keyed_draw at (C)'s draw input ({S} samples x {E:,} elements, A1 {A1}, "
-          f"F {F}, float32, picked): ms {ms:.6f} plain_ms {plain_ms:.6f} bound_ms "
-          f"{bound_ms:.6f} ({bound_by}; {trans} transcendentals a draw) library_ms null (no "
-          f"PyTorch call draws keyed log-Gamma variates) [{card}]")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=held["float32 picked"]["max_abs_err"],
-                max_rel_err=max(h["max_rel_err"] for h in held.values()),
-                transcendentals_per_draw=trans, shape=[S, E, A1])
+          f"F {F}, float32, picked): ms {out['ms']:.6f} plain_ms {plain_ms:.6f} bound_ms "
+          f"{out['bound_ms']:.6f} ({out['bound_unit']}) library_ms null (no PyTorch call draws "
+          f"keyed log-Gamma variates) [{card}]")
+    return out
 
 
 def sampler_share(server, fn):
-    """(draw ms, call ms, draw bound ms, bound_by): device time of the keyed
-    draws (BearServer._draw_picked) inside one call of fn and of the whole
-    call, both between CUDA events, and the least time the card could take
-    for those draws (keyed_draw_work, bound_of)."""
+    """(draw ms, call ms, draw bound ms, bound unit): device time of the
+    keyed draws (BearServer._draw_picked) inside one call of fn and of the
+    whole call, both between CUDA events, and the least time the card could
+    take for those draws (keyed_draw_work, bound_of)."""
     import torch
 
     spans = []
-    work = [0, 0]  # bytes, operations
+    nbytes, work = [0], {}
     inner = server._draw_picked
 
     def timed(base_keys, group, rows, nxt, conc):
-        for i, w in enumerate(keyed_draw_work(base_keys, group, rows, conc, nxt)):
-            work[i] += w
+        b, w = keyed_draw_work(base_keys, group, rows, conc, nxt)
+        nbytes[0] += b
+        _add(work, w)
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         s.record()
         out = inner(base_keys, group, rows, nxt, conc)
@@ -1008,7 +1211,7 @@ def sampler_share(server, fn):
     finally:
         del server._draw_picked
     return (sum(s.elapsed_time(e) for s, e in spans), start.elapsed_time(end),
-            *bound_of(*work))
+            *bound_of(nbytes[0], work)[:2])
 
 
 def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda",
@@ -4148,11 +4351,8 @@ def main() -> int:
                          "bear_tpu/inference/serving.py:41 _sampled_logp_picked); no pallas_call",
         "launches": sum(keyed_by_path.values()),
         "launches_by_path": keyed_by_path,
-        "max_abs_err": d_keyed["max_abs_err"], "max_rel_err": d_keyed["max_rel_err"],
-        "ms": d_keyed["ms"], "plain_ms": d_keyed["plain_ms"], "bound_ms": d_keyed["bound_ms"],
-        "bound_by": d_keyed["bound_by"], "library_ms": None,
-        "transcendentals_per_draw": d_keyed["transcendentals_per_draw"],
-        "shape": d_keyed["shape"],
+        "library_ms": None, **d_keyed,
+        "ptxas": ptxas_report(libs[keyed_draw.SOURCE].with_suffix(".log").read_text()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -11,11 +11,11 @@ over lags 1..13), and that chunk in row-range form over lags 1..15 in pass
 held against count_chunk_plain on the card (exact), then timed two ways,
 the mean of ``--reps`` launches with the L2 evicted before each: ``ms`` as
 chip_smoke.py times it (CUDA events around count_chunk_update), and
-``device_ms`` with a ~1 ms sleep kernel queued between the eviction and the
-start event, so that the wrapper's host work (checks, lag table, launch
-shape) is enqueued while the card is busy and only the kernel lies between
-the events. Where the wrapper's host time exceeds the eviction's device
-time, ``ms`` includes the difference.
+``device_ms`` (chip_smoke.device_ms) with a ~1 ms sleep kernel queued
+between the eviction and the start event, so that the wrapper's host work
+(checks, lag table, launch shape) is enqueued while the card is busy and
+only the kernel lies between the events. Where the wrapper's host time
+exceeds the eviction's device time, ``ms`` includes the difference.
 
 ``--root DIR`` imports bear_tpu_torch from the checkout at DIR (and builds
 its csrc/count_chunk.cu there), e.g. an earlier commit unpacked with ``git
@@ -85,29 +85,6 @@ def forms(cs, dev):
     return {k: (torch.from_numpy(np.ascontiguousarray(c, np.int8)).to(dev),
                 torch.from_numpy(m).to(dev), lags, shard, total)
             for k, (c, m, lags, shard, total) in out.items()}
-
-
-def device_ms(fn, reps, l2_flush, sleep_cycles=2_000_000):
-    """Mean device time of fn over reps launches: the L2 evicted, then a
-    sleep kernel (~1 ms) that keeps the card busy while the host enqueues
-    fn, so that the events bracket the kernel alone."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    total = 0.0
-    for _ in range(reps):
-        l2_flush.zero_()
-        torch.cuda._sleep(sleep_cycles)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
 
 
 SWEEP = [(8, 1), (8, 2), (4, 2), (4, 4), (2, 2), (2, 4), (8, 4), (8, 8), (4, 8), (2, 8),
@@ -180,7 +157,7 @@ def main(argv=None) -> int:
                      "blocks": min(-(-B * (L + 1) // tile), 4 * sms)}
         table = torch.zeros(total, dtype=torch.int32, device=dev)
         ms = cs.timed_ms(lambda: update(table), args.reps, l2_flush)
-        dev_ms = device_ms(lambda: update(table), args.reps, l2_flush)
+        dev_ms = cs.device_ms(lambda: update(table), args.reps, l2_flush)
         record["forms"][name] = {"shape": [B, L], "lags": len(lags), "launch_shape": shape,
                                  "ms": ms, "device_ms": dev_ms, "max_abs_err": float(err)}
         print(f"[time] {name}: {B:,} x {L} codes over {len(lags)} lags, launch {shape}: "
@@ -204,31 +181,31 @@ def main(argv=None) -> int:
             for order in (list(combos), list(combos)[::-1]):
                 for c in order:
                     shp, lt = combos[c]
-                    times[c].append(device_ms(
+                    times[c].append(cs.device_ms(
                         lambda: cc.launch(table, codes, meta, lt, idx, shp), args.reps, l2_flush))
             # The floor: the chosen launch walking the chunk with every
             # position masked (skip past the row's end), no key.
             none = meta.clone()
             none[:, 1] = L + 1
-            times["floor_no_keys"] = [device_ms(
+            times["floor_no_keys"] = [cs.device_ms(
                 lambda: cc.launch(table, codes, none, mask, idx, chosen), args.reps, l2_flush)]
             # What the floor is made of: one block per SM; a single lag; one
             # row (one tile, one block); a one-element torch op, the events'
             # own floor.
             per_sm = chosen._replace(blocks=sms)
-            times["floor_no_keys_one_block_per_sm"] = [device_ms(
+            times["floor_no_keys_one_block_per_sm"] = [cs.device_ms(
                 lambda: cc.launch(table, codes, none, mask, idx, per_sm), args.reps, l2_flush)]
             one_lag = cc.lag_table(lags[-1:], cs.N_GROUPS, 4, None if per_lag is None else
                                    tuple(p for p in per_lag if p[0] == lags[-1]))
             shape1 = cc.launch_shape(B, L, 1, sms)
-            times["floor_no_keys_one_lag"] = [device_ms(
+            times["floor_no_keys_one_lag"] = [cs.device_ms(
                 lambda: cc.launch(table, codes, none, one_lag, idx, shape1), args.reps, l2_flush)]
             row1 = cc.launch_shape(1, L, len(lags), sms)
-            times["floor_no_keys_one_row"] = [device_ms(
+            times["floor_no_keys_one_row"] = [cs.device_ms(
                 lambda: cc.launch(table, codes[:1], none[:1], mask, idx, row1), args.reps,
                 l2_flush)]
-            times["torch_one_element_add"] = [device_ms(lambda: table[:1].add_(1), args.reps,
-                                                        l2_flush)]
+            times["torch_one_element_add"] = [cs.device_ms(lambda: table[:1].add_(1),
+                                                           args.reps, l2_flush)]
             table.zero_()
             record["ablation"][name] = times
             print(f"[ablation] {name} (device_ms): " + ", ".join(
@@ -248,7 +225,7 @@ def main(argv=None) -> int:
                                  total, dev)
                         if e:
                             raise SystemExit(f"sweep shape {shp} differs from plain at {name}")
-                        sweep[f"run{run}_groups{groups}_{cap}"] = device_ms(
+                        sweep[f"run{run}_groups{groups}_{cap}"] = cs.device_ms(
                             lambda: cc.launch(table, codes, meta, mask, idx, shp), args.reps,
                             l2_flush)
                 record["ablation"][name + "_sweep"] = sweep

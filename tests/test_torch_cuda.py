@@ -160,6 +160,60 @@ def test_keyed_draw_equals_plain(cuda, A1, F, dtype, mode):
     assert stats["beyond"] <= chip_smoke.SAMPLED_FLIPS * stats["lanes"], stats
 
 
+# Launch edges of the kernel: (samples, elements, groups), no E a multiple
+# of 128. launch_shape gives 11 samples of 100,000 elements tiles of 6 (the
+# last 5). Forced (tile, grid_y) besides: a sample a thread; tiles of 3
+# over 2 rows of blocks and tiles of 2 over 1 (the grid-stride loop); one
+# tile of all S.
+EDGE_SHAPES = [(11, 100_000, 7), (5, 1037, 3)]
+
+
+@pytest.mark.parametrize("A1", [5, 21])  # the compile-time row and the runtime one
+@pytest.mark.parametrize("mode", ["picked", "full"])
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_keyed_draw_equals_plain_at_launch_edges(cuda, A1, mode, shape):
+    inputs = chip_smoke.keyed_draw_inputs(A1, "float32", cuda, shape=shape, seed=A1)
+    base, group, rows, conc, nxt = inputs
+    S, E = shape[:2]
+    chosen = keyed_draw.launch_shape(S, E, keyed_draw.sm_count(cuda.index))
+    assert chosen.grid_x * keyed_draw.THREADS >= E and chosen.grid_y * chosen.tile >= S
+    stats = chip_smoke.keyed_draw_vs_plain(inputs, 3, mode)
+    assert stats["same_special"] and stats["beyond"] <= chip_smoke.SAMPLED_FLIPS * stats["lanes"]
+    want = (keyed_draw.keyed_draw_picked(base, group, rows, conc, nxt, 3) if mode == "picked"
+            else keyed_draw.keyed_draw_full(base, group, rows, conc, 3))
+    for tile, grid_y in ((1, S), (3, 2), (S, 1), (2, 1)):
+        out = torch.full_like(want, 7.0)
+        keyed_draw.launch(base, group, rows, conc, 3, nxt if mode == "picked" else None, out,
+                          chosen._replace(tile=tile, grid_y=grid_y))
+        assert torch.equal(out, want), (tile, grid_y)  # every (s, e) once, the same bits
+
+
+def test_keyed_draw_equals_plain_at_the_assembly_step(cuda):
+    # (K)'s draw: one sample of 1,024 sequences, sequence b under group b,
+    # four proposals, the whole row; float32 full mode bit-equal to plain.
+    shape, _, F, mode = chip_smoke.KEYED_DRAW_FORMS["K_step"]
+    inputs = chip_smoke.keyed_draw_form("K_step", cuda)
+    assert keyed_draw.launch_shape(shape[0], shape[1], keyed_draw.sm_count(cuda.index)).tile == 1
+    stats = chip_smoke.keyed_draw_vs_plain(inputs, F, mode)
+    assert stats["same_special"] and stats["beyond"] == 0, stats
+
+
+@pytest.mark.parametrize("A1", [5, 21])
+def test_keyed_draw_nan_on_bad_indices_in_every_tile(cuda, A1):
+    base, group, rows, conc, nxt = chip_smoke.keyed_draw_inputs(A1, "float32", cuda,
+                                                                shape=(11, 100_000, 7))
+    bad = torch.tensor([0, 5, 99_999], device=cuda)
+    group[bad[:2]] = torch.tensor([-1, 7], device=cuda)
+    nxt[bad[2]] = A1
+    got = keyed_draw.keyed_draw_picked(base, group, rows, conc, nxt, 3)
+    keep = torch.ones(100_000, dtype=torch.bool, device=cuda)
+    keep[bad] = False
+    assert got[:, bad].isnan().all() and not got[:, keep].isnan().any()
+    full = keyed_draw.keyed_draw_full(base, group, rows, conc, 3)
+    keep[bad[2]] = True  # nxt is not read in full mode
+    assert full[:, bad[:2]].isnan().all() and not full[:, keep].isnan().any()
+
+
 def test_keyed_draw_marks_bad_indices_and_skips_empty_launches(cuda):
     base, group, rows, conc, nxt = chip_smoke.keyed_draw_inputs(5, "float64", cuda)
     group[:3] = torch.tensor([-1, base.shape[1], 0])
