@@ -50,6 +50,7 @@ from bear_tpu_torch.counting.native import load as load_native
 from bear_tpu_torch.data.loaders import CountDataset
 from bear_tpu_torch.ops import alphabets as _alpha
 from bear_tpu_torch.utils.device import resolve_device
+from bear_tpu_torch.utils.profiling import span
 
 PAD_LEN_ALIGN = 64
 FLUSH_EVERY = (1 << 31) - (1 << 24)  # transitions between int32 flushes
@@ -253,9 +254,10 @@ class TransitionCounter:
 
     def _ensure_dev(self):
         if self._dev is None:
-            dev = resolve_device(self.device)
-            self._dev = torch.zeros(self._total_size, dtype=torch.int32,
-                                    device=dev)
+            with span("bear.count.table_alloc"):
+                dev = resolve_device(self.device)
+                self._dev = torch.zeros(self._total_size, dtype=torch.int32,
+                                        device=dev)
 
     def sync(self):
         """Block until all queued device counting work has completed."""
@@ -266,11 +268,12 @@ class TransitionCounter:
         """Fold the device int32 partials into the host int64 accumulators
         and zero the device buffer in place. A sparse table (distinct
         k-mers << A^lag, the genome case) moves only its nonzero entries."""
-        if self._dev is not None and self._since_flush > 0:
-            self._fold(self._dev)
-            self._dev.zero_()
-            self._since_flush = 0
-            self._host_dirty = True
+        with span("bear.count.flush"):
+            if self._dev is not None and self._since_flush > 0:
+                self._fold(self._dev)
+                self._dev.zero_()
+                self._since_flush = 0
+                self._host_dirty = True
 
     def _fold(self, dev: torch.Tensor):
         """Add a flat int32 device table into the host accumulators: only
@@ -294,17 +297,18 @@ class TransitionCounter:
                 self._host[l][idx[sel] - bounds[i]] += vals[sel]
 
     def add_chunk(self, chunk: ReadChunk):
-        check_groups(chunk.groups, self.n_groups)
-        if self.reverse and np.any(np.asarray(chunk.skip) != 0):
-            # RC of a continuation segment would need right-side context;
-            # checked BEFORE the forward add so a failed chunk leaves the
-            # tables untouched.
-            raise ValueError(
-                "reverse=True requires whole-read chunks (skip == 0); "
-                "for segmented long sequences use chunk_reads(reverse=True)"
-            )
-        for rows in chunk_passes(chunk, self.reverse):
-            self._add(*rows)
+        with span("bear.count.add_chunk"):
+            check_groups(chunk.groups, self.n_groups)
+            if self.reverse and np.any(np.asarray(chunk.skip) != 0):
+                # RC of a continuation segment would need right-side context;
+                # checked BEFORE the forward add so a failed chunk leaves the
+                # tables untouched.
+                raise ValueError(
+                    "reverse=True requires whole-read chunks (skip == 0); "
+                    "for segmented long sequences use chunk_reads(reverse=True)"
+                )
+            for rows in chunk_passes(chunk, self.reverse):
+                self._add(*rows)
 
     def _add(self, codes, lengths, skip, stopped, groups, fresh=None):
         codes = np.asarray(codes)
@@ -314,8 +318,9 @@ class TransitionCounter:
         self._ensure_dev()
         codes_t, meta_t = upload_chunk(self._staging, self._dev.device, codes, lengths,
                                        skip, stopped, groups, fresh)
-        count_chunk_update(self._dev, codes_t, meta_t, self.lags, self.n_groups,
-                           self.A)
+        with span("bear.count.launch"):
+            count_chunk_update(self._dev, codes_t, meta_t, self.lags, self.n_groups,
+                               self.A)
         self._since_flush += new_transitions
 
     @property
@@ -586,17 +591,19 @@ class _Staging:
         # The copies that last read these buffers may still be in flight:
         # writing the buffers before they end would change what the card
         # counts, silently. (A never-recorded event returns at once.)
-        self.event.synchronize()
-        B, L = codes.shape
-        if self.codes.numel() < B * L:
-            self.codes = torch.empty(B * L, dtype=torch.int8, pin_memory=True)
-        if self.meta.shape[0] < B:
-            self.meta = torch.empty((B, 4), dtype=torch.int32, pin_memory=True)
-        host_codes = self.codes[: B * L].view(B, L)
-        host_meta = self.meta[:B]
-        np.copyto(host_codes.numpy(), codes, casting="unsafe")
-        pack_meta(lengths, skip, stopped, groups, fresh, out=host_meta.numpy())
-        with torch.cuda.device(dev):
+        with span("bear.count.stage_wait"):
+            self.event.synchronize()
+        with span("bear.count.stage"):
+            B, L = codes.shape
+            if self.codes.numel() < B * L:
+                self.codes = torch.empty(B * L, dtype=torch.int8, pin_memory=True)
+            if self.meta.shape[0] < B:
+                self.meta = torch.empty((B, 4), dtype=torch.int32, pin_memory=True)
+            host_codes = self.codes[: B * L].view(B, L)
+            host_meta = self.meta[:B]
+            np.copyto(host_codes.numpy(), codes, casting="unsafe")
+            pack_meta(lengths, skip, stopped, groups, fresh, out=host_meta.numpy())
+        with span("bear.count.upload"), torch.cuda.device(dev):
             dev_codes = host_codes.to(dev, non_blocking=True)
             dev_meta = host_meta.to(dev, non_blocking=True)
             self.event.record(torch.cuda.current_stream(dev))

@@ -38,7 +38,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from bear_tpu_torch.counting.count_chunk import table_rows
 from bear_tpu_torch.ops import alphabets
@@ -52,7 +51,6 @@ GUMBEL_STEP = 2_000_003  # step t's Gumbel key: fold_in(batch key, GUMBEL_STEP +
 DIRECTION_STRIDE = 1_000_003  # batch key: fold_in(key, direction * stride + start)
 DRAW_ITERS = 4  # Marsaglia-Tsang proposals per draw, as bear_tpu's assembly
 GUMBEL_BLOCK = 256  # steps whose Gumbel noise is drawn in one pass
-DRAW_SPAN = "assemble.keyed_draw"  # torch.profiler span of sampled mode's draws
 
 
 def _revcomp(s: str) -> str:
@@ -135,8 +133,7 @@ def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, ge
                 log_probs = torch.log(torch.clamp_min(conc, 1e-30)
                                       / conc[:, :-1].sum(dim=-1, keepdim=True))
             else:
-                with record_function(DRAW_SPAN):
-                    lg = _keyed_draw(seq_keys, seq_index, rows, conc)
+                lg = _keyed_draw(seq_keys, seq_index, rows, conc)
                 log_probs = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
             letters = torch.argmax(gumbel[t - t0] + log_probs[:, :4], dim=-1)
             active = t < lengths

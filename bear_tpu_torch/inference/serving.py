@@ -44,6 +44,7 @@ from bear_tpu_torch.ops.keyed_draw import keyed_draw_picked, logp_picked
 from bear_tpu_torch.ops.loggamma import _pairs
 from bear_tpu_torch.parallel import multihost
 from bear_tpu_torch.parallel.mesh import DataSplit, check_device
+from bear_tpu_torch.utils.profiling import span
 
 # Marsaglia-Tsang proposals per lane in the serving samplers (bear_tpu's
 # setting): acceptance is >= 95% per proposal and a lane that accepts none
@@ -92,25 +93,26 @@ def _context_rows_and_next(codes: torch.Tensor, lengths: torch.Tensor,
 
     Returns rows [B, L+1], nxt [B, L+1], mask [B, L+1] — one entry per
     transition position j=0..len (j==len is the stop)."""
-    B, L = codes.shape
-    P = L + 1
-    dev = codes.device
-    j = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
-    lengths = lengths.to(torch.int32)[:, None]
-    codes_ext = torch.nn.functional.pad(codes.to(torch.int32), (lag, 1))
+    with span("bear.score.rows"):
+        B, L = codes.shape
+        P = L + 1
+        dev = codes.device
+        j = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
+        lengths = lengths.to(torch.int32)[:, None]
+        codes_ext = torch.nn.functional.pad(codes.to(torch.int32), (lag, 1))
 
-    code_acc = torch.zeros((B, P), dtype=torch.int32, device=dev)
-    pow_a = 1
-    for i in range(1, lag + 1):
-        code_acc += codes_ext[:, lag - i : lag - i + P] * pow_a
-        pow_a *= A
-    row_off = torch.as_tensor(pad_offset(lag, np.maximum(0, lag - np.arange(P)), A),
-                              dtype=torch.int32, device=dev)[None, :]
-    rows = row_off + code_acc
+        code_acc = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        pow_a = 1
+        for i in range(1, lag + 1):
+            code_acc += codes_ext[:, lag - i : lag - i + P] * pow_a
+            pow_a *= A
+        row_off = torch.as_tensor(pad_offset(lag, np.maximum(0, lag - np.arange(P)), A),
+                                  dtype=torch.int32, device=dev)[None, :]
+        rows = row_off + code_acc
 
-    nxt = torch.where(j < lengths, codes_ext[:, lag : lag + P], A)
-    mask = j <= lengths  # includes the stop transition
-    return rows, nxt, mask
+        nxt = torch.where(j < lengths, codes_ext[:, lag : lag + P], A)
+        mask = j <= lengths  # includes the stop transition
+        return rows, nxt, mask
 
 
 def _rows_from_codes(codes: np.ndarray, lag: int, A: int) -> np.ndarray:
@@ -177,13 +179,21 @@ def _reduce(d: torch.Tensor, reduce: str, quantiles) -> torch.Tensor:
     """[n, S] draws -> [n, 2] (mean, std with ddof = min(1, S-1): S = 1
     has no spread and reports 0) or [n, len(quantiles)] (linear
     interpolation, jnp.quantile's and torch.quantile's default)."""
-    if reduce == "mean_std":
-        ddof = min(1, d.shape[-1] - 1)
-        return torch.stack([d.mean(dim=-1), d.std(dim=-1, correction=ddof)], dim=-1)
-    if reduce == "quantiles":
-        q = torch.as_tensor(quantiles, dtype=d.dtype, device=d.device)
-        return torch.quantile(d, q, dim=-1).T
+    with span("bear.score.reduce"):
+        if reduce == "mean_std":
+            ddof = min(1, d.shape[-1] - 1)
+            return torch.stack([d.mean(dim=-1), d.std(dim=-1, correction=ddof)], dim=-1)
+        if reduce == "quantiles":
+            q = torch.as_tensor(quantiles, dtype=d.dtype, device=d.device)
+            return torch.quantile(d, q, dim=-1).T
     raise ValueError(f"unknown reduce {reduce!r}")
+
+
+def _copy_out(t: torch.Tensor) -> np.ndarray:
+    """A call's result on the host, where the host waits for the call's
+    work on the device."""
+    with span("bear.score.copy_out"):
+        return t.cpu().numpy()
 
 
 def _row_slices(table, mesh, axis: str, dtype):
@@ -320,8 +330,9 @@ class BearServer:
     def _row_concentrations(self, rows):
         """Concentrations [E, A1] of E table rows, the AR evaluated in
         slices of AR_SLICE_ROWS rows."""
-        return torch.cat([self._concentrations(r, self._gather(r))
-                          for r in torch.split(rows, AR_SLICE_ROWS)])
+        with span("bear.score.concentrations"):
+            return torch.cat([self._concentrations(r, self._gather(r))
+                              for r in torch.split(rows, AR_SLICE_ROWS)])
 
     def _sample_keys(self, key, mc_samples: int) -> torch.Tensor:
         """[S] sample keys fold_in(key, s)."""
@@ -337,15 +348,16 @@ class BearServer:
         S, E = base_keys.shape[0], rows.shape[0]
         per = S * _draw_bytes(conc.shape[-1], conc.element_size(),
                               device_type=conc.device.type)
-        if per == 0:
-            return keyed_draw_picked(base_keys, group, rows, conc, nxt, SAMPLE_PROPOSALS)
-        out = torch.empty((S, E), dtype=conc.dtype, device=conc.device)
-        step = max(1, SAMPLE_BUDGET_BYTES // per)
-        for s in range(0, E, step):
-            sl = slice(s, s + step)
-            out[:, sl] = keyed_draw_picked(base_keys, group[sl], rows[sl], conc[sl], nxt[sl],
-                                           SAMPLE_PROPOSALS)
-        return out
+        with span("bear.score.draw"):
+            if per == 0:
+                return keyed_draw_picked(base_keys, group, rows, conc, nxt, SAMPLE_PROPOSALS)
+            out = torch.empty((S, E), dtype=conc.dtype, device=conc.device)
+            step = max(1, SAMPLE_BUDGET_BYTES // per)
+            for s in range(0, E, step):
+                sl = slice(s, s + step)
+                out[:, sl] = keyed_draw_picked(base_keys, group[sl], rows[sl], conc[sl],
+                                               nxt[sl], SAMPLE_PROPOSALS)
+            return out
 
     def _window_logp(self, rows, nxt, keys):
         """Log-prob of the chosen symbol of E windows: [1, E] MAP (keys
@@ -380,7 +392,8 @@ class BearServer:
         codes = torch.as_tensor(codes, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device)
         rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
-        conc = self._concentrations(rows, self._gather(rows))
+        with span("bear.score.concentrations"):
+            conc = self._concentrations(rows, self._gather(rows))
         picked = _map_picked(conc, nxt)
         return torch.where(mask, picked, 0.0).sum(dim=-1)
 
@@ -395,7 +408,8 @@ class BearServer:
         lengths = torch.as_tensor(lengths, device=self.device)
         keys = kr._as_keys(keys, self.device).reshape(-1)
         rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
-        b_idx, p_idx = mask.nonzero(as_tuple=True)
+        with span("bear.score.mask"):  # the host waits for the mask's count
+            b_idx, p_idx = mask.nonzero(as_tuple=True)
         rv, nv = rows[b_idx, p_idx], nxt[b_idx, p_idx]
         conc = self._row_concentrations(rv)
         seq = torch.arange(codes.shape[0], dtype=torch.int64, device=self.device)
@@ -414,21 +428,22 @@ class BearServer:
     def _encode_ragged(self, strs, lens, maxlen):
         """Encode variable-length strings into a padded (0-filled)
         [N, maxlen] code matrix via ONE host join + byte-LUT gather."""
-        lens = np.asarray(lens)
-        out = np.zeros((len(strs), maxlen), np.int32)
-        if len(strs) == 0 or maxlen == 0:
+        with span("bear.score.encode"):
+            lens = np.asarray(lens)
+            out = np.zeros((len(strs), maxlen), np.int32)
+            if len(strs) == 0 or maxlen == 0:
+                return out
+            try:
+                joined = "".join(strs)
+            except TypeError:  # bytes elements
+                joined = "".join(
+                    s.decode("ascii") if isinstance(s, bytes) else s
+                    for s in strs)
+            flat = alphabets.encode_string(joined, self.alphabet)
+            # Boolean-mask assignment walks rows in order, matching the join.
+            mask = np.arange(maxlen)[None, :] < lens[:, None]
+            out[mask] = flat
             return out
-        try:
-            joined = "".join(strs)
-        except TypeError:  # bytes elements
-            joined = "".join(
-                s.decode("ascii") if isinstance(s, bytes) else s
-                for s in strs)
-        flat = alphabets.encode_string(joined, self.alphabet)
-        # Boolean-mask assignment walks rows in order, matching the join.
-        mask = np.arange(maxlen)[None, :] < lens[:, None]
-        out[mask] = flat
-        return out
 
     def _sample_plan(self, mode, key, mc_samples, reduce, quantiles):
         """(sample keys or None, output width or None) of a Δ-score call,
@@ -521,7 +536,7 @@ class BearServer:
             n_mt = torch.where(i == 0, a, n_wt)
             d = self._delta((r_mt, n_mt, valid), (r_wt, n_wt, valid), keys)
             out[s:e] = self._finish(d, keys, reduce, quantiles)
-        out = out.cpu().numpy()
+        out = _copy_out(out)
         if keys is None or reduce != "none":
             return out
         return out[..., 0] if mc_samples == 1 else out
@@ -655,7 +670,7 @@ class BearServer:
             mt = self._mt_windows(torch.as_tensor(C[s:e], device=dev),
                                   torch.as_tensor(n_mt[s:e], device=dev))
             out[s:e] = self._finish(self._delta(mt, wt, keys), keys, reduce, quantiles)
-        out = out.cpu().numpy()
+        out = _copy_out(out)
         if keys is None or reduce != "none":
             return out
         return out[..., 0] if mc_samples == 1 else out
@@ -673,21 +688,22 @@ class BearServer:
         (default key(0)), else [B, mc_samples] under fold_in(key, s).
         ``reduce``/``quantiles`` as in :meth:`delta_scores_snv`: [B, 2]
         ("mean_std") or [B, len(quantiles)]."""
-        if reduce != "none" and mode != "sample":
-            raise ValueError('reduce= requires mode="sample"')
-        if mode not in ("map", "sample"):
-            raise ValueError(f"unknown mode {mode!r}")
-        seqs = list(seqs)
-        lengths = np.asarray([len(s) for s in seqs], np.int32)
-        maxlen = int(lengths.max()) if len(seqs) else 0
-        L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
-        codes = self._encode_ragged(seqs, lengths, L).astype(np.int8)
-        if mode == "map":
-            return self.log_prob_map(codes, lengths).cpu().numpy()
-        base = key if key is not None else kr.key(0)
-        if reduce == "none" and mc_samples == 1:
-            return self.log_prob_sampled(codes, lengths, base).cpu().numpy()
-        d = self.log_prob_sampled_multi(codes, lengths, self._sample_keys(base, mc_samples))
-        if reduce != "none":
-            d = _reduce(d, reduce, quantiles)
-        return d.cpu().numpy()
+        with span("bear.score.call"):
+            if reduce != "none" and mode != "sample":
+                raise ValueError('reduce= requires mode="sample"')
+            if mode not in ("map", "sample"):
+                raise ValueError(f"unknown mode {mode!r}")
+            seqs = list(seqs)
+            lengths = np.asarray([len(s) for s in seqs], np.int32)
+            maxlen = int(lengths.max()) if len(seqs) else 0
+            L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
+            codes = self._encode_ragged(seqs, lengths, L).astype(np.int8)
+            if mode == "map":
+                return _copy_out(self.log_prob_map(codes, lengths))
+            base = key if key is not None else kr.key(0)
+            if reduce == "none" and mc_samples == 1:
+                return _copy_out(self.log_prob_sampled(codes, lengths, base))
+            d = self.log_prob_sampled_multi(codes, lengths, self._sample_keys(base, mc_samples))
+            if reduce != "none":
+                d = _reduce(d, reduce, quantiles)
+            return _copy_out(d)

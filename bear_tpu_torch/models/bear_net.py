@@ -74,6 +74,7 @@ from bear_tpu_torch.ops.distributions import (
 from bear_tpu_torch.parallel import multihost
 from bear_tpu_torch.parallel.mesh import DataSplit
 from bear_tpu_torch.utils.checkpoint import load_train_state, save_train_state
+from bear_tpu_torch.utils.profiling import span
 
 
 # --- model core -----------------------------------------------------------
@@ -350,16 +351,19 @@ def _apply(optimizer, losses, sync=None):
     """One optimizer apply over a group of batch losses (zero-argument
     callables), gradients summed (and, with ``sync``, summed over the
     processes); returns the summed loss, on the device."""
-    optimizer.zero_grad(set_to_none=False)
-    loss_sum = 0.0
-    for loss_of in losses:
-        loss = loss_of()
-        loss.backward()
-        loss_sum = loss_sum + loss.detach()
-    if sync is not None:
-        loss_sum = sync(loss_sum)
-    optimizer.step()
-    return loss_sum
+    with span("bear.train.apply"):
+        optimizer.zero_grad(set_to_none=False)
+        loss_sum = 0.0
+        for loss_of in losses:
+            with span("bear.train.forward"):
+                loss = loss_of()
+            with span("bear.train.backward"):
+                loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        if sync is not None:
+            loss_sum = sync(loss_sum)
+        optimizer.step()
+        return loss_sum
 
 
 def _save_state(checkpoint_dir, params, optimizer, applies_done):
@@ -445,46 +449,48 @@ def train(
         function of its index, so a resumed run ends on a bit-identical
         trajectory. Only process 0 writes.
     """
-    split = DataSplit(mesh, device)
-    dev = split.master
-    params, leaves, optimizer, applies_done = _start(
-        ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
-        learning_rate, checkpoint_dir)
+    with span("bear.train.call"):
+        split = DataSplit(mesh, device)
+        dev = split.master
+        with span("bear.train.prepare"):
+            params, leaves, optimizer, applies_done = _start(
+                ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
+                learning_rate, checkpoint_dir)
+            codes, counts = _to_device(codes, counts, dtype, dev)
+            ref = _ref_to_device(ref_counts, dtype, dev)
+            if shuffle:
+                perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(codes)),
+                                       device=dev)
+                codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
+            codes_s, counts_s, sizes = _stack_batches(codes, counts, batch_size, split.n)
+            ref_s = None if ref is None else _stack_one(ref, batch_size, split.n)
+        steps_per_epoch = codes_s.shape[0]
+        total_steps = steps_per_epoch * int(epochs)
+        acc_steps = int(acc_steps)
+        n_apply = total_steps // acc_steps
+        if n_apply == 0:
+            raise ValueError("fewer total steps than acc_steps; nothing to train")
+        scales = [float(num_kmers) / float(s) for s in sizes]
+        every = int(checkpoint_every) if checkpoint_dir is not None else 0
 
-    codes, counts = _to_device(codes, counts, dtype, dev)
-    ref = _ref_to_device(ref_counts, dtype, dev)
-    if shuffle:
-        perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(codes)),
-                               device=dev)
-        codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
-    codes_s, counts_s, sizes = _stack_batches(codes, counts, batch_size, split.n)
-    ref_s = None if ref is None else _stack_one(ref, batch_size, split.n)
-    steps_per_epoch = codes_s.shape[0]
-    total_steps = steps_per_epoch * int(epochs)
-    acc_steps = int(acc_steps)
-    n_apply = total_steps // acc_steps
-    if n_apply == 0:
-        raise ValueError("fewer total steps than acc_steps; nothing to train")
-    scales = [float(num_kmers) / float(s) for s in sizes]
-    every = int(checkpoint_every) if checkpoint_dir is not None else 0
+        def loss_of(idx):
+            return lambda: _mesh_loss(split, params, ar_func, train_ar, codes_s[idx],
+                                      counts_s[idx], scales[idx], _at(ref_s, idx))
 
-    def loss_of(idx):
-        return lambda: _mesh_loss(split, params, ar_func, train_ar, codes_s[idx],
-                                  counts_s[idx], scales[idx], _at(ref_s, idx))
-
-    sync = _grad_sync(split, leaves)
-    start_apply = applies_done
-    elbos = torch.empty(max(0, n_apply - start_apply), dtype=dtype, device=dev)
-    for a in range(start_apply, n_apply):
-        loss_sum = _apply(optimizer, [loss_of((a * acc_steps + k) % steps_per_epoch)
-                                      for k in range(acc_steps)], sync)
-        # ELBO estimate at each apply (reference bear_net.py:303-307).
-        elbos[a - start_apply] = -loss_sum / acc_steps
-        done = a + 1
-        if every > 0 and ((done - start_apply) % every == 0 or done == n_apply):
-            _save_state(checkpoint_dir, params, optimizer, done)
-    return _finish(leaves, params, optimizer, elbos.cpu().numpy(), writer, start_apply,
-                   acc_steps, checkpoint_dir if every > 0 else None)
+        sync = _grad_sync(split, leaves)
+        start_apply = applies_done
+        elbos = torch.empty(max(0, n_apply - start_apply), dtype=dtype, device=dev)
+        for a in range(start_apply, n_apply):
+            loss_sum = _apply(optimizer, [loss_of((a * acc_steps + k) % steps_per_epoch)
+                                          for k in range(acc_steps)], sync)
+            # ELBO estimate at each apply (reference bear_net.py:303-307).
+            elbos[a - start_apply] = -loss_sum / acc_steps
+            done = a + 1
+            if every > 0 and ((done - start_apply) % every == 0 or done == n_apply):
+                _save_state(checkpoint_dir, params, optimizer, done)
+        with span("bear.train.finish"):
+            return _finish(leaves, params, optimizer, elbos.cpu().numpy(), writer,
+                           start_apply, acc_steps, checkpoint_dir if every > 0 else None)
 
 
 def _shards_takes_epoch(shards) -> bool:
@@ -573,84 +579,87 @@ def train_streaming(
         each batch's rows split over the entries; every process streams the
         same shards, only process 0 writes checkpoints.
     """
-    split = DataSplit(mesh, device)
-    dev = split.master
-    ck_blocks = max(1, -(-int(checkpoint_every) // int(block_steps)))
-    params, leaves, optimizer, applies_done = _start(
-        ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
-        learning_rate, checkpoint_dir)
-    acc_steps, K, bsz = int(acc_steps), int(block_steps), split.pad(batch_size)
-    takes_epoch = _shards_takes_epoch(shards)
-    agree = _RefAgreement()
-    lag_w = None
+    with span("bear.train.call"):
+        split = DataSplit(mesh, device)
+        dev = split.master
+        ck_blocks = max(1, -(-int(checkpoint_every) // int(block_steps)))
+        with span("bear.train.prepare"):
+            params, leaves, optimizer, applies_done = _start(
+                ar_func, params_restart, opt_state_restart, seed, dtype, dev, optimizer_name,
+                learning_rate, checkpoint_dir)
+        acc_steps, K, bsz = int(acc_steps), int(block_steps), split.pad(batch_size)
+        takes_epoch = _shards_takes_epoch(shards)
+        agree = _RefAgreement()
+        lag_w = None
 
-    def batch_stream():
-        """(codes, counts, scale, ref or None) of every batch, over epochs
-        and shards."""
-        nonlocal lag_w
-        pos = 0  # position in the stream: the in-shard shuffle's seed index
-        for epoch in range(int(epochs)):
-            for shard in (shards(epoch) if takes_epoch else shards()):
-                codes, counts, ref = agree.split(shard)
-                codes, counts = _to_device(codes, counts, dtype, dev)
-                ref = _ref_to_device(ref, dtype, dev)
-                if shuffle:  # the permutation gathers on the device
-                    perm = np.random.default_rng([seed, epoch, pos]).permutation(len(codes))
-                    perm = torch.as_tensor(perm, device=dev)
-                    codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
-                pos += 1
-                codes_s, counts_s, sizes = _stack_batches(codes, counts, bsz)
-                ref_s = None if ref is None else _stack_one(ref, bsz)
-                if lag_w is None:
-                    lag_w = codes_s.shape[2]
-                elif codes_s.shape[2] != lag_w:
-                    raise ValueError(f"shard lag {codes_s.shape[2]} != first shard's {lag_w}")
-                for t in range(codes_s.shape[0]):
-                    yield (codes_s[t], counts_s[t], float(num_kmers) / float(sizes[t]),
-                           _at(ref_s, t))
+        def batch_stream():
+            """(codes, counts, scale, ref or None) of every batch, over epochs
+            and shards."""
+            nonlocal lag_w
+            pos = 0  # position in the stream: the in-shard shuffle's seed index
+            for epoch in range(int(epochs)):
+                for shard in (shards(epoch) if takes_epoch else shards()):
+                    codes, counts, ref = agree.split(shard)
+                    with span("bear.train.prepare"):
+                        codes, counts = _to_device(codes, counts, dtype, dev)
+                        ref = _ref_to_device(ref, dtype, dev)
+                        if shuffle:  # the permutation gathers on the device
+                            rng = np.random.default_rng([seed, epoch, pos])
+                            perm = torch.as_tensor(rng.permutation(len(codes)), device=dev)
+                            codes, counts, ref = codes[perm], counts[perm], _at(ref, perm)
+                        codes_s, counts_s, sizes = _stack_batches(codes, counts, bsz)
+                        ref_s = None if ref is None else _stack_one(ref, bsz)
+                    pos += 1
+                    if lag_w is None:
+                        lag_w = codes_s.shape[2]
+                    elif codes_s.shape[2] != lag_w:
+                        raise ValueError(f"shard lag {codes_s.shape[2]} != first shard's {lag_w}")
+                    for t in range(codes_s.shape[0]):
+                        yield (codes_s[t], counts_s[t], float(num_kmers) / float(sizes[t]),
+                               _at(ref_s, t))
 
-    def save():
-        if checkpoint_dir is not None:
-            _save_state(checkpoint_dir, params, optimizer, applies_done)
+        def save():
+            if checkpoint_dir is not None:
+                _save_state(checkpoint_dir, params, optimizer, applies_done)
 
-    sync = _grad_sync(split, leaves)
-    start_apply = applies_done
-    elbos = []
-    applies_seen = 0  # groups taken from the stream, the skipped ones included
-    n_in_block = blocks_done = 0
-    pending = []
-    for batch in batch_stream():
-        pending.append(batch)
-        if len(pending) < acc_steps:
-            continue
-        group, pending = pending, []
-        applies_seen += 1
-        if applies_seen <= applies_done:
-            continue  # resume: applied before the interruption
-        loss_sum = _apply(optimizer, [
-            (lambda c=c, n=n, sc=sc, r=r: _mesh_loss(split, params, ar_func, train_ar, c, n,
-                                                     sc, r))
-            for c, n, sc, r in group], sync)
-        elbos.append(-loss_sum / acc_steps)
-        applies_done += 1
-        n_in_block += 1
-        if n_in_block == K:
-            n_in_block, blocks_done = 0, blocks_done + 1
+        sync = _grad_sync(split, leaves)
+        start_apply = applies_done
+        elbos = []
+        applies_seen = 0  # groups taken from the stream, the skipped ones included
+        n_in_block = blocks_done = 0
+        pending = []
+        for batch in batch_stream():
+            pending.append(batch)
+            if len(pending) < acc_steps:
+                continue
+            group, pending = pending, []
+            applies_seen += 1
+            if applies_seen <= applies_done:
+                continue  # resume: applied before the interruption
+            loss_sum = _apply(optimizer, [
+                (lambda c=c, n=n, sc=sc, r=r: _mesh_loss(split, params, ar_func, train_ar, c, n,
+                                                         sc, r))
+                for c, n, sc, r in group], sync)
+            elbos.append(-loss_sum / acc_steps)
+            applies_done += 1
+            n_in_block += 1
+            if n_in_block == K:
+                n_in_block, blocks_done = 0, blocks_done + 1
+                if blocks_done % ck_blocks == 0:
+                    save()
+        if n_in_block:
+            blocks_done += 1
             if blocks_done % ck_blocks == 0:
                 save()
-    if n_in_block:
-        blocks_done += 1
-        if blocks_done % ck_blocks == 0:
-            save()
-    if lag_w is None:
-        raise ValueError("shards() yielded no shards")
-    if applies_seen == 0:
-        raise ValueError("fewer total batches than acc_steps; nothing to train")
-    save()
-    elbos = torch.stack(elbos) if elbos else torch.zeros(0, dtype=dtype)
-    elbos = elbos.cpu().numpy()
-    return _finish(leaves, params, optimizer, elbos, writer, start_apply, acc_steps,
-                   checkpoint_dir)
+        if lag_w is None:
+            raise ValueError("shards() yielded no shards")
+        if applies_seen == 0:
+            raise ValueError("fewer total batches than acc_steps; nothing to train")
+        save()
+        with span("bear.train.finish"):
+            elbos = torch.stack(elbos) if elbos else torch.zeros(0, dtype=dtype)
+            return _finish(leaves, params, optimizer, elbos.cpu().numpy(), writer, start_apply,
+                           acc_steps, checkpoint_dir)
 
 
 # --- evaluation -----------------------------------------------------------

@@ -2022,9 +2022,9 @@ def assembly_margin(gen, seed_s, index, direction, step, table, lag, prior, seed
 def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
     """One torch.profiler window over a short sampled rollout with the CLI's
     table and model: the device time of the keyed draws against that of all
-    kernels. The draws are the keyed_draw kernel's launches, read by name:
-    the profiler attributes no device time to assemble's DRAW_SPAN around
-    them (a ctypes launch belongs to no op)."""
+    kernels. The draws are the keyed_draw kernel's launches, read by name
+    (a ctypes launch belongs to no op, so no span carries their device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
     from bear_tpu_torch.inference import assemble

@@ -81,17 +81,13 @@ def read_chunks(reads, groups, rows=CHUNK_ROWS):
         yield ReadChunk(codes, lengths, np.zeros(rows, np.int32), stopped, grp)
 
 
-def _sync(device):
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def main(argv=None) -> dict:
     """Run the demo. Returns a dict: ``reads``, ``rows`` (distinct lag
     contexts), ``transitions``, ``codes`` and ``counts`` (the handoff, as numpy),
     ``h``, ``params`` (the trained AR parameters, numpy), ``elbos``,
     ``evaluation`` (bear_net.evaluation's tuple, numpy), ``stages``
-    (StageTimer's (name, seconds) list) and ``count_s``."""
+    (StageTimer's (name, seconds) list, each stage timed to the end of its
+    work on the card) and ``count_s``."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mb", type=float, default=4.6)
     ap.add_argument("--coverage", type=float, default=10.0)
@@ -125,7 +121,6 @@ def main(argv=None) -> dict:
     with timer.stage("on-device dataset handoff"):
         codes_d, counts_d = counter.to_device_dataset(args.lag)
         num_kmers = int(codes_d.shape[0])
-        _sync(device)
     print(f"{num_kmers:,} distinct lag-{args.lag} contexts "
           f"from {total_transitions:,} transitions")
 
@@ -139,7 +134,6 @@ def main(argv=None) -> dict:
             batch_size=args.batch_size, epochs=args.epochs,
             learning_rate=0.005, train_ar=False, dtype=torch.float32, device=device,
         )
-        _sync(device)
     print(f"learned h = {res.h:.4g}; ELBO {res.elbos[0]:.4g} -> {res.elbos[-1]:.4g}")
 
     with timer.stage("evaluate"):

@@ -69,6 +69,37 @@ def test_counter_on_card_equals_cpu(cuda, reverse):
         np.testing.assert_array_equal(gpu.tables[l], cpu.tables[l])
 
 
+def test_add_chunk_on_card_records_its_staging_spans(cuda):
+    """Under a profiler, each chunk's add_chunk on the card is one root span
+    over its staging (wait, fill, upload) and its launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bear_tpu_torch.utils import profiling
+
+    chunks = _chunks(np.random.default_rng(3))
+    gpu = engine.TransitionCounter(lags=(1, 4, 7), n_groups=2)
+    cpu = engine.TransitionCounter(lags=(1, 4, 7), n_groups=2, device="cpu")
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for c in chunks:
+            gpu.add_chunk(c)
+        gpu.sync()
+    recs = profiling.recorded()
+    profiling.clear()
+    roots = [i for i, r in enumerate(recs) if r.parent is None]
+    assert [recs[i].name for i in roots] == ["bear.count.add_chunk"] * len(chunks)
+    feed = ["bear.count.stage_wait", "bear.count.stage", "bear.count.upload",
+            "bear.count.launch"]
+    for k, i in enumerate(roots):
+        children = [r.name for r in recs if r.parent == i]
+        assert children == (["bear.count.table_alloc"] if k == 0 else []) + feed, children
+        assert all(r.root == i and r.end_ns is not None for r in recs if r.parent == i)
+    for c in chunks:
+        cpu.add_chunk(c)
+    for l in (1, 4, 7):
+        np.testing.assert_array_equal(gpu.tables[l], cpu.tables[l])
+
+
 @pytest.mark.parametrize("case", chip_smoke.COUNT_CASES)
 def test_count_chunk_equals_plain_on_edge_cases(cuda, case):
     lags, n_groups, A, passes = chip_smoke.count_case(case)
