@@ -34,6 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from bear_tpu_torch.ops import cnn_forward
+
 
 def flat_one_hot(codes: torch.Tensor, alphabet_size_1: int, dtype) -> torch.Tensor:
     """[..., lag] int codes -> flat [..., lag * A1] one-hot where slot
@@ -61,6 +63,18 @@ def _elu(x: torch.Tensor) -> torch.Tensor:
     """elu with alpha 1, written as jax.nn.elu is (expm1 of the clamped
     input, so small negative inputs keep their relative precision)."""
     return torch.where(x > 0, x, torch.expm1(torch.clamp(x, max=0)))
+
+
+def _cnn_kernel_takes(x: torch.Tensor, live: Sequence[torch.Tensor], compute_dtype) -> bool:
+    """Whether ``CNNAR.forward`` launches the kernel (ops/cnn_forward.py):
+    a CUDA input, float32 or float64 parameters computed in their own type,
+    and nothing for autograd to record (grad mode off, or neither the input
+    nor a parameter requires grad)."""
+    if (x.device.type != "cuda" or compute_dtype is not None
+            or live[0].dtype not in (torch.float32, torch.float64)):
+        return False
+    return not (torch.is_grad_enabled()
+                and (x.requires_grad or any(p.requires_grad for p in live)))
 
 
 @contextlib.contextmanager
@@ -167,7 +181,14 @@ class CNNAR(_ARModule):
     Both paths compute the convolution as matmuls (no cuDNN, whose float32
     convolutions may use TF32): ``forward`` over sliding windows of the
     one-hot input, ``apply_codes`` as one flat matmul of the flat one-hot
-    with banded filters, as bear_tpu's ``apply_codes`` does."""
+    with banded filters, as bear_tpu's ``apply_codes`` does.
+
+    ``forward`` under inference on a card (``_cnn_kernel_takes``: CUDA,
+    float32 or float64 without ``compute_dtype``, nothing for autograd to
+    record) is one launch of the hand-written kernel ``csrc/cnn_forward.cu``
+    (``ops.cnn_forward``), the same function in the same precision with no
+    intermediate in device memory; everywhere else it runs the ATen path,
+    ``_forward_plain``, which autograd, the CPU and mixed precision need."""
 
     name = "cnn"
     PARAM_NAMES = ("filters", "intercept0", "weights1", "intercept1",
@@ -222,7 +243,18 @@ class CNNAR(_ARModule):
         return torch.softmax(nn2.to(out_dt), dim=-1).reshape(lead + (self.A1,))
 
     def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
-        """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]."""
+        """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]: the
+        kernel where ``_cnn_kernel_takes``, else ``_forward_plain``."""
+        live = self._live(params)
+        if _cnn_kernel_takes(kmers_oh, live, self.compute_dtype):
+            lead = tuple(kmers_oh.shape[:-2])
+            x = kmers_oh.to(live[0].dtype).reshape(-1, self.lag, self.A1)
+            return cnn_forward.cnn_probs(x, live).reshape(lead + (self.A1,))
+        return self._forward_plain(kmers_oh, params)
+
+    def _forward_plain(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
+        """The ATen forward: the windows' conv as one batched product, then
+        ``_head``."""
         params, out_dt = self._compute(params)
         filters = params[0]
         lead = tuple(kmers_oh.shape[:-2])

@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: every kernel of the path, from bear_tpu_torch/csrc (one nvcc per
-   source, all started together);
+   source, all started together), cnn_forward included;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    edge cases and on the main path's chunk 0 (exact equality), then timed
    at the main path's chunk beside its bound and a library call:
@@ -52,7 +52,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    per-step draw held and timed on the device alone. Rates, peak
    device memory, the sampler's share of device time, and profiles of (C)
    and (D). keyed_draw's launches are counted on (C), (D), (E), (F) and in
-   4f (K) and 4g (O) (sampled assembly), each from 0 just before its path;
+   4f (K) and 4g (O) (sampled assembly), each from 0 just before its path.
+   The CNN's forward under inference is one kernel (cnn_forward): (C)'s AR
+   slices held against the plain forward in float32 and float64 and timed
+   beside it and the bound (the model FLOPs at 67 TFLOP/s); its launches
+   are counted on (C), (D) and (E);
 4e. the on-disk workflow: phase 4's reads written as FASTQ (the train
    group over 3 files, one gzip-compressed; the held-out group in 1), the
    summarize CLI at -l 13 through its parser on the card (native parser for
@@ -1178,6 +1182,131 @@ def keyed_draw_timing(server, fn, card, reps=20):
     return out
 
 
+# The CNN kernel (csrc/cnn_forward.cu) against the plain forward
+# (CNNAR._forward_plain) on the card: float64 at rtol 1e-12, float32 at
+# CNN_F32_ATOL on the probabilities. The two sum the conv, the statistics,
+# the dense layer and the head in different orders, and each lies up to
+# ~2e-6 from the plain forward in float64 on 2^18 dense random rows (1.9e-6
+# and 1.6e-6 on an H100), so they may differ by twice that.
+# CNN_FLOPS_PER_S: one H100 SXM's float32 peak outside the tensor cores.
+CNN_F32_ATOL = 4e-6
+CNN_F64_RTOL = 1e-12
+CNN_FLOPS_PER_S = 67e12
+
+
+def cnn_flops_per_row(lag, A1, fw, nf, w1):
+    """Model FLOPs of one row through the CNN: the conv, the dense layer and
+    the head, two a multiply-add (normalisations and activations
+    uncounted)."""
+    cl = lag - fw + 1
+    return 2 * (cl * fw * A1 * nf + cl * nf * w1 + w1 * A1)
+
+
+def cnn_plain_module(x, params):
+    """A CNNAR of the widths of x [N, lag, A1] and ``params``, for its plain
+    forward (the parameters are passed to it, not loaded)."""
+    from bear_tpu_torch.models.ar_funcs import CNNAR
+
+    fw, A1, nf = params[0].shape
+    return CNNAR(x.shape[1], A1 - 1, fw, nf, params[2].shape[2], dtype=x.dtype, device=x.device)
+
+
+def cnn_forward_vs_plain(x, params, shape=None):
+    """{max_abs_err, max_rel_err, held}: the kernel (in launch shape
+    ``shape``, or the chosen one) against the plain forward on x [N, lag,
+    A1]; in float32 also each one's largest gap from the plain forward in
+    float64 (``kernel_err64``, ``plain_err64``)."""
+    import torch
+    from bear_tpu_torch.ops import cnn_forward
+
+    with torch.no_grad():
+        want = cnn_plain_module(x, params)._forward_plain(x, params)
+        if shape is None:
+            got = cnn_forward.cnn_probs(x, params)
+        else:
+            got = cnn_forward.launch(x.contiguous(), params, torch.empty_like(want), shape)
+        truth = None
+        if x.dtype == torch.float32:
+            p64 = [p.double() for p in params]
+            truth = cnn_plain_module(x.double(), p64)._forward_plain(x.double(), p64)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = (CNN_F64_RTOL * want.abs() if x.dtype == torch.float64
+           else torch.full_like(want, CNN_F32_ATOL))
+    out = {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+           "max_rel_err": float((diff / want.abs()).max()) if diff.numel() else 0.0,
+           "held": bool((diff <= tol).all())}
+    if truth is not None and diff.numel():
+        out["kernel_err64"] = float((got.double() - truth).abs().max())
+        out["plain_err64"] = float((want.double() - truth).abs().max())
+    return out
+
+
+def cnn_forward_timing(fn, card, reps=20):
+    """4d: the k-mers of one call of fn (the AR slices that CNNAR.forward
+    hands to ops.cnn_forward.cnn_probs, captured) held kernel against the
+    plain forward in float32 and float64 (cnn_forward_vs_plain); then the
+    kernel and the plain forward timed on them in float32 (CUDA events,
+    ``reps`` calls of all the slices) beside the bound (the model FLOPs at
+    CNN_FLOPS_PER_S). Returns the JSON line's fields."""
+    import torch
+    from bear_tpu_torch.ops import cnn_forward
+
+    captured = []
+    inner = cnn_forward.cnn_probs
+
+    def capture(x, params):
+        captured.append((x, [p.detach() for p in params]))
+        return inner(x, params)
+
+    cnn_forward.cnn_probs = capture
+    try:
+        fn()
+    finally:
+        cnn_forward.cnn_probs = inner
+    check(len(captured) > 0, "the call ran no CNN forward through the kernel")
+    rows = [x.shape[0] for x, _ in captured]
+    x0, p0 = captured[0]
+    (fw, A1, nf), w1, lag = p0[0].shape, p0[2].shape[2], x0.shape[1]
+    held = {}
+    for dtype in (torch.float32, torch.float64):
+        for i, (x, params) in enumerate(captured):
+            stats = cnn_forward_vs_plain(x.to(dtype), [p.to(dtype) for p in params])
+            held[f"{dtype} slice {i}"] = stats
+            check(stats["held"], f"cnn_forward differs from the plain forward on slice {i} "
+                                 f"({x.shape[0]:,} rows) in {dtype}: {stats}")
+    plain = cnn_plain_module(x0, p0)
+    with torch.no_grad():
+        ms = timed_ms(lambda: [inner(x, p) for x, p in captured], reps, None)
+        plain_ms = timed_ms(lambda: [plain._forward_plain(x, p) for x, p in captured], reps,
+                            None)
+        slice_ms = timed_ms(lambda: inner(x0, p0), reps, None)
+    flops = cnn_flops_per_row(lag, A1, fw, nf, w1)
+    bound_ms = flops * sum(rows) / CNN_FLOPS_PER_S * 1e3
+    slice_bound_ms = flops * rows[0] / CNN_FLOPS_PER_S * 1e3
+    shape = cnn_forward.launch_shape(rows[0], 4, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count, lag, A1, fw, nf, w1)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
+               slice_ms=slice_ms, slice_bound_ms=slice_bound_ms, slices=rows,
+               roofline_pct=100 * bound_ms / ms, launch_shape=list(shape),
+               smem_bytes=cnn_forward.smem_bytes(shape.rows, 4, lag, A1, fw, nf, w1),
+               max_abs_err=max(h["max_abs_err"] for k, h in held.items() if "float32" in k),
+               max_rel_err_float64=max(h["max_rel_err"] for k, h in held.items()
+                                       if "float64" in k),
+               kernel_err64=max(h["kernel_err64"] for k, h in held.items() if "float32" in k),
+               plain_err64=max(h["plain_err64"] for k, h in held.items() if "float32" in k))
+    print(f"[kernel] cnn_forward at (C)'s AR slices {rows} (lag {lag}, A1 {A1}, fw {fw}, nf "
+          f"{nf}, w1 {w1}, float32): ms {ms:.6f} plain_ms {plain_ms:.6f} bound_ms "
+          f"{bound_ms:.6f} (operations: {flops:,} FLOPs a row at 67 TFLOP/s) = "
+          f"{out['roofline_pct']:.2f}% of the roofline; one {rows[0]:,}-row slice "
+          f"{slice_ms:.6f} ms, bound {slice_bound_ms:.6f}; tiles of {shape.rows} rows, "
+          f"{shape.threads} threads, {out['smem_bytes']:,} bytes of shared memory a block; "
+          f"max_abs_err {out['max_abs_err']:.3e} (float32; from float64 the kernel "
+          f"{out['kernel_err64']:.3e}, the plain forward {out['plain_err64']:.3e}), max_rel_err "
+          f"{out['max_rel_err_float64']:.3e} (float64) [{card}]")
+    return out
+
+
 def sampler_share(server, fn):
     """(draw ms, call ms, draw bound ms, bound unit): device time of the
     keyed draws (BearServer._draw_picked) inside one call of fn and of the
@@ -1233,7 +1362,7 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
 
     import torch
     from bear_tpu_torch.inference import BearServer, load_bear, score_cli
-    from bear_tpu_torch.ops import keyed_draw
+    from bear_tpu_torch.ops import cnn_forward, keyed_draw
     from bear_tpu_torch.ops.keyed_random import key as make_key
 
     on_card = torch.device(device).type == "cuda"
@@ -1297,32 +1426,36 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
 
     record = {} if record is None else record
     launches = record.setdefault("keyed_launches", {})
+    cnn_launches = record.setdefault("cnn_launches", {})
 
     # (C) posterior-sampled serving
     n_r, n_s, n_v = sampled_check
     kw = dict(mode="sample", key=key, mc_samples=mc)
     score_ms = lambda: server.score(seqs, reduce="mean_std", **kw)  # noqa: E731
-    keyed_draw.launches = 0
+    keyed_draw.launches = cnn_forward.launches = 0
     ms = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='mean_std'", len(seqs),
              "sequences", score_ms)
     raw = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='none'", len(seqs), "sequences",
               lambda: server.score(seqs, **kw))
     launches["sampled_serving"] = keyed_draw.launches
+    cnn_launches["sampled_serving"] = cnn_forward.launches
     check(ms.shape == (len(seqs), 2) and raw.shape == (len(seqs), mc), "(C) shapes")
     reductions_held("(C)", ms, raw)
     held(f"(C) {n_r} reads", dev64.score(seqs[:n_r], **kw), cpu64.score(seqs[:n_r], **kw),
          n_r * mc)
     if on_card:
         record["keyed_draw"] = keyed_draw_timing(server, score_ms, card)
+        record["cnn_forward"] = cnn_forward_timing(score_ms, card)
 
     # (D) the deep-mutational-scan grid
     pos, alts = snv_grid(wt)
     snv_ms = lambda: server.delta_scores_snv(wt, pos, alts, reduce="mean_std", **kw)  # noqa: E731
-    keyed_draw.launches = 0
+    keyed_draw.launches = cnn_forward.launches = 0
     d_map = run(f"(D) {len(pos):,} SNVs, MAP", len(pos), "SNVs",
                 lambda: server.delta_scores_snv(wt, pos, alts))
     d_ms = run(f"(D) {len(pos):,} SNVs, MC-{mc}, reduce='mean_std'", len(pos), "SNVs", snv_ms)
     launches["snv_scan"] = keyed_draw.launches
+    cnn_launches["snv_scan"] = cnn_forward.launches
     check(d_map.shape == (len(pos),) and d_ms.shape == (len(pos), 2), "(D) shapes")
     k = map_check[0]
     map_held(f"(D) first {k:,} SNVs", d_map[:k],
@@ -1334,13 +1467,14 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
 
     # (E) arbitrary variants
     variants = make_variants(wt, n_variants)
-    keyed_draw.launches = 0
+    keyed_draw.launches = cnn_forward.launches = 0
     e_map = run(f"(E) {len(variants):,} variants, MAP", len(variants), "variants",
                 lambda: server.delta_scores_variants(wt, variants))
     e_ms = run(f"(E) {len(variants):,} variants, MC-{mc}, reduce='mean_std'", len(variants),
                "variants", lambda: server.delta_scores_variants(wt, variants,
                                                                 reduce="mean_std", **kw))
     launches["variants"] = keyed_draw.launches
+    cnn_launches["variants"] = cnn_forward.launches
     check(e_map.shape == (len(variants),) and e_ms.shape == (len(variants), 2), "(E) shapes")
     k = map_check[1]
     map_held(f"(E) first {k:,} variants", e_map[:k],
@@ -3869,7 +4003,7 @@ def main() -> int:
     from bear_tpu_torch.inference.serving import BearServer
     from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import LinearAR
-    from bear_tpu_torch.ops import keyed_draw
+    from bear_tpu_torch.ops import cnn_forward, keyed_draw
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -3880,7 +4014,8 @@ def main() -> int:
 
     # 2. build: every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE, keyed_draw.SOURCE])
+    libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE, keyed_draw.SOURCE,
+                         cnn_forward.SOURCE])
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for p in libs.values():
@@ -4142,9 +4277,13 @@ def main() -> int:
         sampled_phase(train_table, LAG, os.path.join(tmp, "cnn"), os.path.join(tmp, "ysd1"),
                       seqs, genome_prefix(DMS_BP), card, record=d_rec)
         keyed_by_path, d_keyed = dict(d_rec["keyed_launches"]), d_rec["keyed_draw"]
+        cnn_by_path, d_cnn = dict(d_rec["cnn_launches"]), d_rec["cnn_forward"]
+        check(all(n > 0 for n in cnn_by_path.values()),
+              f"a CNN path of 4d ran without launching cnn_forward: {cnn_by_path}")
         print(f"[sample] kernel launches in phase 4d: count_chunk "
               f"{count_chunk_update.launches}, window_hist {window_update.launches}, "
-              f"keyed_draw by path {keyed_by_path} (the Δ window math is PyTorch ops)")
+              f"keyed_draw by path {keyed_by_path}, cnn_forward by path {cnn_by_path} (the Δ "
+              f"window math is PyTorch ops)")
     del train_table
     torch.cuda.empty_cache()
 
@@ -4353,6 +4492,16 @@ def main() -> int:
         "launches_by_path": keyed_by_path,
         "library_ms": None, **d_keyed,
         "ptxas": ptxas_report(libs[keyed_draw.SOURCE].with_suffix(".log").read_text()),
+    }, {
+        "name": "cnn_forward", "route": "cuda",
+        "source": "bear_tpu_torch/csrc/cnn_forward.cu",
+        "replaces": None,
+        "replaces_kind": "no TPU kernel: bear_tpu's CNN (bear_tpu/models/ar_funcs.py "
+                         "make_ar_func_cnn) is jitted XLA; the port's ATen forward before it",
+        "launches": sum(cnn_by_path.values()),
+        "launches_by_path": cnn_by_path,
+        "library_ms": None, **d_cnn,
+        "ptxas": ptxas_report(libs[cnn_forward.SOURCE].with_suffix(".log").read_text()),
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

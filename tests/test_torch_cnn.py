@@ -119,3 +119,145 @@ def test_stop_matches():
     np.testing.assert_array_equal(ar.apply_codes(torch.tensor(codes)).numpy(),
                                   np.asarray(jar.apply_codes([], codes)))
     np.testing.assert_array_equal(ar(torch.tensor(oh)).numpy(), np.asarray(jar.apply([], oh)))
+
+
+# --- the CNN kernel's dispatch (ops/cnn_forward.py; the kernel itself runs
+# only on a card: tests/test_torch_cuda.py) ---------------------------------
+
+
+class _Input:
+    """What the dispatch reads of an input: its device and whether it
+    requires grad (a CUDA tensor cannot be made here)."""
+
+    def __init__(self, device, requires_grad=False):
+        self.device = torch.device(device)
+        self.requires_grad = requires_grad
+
+
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cnn_forward_takes_aten_on_the_cpu_bit_for_bit(grad, dtype):
+    from bear_tpu_torch.ops import cnn_forward
+
+    _, params, codes, ar, A = _setup(7, n=50)
+    x = torch.nn.functional.one_hot(torch.tensor(codes).long(), A + 1).to(dtype)
+    before = cnn_forward.launches
+    outs = []
+    for fn in (ar.forward, ar._forward_plain):
+        tp = [torch.tensor(p, dtype=dtype, requires_grad=grad) for p in params]
+        with torch.set_grad_enabled(grad):
+            out = fn(x, tp)
+        if grad:
+            out.log().sum().backward()
+        outs.append((out.detach(), [p.grad for p in tp]))
+    (got, got_g), (want, want_g) = outs
+    assert torch.equal(got, want) and got.dtype == dtype
+    if grad:
+        assert all(torch.equal(a, b) for a, b in zip(got_g, want_g))
+    assert cnn_forward.launches == before == 0
+
+
+def test_cnn_kernel_dispatch_reads_device_type_and_grad():
+    from bear_tpu_torch.models.ar_funcs import _cnn_kernel_takes
+
+    def live(dtype=torch.float32, grad=False):
+        return [torch.zeros(2, dtype=dtype, requires_grad=grad) for _ in range(8)]
+
+    cuda = _Input("cuda")
+    assert _cnn_kernel_takes(cuda, live(), None)
+    assert _cnn_kernel_takes(cuda, live(torch.float64), None)
+    assert not _cnn_kernel_takes(_Input("cpu"), live(), None)
+    assert not _cnn_kernel_takes(cuda, live(), torch.bfloat16)
+    assert not _cnn_kernel_takes(cuda, live(torch.bfloat16), None)
+    # autograd would record: a parameter or the input requires grad, grad on
+    assert not _cnn_kernel_takes(cuda, live(grad=True), None)
+    assert not _cnn_kernel_takes(_Input("cuda", requires_grad=True), live(), None)
+    with torch.no_grad():
+        assert _cnn_kernel_takes(cuda, live(grad=True), None)
+        assert _cnn_kernel_takes(_Input("cuda", requires_grad=True), live(), None)
+    with torch.inference_mode():
+        assert _cnn_kernel_takes(cuda, live(grad=True), None)
+
+
+def test_cnn_compute_dtype_keeps_its_path():
+    from bear_tpu_torch.ops import cnn_forward
+
+    _, params, codes, _, A = _setup(8, n=40)
+    ar16 = get_ar_func("cnn", LAG, A, KW, dtype=torch.float32, compute_dtype=torch.bfloat16,
+                       device="cpu")
+    tp = [torch.tensor(p, dtype=torch.float32) for p in params]
+    x = torch.nn.functional.one_hot(torch.tensor(codes).long(), A + 1).float()
+    before = cnn_forward.launches
+    with torch.no_grad():
+        got = ar16(x, tp)
+        want = ar16._forward_plain(x, tp)
+    assert torch.equal(got, want) and got.dtype == torch.float32
+    assert cnn_forward.launches == before
+
+
+def test_cnn_forward_launch_shape_and_shared_memory():
+    from bear_tpu_torch.ops import cnn_forward as cf
+
+    dna = (13, 5, 8, 96, 64)  # lag, A1, fw, nf, w1 of the lag-13 CNN
+    # The scoring cell's slices (2^18 and 94,208 rows) take 64-row tiles on
+    # 132 SMs; assembly's 1,024-row steps 16-row ones (64 blocks); double
+    # has one tile.
+    assert cf.launch_shape(1 << 18, 4, 132, *dna) == (64, 256)
+    assert cf.launch_shape(94_208, 4, 132, *dna).rows == 64
+    assert cf.launch_shape(1024, 4, 132, *dna).rows == 16
+    assert cf.launch_shape(1, 4, 132, *dna).rows == 16
+    assert cf.launch_shape(1 << 18, 8, 132, *dna) == (16, 128)
+    assert cf.launch_shape(1024, 8, 132, *dna) == cf.TILES[8][-1]
+    assert cf.launch_shape(2 * 132 * 64, 4, 132, *dna).rows == 64
+    assert cf.launch_shape(2 * 132 * 64 - 64, 4, 132, *dna).rows == 16
+    # Two 64-row float blocks of the lag-13 CNN fit an SM (228 KB, 1 KB a
+    # block reserved); a tile that would not fit falls back to 16 rows.
+    smem = cf.smem_bytes(64, 4, *dna)
+    assert smem == 4 * (64 * 65 + (65 + 96) * 68 + 40 * 96 + 96 * 64 + 2 * 6 * 96 + 128
+                        + 64 * 5 + 5)
+    assert 2 * (smem + 1024) <= 228 * 1024
+    protein = (20, 22, 8, 96, 64)
+    assert cf.smem_bytes(64, 4, *protein) > cf.SMEM_MAX >= cf.smem_bytes(16, 4, *protein)
+    assert cf.launch_shape(1 << 18, 4, 132, *protein).rows == 16
+    assert cf.smem_bytes(16, 8, *dna) <= cf.SMEM_MAX
+    # Wider CNNs: every filter block's activations and every hidden block
+    # but one staged. 128 filters and 96 hidden units: two blocks of each.
+    wide = (13, 5, 8, 128, 96)
+    assert cf.smem_bytes(64, 4, *wide) == 4 * (64 * 65 + (65 + 192) * 68 + 64 * 132
+                                               + 40 * 192 + 96 * 64 + 2 * 6 * 192 + 2 * 128
+                                               + 96 * 5 + 5)
+    assert cf.launch_shape(1 << 18, 4, 132, *wide) == (64, 256)
+    assert cf.smem_bytes(16, 8, *wide) <= cf.SMEM_MAX
+    # One hidden block stages nothing more: its activations reuse act.
+    assert cf.smem_bytes(64, 4, 13, 5, 8, 96, 1) == smem - 4 * 63 * 5
+    # Three filter blocks (up to 288 filters) fit the 64-row float tile,
+    # four do not.
+    assert cf.smem_bytes(64, 4, 13, 5, 8, 288, 64) <= cf.SMEM_MAX
+    assert cf.smem_bytes(64, 4, 13, 5, 8, 289, 64) > cf.SMEM_MAX
+    assert cf.launch_shape(1 << 18, 4, 132, 13, 5, 8, 289, 64).rows == 16
+
+
+def test_cnn_forward_refuses_what_the_kernel_cannot_take():
+    from bear_tpu_torch.ops import cnn_forward as cf
+
+    def case(nf=12, w1=10, lag=LAG, dtype=torch.float32):
+        ar = CNNAR(lag, 4, 4, nf, w1, dtype=dtype, device="cpu")
+        return torch.zeros((3, lag, 5), dtype=dtype), ar.params_list()
+
+    x, params = case()
+    assert cf.widths(x, params) == (LAG, 5, 4, 12, 10)
+    with pytest.raises(ValueError, match="CUDA card"):
+        cf.cnn_probs(x, params)
+    # Any width the shared memory holds: past 96 filters and 64 hidden units
+    # the kernel takes more blocks.
+    assert cf.widths(*case(nf=97)) == (LAG, 5, 4, 97, 10)
+    assert cf.widths(*case(w1=65)) == (LAG, 5, 4, 12, 65)
+    with pytest.raises(ValueError, match="shared memory"):
+        cf.widths(*case(nf=2000))
+    with pytest.raises(TypeError, match="one type"):
+        cf.widths(x.double(), params)
+    with pytest.raises(ValueError, match="scale1"):
+        cf.widths(x, params[:-1] + [params[-1][:-1]])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        cf.widths(x.half(), params)
+    assert cf.widths(*case(nf=96, w1=64, dtype=torch.float64)) == (LAG, 5, 4, 96, 64)

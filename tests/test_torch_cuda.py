@@ -733,3 +733,158 @@ def test_no_mesh_on_card_names_cuda0(cuda, what):
     want = cpu.sum([torch.lgamma(p + 1.0).sum(dim=0) for p in cpu.split(counts)])
     assert total.device == cuda and split.allreduce([total])[0] is total
     np.testing.assert_allclose(total.cpu().numpy(), want.numpy(), rtol=1e-12)
+
+
+# The CNN kernel (csrc/cnn_forward.cu) against CNNAR's plain forward, at the
+# lag-13 CNN of the benchmark, at a small one and at a wide one (two blocks
+# of filters and two of hidden units), on one-hot and on dense random
+# inputs; chip_smoke.cnn_forward_vs_plain holds float32 at CNN_F32_ATOL on
+# the probabilities and float64 at rtol 1e-12.
+CNN_CASES = {"lag13": (13, {"filter_width": 8, "num_filters": 96, "kmer_layer1_width": 64}),
+             "small": (5, {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}),
+             "wide": (13, {"filter_width": 8, "num_filters": 128, "kmer_layer1_width": 96})}
+
+
+def _cnn_inputs(cuda, case, dtype, n, dense, seed=0):
+    """A CNN of the case's widths with every parameter away from its init
+    (scales 1, intercepts 0), and n seeded k-mers on the card."""
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    lag, kw = CNN_CASES[case]
+    g = torch.Generator().manual_seed(seed)
+    ar = get_ar_func("cnn", lag, 4, kw, dtype=dtype, device=cuda, generator=g)
+    params = [(p + 0.3 * torch.randn(p.shape, generator=g, dtype=dtype).to(cuda)).detach()
+              for p in ar.params_list()]
+    if dense:
+        x = torch.randn((n, lag, 5), generator=g, dtype=dtype)
+    else:
+        x = torch.nn.functional.one_hot(torch.randint(0, 5, (n, lag), generator=g), 5).to(dtype)
+    return ar, params, x.to(cuda)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1024, (1 << 18) + 7])
+@pytest.mark.parametrize("dense", [False, True], ids=["one_hot", "dense"])
+@pytest.mark.parametrize("case", list(CNN_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_cnn_forward_equals_plain(cuda, n, dense, case, dtype):
+    from bear_tpu_torch.ops import cnn_forward
+
+    ar, params, x = _cnn_inputs(cuda, case, dtype, n, dense)
+    before = cnn_forward.launches
+    with torch.no_grad():
+        got = ar(x, params)
+        want = ar._forward_plain(x, params)
+    assert cnn_forward.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, 5)
+    stats = chip_smoke.cnn_forward_vs_plain(x, params)
+    assert stats["held"], stats
+    if dtype == torch.float32:  # as close to float64 as the plain forward is
+        assert stats["kernel_err64"] <= 2 * stats["plain_err64"] + 1e-7, stats
+    # Every tile computes a row alike: the same bits.
+    for shape in cnn_forward.TILES[x.element_size()]:
+        with torch.no_grad():
+            other = cnn_forward.launch(x, params, torch.empty_like(want), shape)
+        torch.testing.assert_close(other, got, rtol=0, atol=0)
+
+
+def test_cnn_forward_shared_memory_mirror_and_refusals(cuda):
+    """ops.cnn_forward.smem_bytes against the launcher's own layout at the
+    edge of shared memory: 288 filters (three blocks) fit the 64-row float
+    tile and launch, 289 (four) are refused there and launch in 16-row
+    tiles, both equal to the plain forward; a tile the launcher lacks is
+    refused."""
+    from bear_tpu_torch.models.ar_funcs import CNNAR
+    from bear_tpu_torch.ops import cnn_forward
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.nn.functional.one_hot(torch.randint(0, 5, (300, 13), generator=g), 5).float()
+    x = x.to(cuda)
+    large, small = cnn_forward.TILES[4]
+    for nf, fits in ((288, True), (289, False)):
+        ar = CNNAR(13, 4, 8, nf, 64, device=cuda, generator=g)
+        params = [(p + 0.3 * torch.randn(p.shape, generator=g).to(cuda)).detach()
+                  for p in ar.params_list()]
+        assert (cnn_forward.smem_bytes(large.rows, 4, 13, 5, 8, nf, 64)
+                <= cnn_forward.SMEM_MAX) == fits
+        with torch.no_grad():
+            want = ar._forward_plain(x, params)
+            for shape in (large, small):
+                out = torch.empty_like(want)
+                if shape == large and not fits:
+                    with pytest.raises(RuntimeError, match="launch failed"):
+                        cnn_forward.launch(x, params, out, shape)
+                    continue
+                cnn_forward.launch(x, params, out, shape)
+                assert float((out - want).abs().max()) <= chip_smoke.CNN_F32_ATOL
+    ar, params, x = _cnn_inputs(cuda, "small", torch.float32, 40, False)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        cnn_forward.launch(x, params, torch.empty((40, 5), device=cuda),
+                           cnn_forward.LaunchShape(48, 128))  # no such tile
+
+
+def test_cnn_forward_nan_and_inf_propagate_as_in_plain(cuda):
+    # A non-finite input reaches only its own row, as in the plain forward.
+    ar, params, x = _cnn_inputs(cuda, "lag13", torch.float32, 200, True)
+    x[3, 0, 0], x[70, 12, 4], x[150, 5, 2] = float("nan"), float("inf"), -float("inf")
+    with torch.no_grad():
+        got, want = ar(x, params), ar._forward_plain(x, params)
+    torch.testing.assert_close(got.isnan(), want.isnan(), rtol=0, atol=0)
+    finite = want.isfinite().all(-1)
+    assert int(finite.sum()) >= 197
+    assert float((got[finite] - want[finite]).abs().max()) <= chip_smoke.CNN_F32_ATOL
+
+
+def test_cnn_forward_keeps_aten_under_grad_and_compute_dtype(cuda):
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.ops import cnn_forward
+
+    ar, params, x = _cnn_inputs(cuda, "small", torch.float32, 300, False)
+    before = cnn_forward.launches
+    live = [p.clone().requires_grad_(True) for p in params]
+    out = ar(x, live)
+    out.log().sum().backward()
+    assert cnn_forward.launches == before and all(p.grad is not None for p in live)
+    ar16 = get_ar_func("cnn", 5, 4, CNN_CASES["small"][1], compute_dtype=torch.bfloat16,
+                       device=cuda)
+    with torch.no_grad():
+        ar16(x, params)
+    assert cnn_forward.launches == before
+
+
+def test_sampled_serving_launches_the_cnn_kernel_per_ar_slice(cuda, monkeypatch):
+    """BearServer.score at MC-41, reduced to mean and std: one launch per AR
+    slice, and the scores within the benchmark check's limits of those with
+    the kernel off (the ATen forward)."""
+    import json
+
+    from bear_tpu_torch.inference import serving
+    from bear_tpu_torch.models import ar_funcs
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.ops import cnn_forward
+    from bench_gpu.traffic.score import readings
+
+    rng = np.random.default_rng(7)
+    reads = rng.integers(0, 4, size=(4096, 60)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[9], device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(4096, np.int32), rows=1024):
+        tc.add_chunk(c)
+    ar = get_ar_func("cnn", 9, 4, {"filter_width": 4, "num_filters": 96,
+                                   "kmer_layer1_width": 64},
+                     device=cuda, generator=torch.Generator().manual_seed(1))
+    ar.requires_grad_(False)
+    server = BearServer(tc.table(9)[0], 9, h=0.05, ar_apply=lambda oh: ar(oh) + 1e-7)
+    seqs = chip_smoke.decode_reads(reads)
+    monkeypatch.setattr(serving, "AR_SLICE_ROWS", 1 << 16)
+    slices = -(-len(seqs) * 61 // (1 << 16))
+    kw = dict(mode="sample", key=kr.key(3), mc_samples=41, reduce="mean_std")
+    before = cnn_forward.launches
+    got = server.score(seqs, **kw)
+    assert cnn_forward.launches == before + slices == before + 4
+    monkeypatch.setattr(ar_funcs, "_cnn_kernel_takes", lambda *a: False)
+    want = server.score(seqs, **kw)
+    assert cnn_forward.launches == before + slices
+    with open(os.path.join(os.path.dirname(chip_smoke.__file__), "bench_gpu", "cells",
+                           "genome13_score_mc41.json")) as f:
+        cell = json.load(f)
+    got_r = readings([got], [want], cell["params"]["share_over"])
+    assert all(got_r[k] <= v for k, v in cell["limits"].items()), got_r
