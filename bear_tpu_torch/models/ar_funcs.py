@@ -35,6 +35,10 @@ import torch
 from torch import nn
 
 from bear_tpu_torch.ops import cnn_forward
+from bear_tpu_torch.utils.profiling import span
+
+# Rows that AttentionAR's block has evaluated (callers reset it).
+attention_rows = 0
 
 
 def flat_one_hot(codes: torch.Tensor, alphabet_size_1: int, dtype) -> torch.Tensor:
@@ -369,10 +373,13 @@ class AttentionAR(_ARModule):
         ]
 
     def _block(self, params, oh, lead, out_dt):
-        """Probabilities from the one-hot context [n, lag, A+1]."""
+        """Probabilities from the one-hot context [n, lag, A+1], under the
+        span ``bear.ar.attention``; adds n to ``attention_rows``."""
+        global attention_rows
         embed, pos, wqkv, wo, w1, b1, w2, b2, w_out, b_out = params
         n, H, dh = oh.shape[0], self.num_heads, self.d_head
-        with _full_fp32_matmul():
+        attention_rows += n
+        with span("bear.ar.attention"), _full_fp32_matmul():
             x = oh @ embed + pos
             h = _normalize_layer(x)
             q = (h[:, -1] @ wqkv[0]).reshape(n, H, dh)
@@ -385,7 +392,7 @@ class AttentionAR(_ARModule):
             y = _normalize_layer(x)
             x = x + torch.nn.functional.gelu(y @ w1 + b1, approximate="tanh") @ w2 + b2
             logits = x @ w_out + b_out
-        return torch.softmax(logits.to(out_dt), dim=-1).reshape(lead + (self.A1,))
+            return torch.softmax(logits.to(out_dt), dim=-1).reshape(lead + (self.A1,))
 
     def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
         """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]."""
