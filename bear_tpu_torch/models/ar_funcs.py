@@ -34,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from bear_tpu_torch.ops import cnn_forward
+from bear_tpu_torch.ops import attention_forward, cnn_forward
 from bear_tpu_torch.utils.profiling import span
 
 # Rows that AttentionAR's block has evaluated (callers reset it).
@@ -69,11 +69,12 @@ def _elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.expm1(torch.clamp(x, max=0)))
 
 
-def _cnn_kernel_takes(x: torch.Tensor, live: Sequence[torch.Tensor], compute_dtype) -> bool:
-    """Whether ``CNNAR.forward`` launches the kernel (ops/cnn_forward.py):
-    a CUDA input, float32 or float64 parameters computed in their own type,
-    and nothing for autograd to record (grad mode off, or neither the input
-    nor a parameter requires grad)."""
+def _kernel_takes(x: torch.Tensor, live: Sequence[torch.Tensor], compute_dtype) -> bool:
+    """Whether an AR function's inference kernel may run (``CNNAR.forward``:
+    ops/cnn_forward.py; ``AttentionAR._block``: ops/attention_forward.py): a
+    CUDA input, float32 or float64 parameters computed in their own type, and
+    nothing for autograd to record (grad mode off, or neither the input nor a
+    parameter requires grad)."""
     if (x.device.type != "cuda" or compute_dtype is not None
             or live[0].dtype not in (torch.float32, torch.float64)):
         return False
@@ -187,7 +188,7 @@ class CNNAR(_ARModule):
     one-hot input, ``apply_codes`` as one flat matmul of the flat one-hot
     with banded filters, as bear_tpu's ``apply_codes`` does.
 
-    ``forward`` under inference on a card (``_cnn_kernel_takes``: CUDA,
+    ``forward`` under inference on a card (``_kernel_takes``: CUDA,
     float32 or float64 without ``compute_dtype``, nothing for autograd to
     record) is one launch of the hand-written kernel ``csrc/cnn_forward.cu``
     (``ops.cnn_forward``), the same function in the same precision with no
@@ -248,9 +249,9 @@ class CNNAR(_ARModule):
 
     def forward(self, kmers_oh: torch.Tensor, params=None) -> torch.Tensor:
         """One-hot k-mers [..., lag, A+1] -> probabilities [..., A+1]: the
-        kernel where ``_cnn_kernel_takes``, else ``_forward_plain``."""
+        kernel where ``_kernel_takes``, else ``_forward_plain``."""
         live = self._live(params)
-        if _cnn_kernel_takes(kmers_oh, live, self.compute_dtype):
+        if _kernel_takes(kmers_oh, live, self.compute_dtype):
             lead = tuple(kmers_oh.shape[:-2])
             x = kmers_oh.to(live[0].dtype).reshape(-1, self.lag, self.A1)
             return cnn_forward.cnn_probs(x, live).reshape(lead + (self.A1,))
@@ -330,7 +331,13 @@ class AttentionAR(_ARModule):
     context; gelu is the tanh approximation (``jax.nn.gelu``'s default).
     Only the last position's output is read, so only its query, its
     attention row and its MLP are computed: every other position's would be
-    thrown away, and each of these is a per-position operation."""
+    thrown away, and each of these is a per-position operation.
+
+    The block under inference on a card (``_takes_attention_kernel``) is
+    one launch of the hand-written kernel ``csrc/attention_forward.cu``, the
+    same function in the same precision with no intermediate in device
+    memory; everywhere else it runs the ATen block, ``_block_plain``, which
+    autograd, the CPU, mixed precision and widths past shared memory need."""
 
     name = "attention"
     PARAM_NAMES = ("embed", "pos", "wqkv", "wo", "w1", "b1", "w2", "b2", "w_out", "b_out")
@@ -372,14 +379,36 @@ class AttentionAR(_ARModule):
             torch.zeros((A1,), **zeros),
         ]
 
+    def _takes_attention_kernel(self, x: torch.Tensor, live: Sequence[torch.Tensor]) -> bool:
+        """Whether ``_block`` launches the kernel: ``_kernel_takes``, and
+        widths whose block of one warp fits shared memory
+        (``ops.attention_forward.fits``; any head width, head count, lag,
+        alphabet and MLP width short of that). Widths past shared memory run
+        the ATen block; nothing else routes a qualifying call there."""
+        return (_kernel_takes(x, live, self.compute_dtype)
+                and attention_forward.fits(live[0].element_size(), self.lag, self.A1,
+                                           self.d_model, self.num_heads, self.mlp_width))
+
     def _block(self, params, oh, lead, out_dt):
         """Probabilities from the one-hot context [n, lag, A+1], under the
-        span ``bear.ar.attention``; adds n to ``attention_rows``."""
+        span ``bear.ar.attention``, by the kernel where
+        ``_takes_attention_kernel``, else ``_block_plain``; adds n to
+        ``attention_rows``."""
         global attention_rows
+        attention_rows += oh.shape[0]
+        with span("bear.ar.attention"):
+            if self._takes_attention_kernel(oh, params):
+                probs = attention_forward.attention_probs(oh.contiguous(), params,
+                                                          self.num_heads)
+                return probs.reshape(lead + (self.A1,))
+            return self._block_plain(params, oh, lead, out_dt)
+
+    def _block_plain(self, params, oh, lead, out_dt):
+        """The ATen block: probabilities from the one-hot context [n, lag,
+        A+1]."""
         embed, pos, wqkv, wo, w1, b1, w2, b2, w_out, b_out = params
         n, H, dh = oh.shape[0], self.num_heads, self.d_head
-        attention_rows += n
-        with span("bear.ar.attention"), _full_fp32_matmul():
+        with _full_fp32_matmul():
             x = oh @ embed + pos
             h = _normalize_layer(x)
             q = (h[:, -1] @ wqkv[0]).reshape(n, H, dh)

@@ -7,7 +7,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: every kernel of the path, from bear_tpu_torch/csrc (one nvcc per
-   source, all started together), cnn_forward included;
+   source, all started together), cnn_forward and attention_forward included;
 3. kernels: each kernel against its plain PyTorch version on the card, on
    edge cases and on the main path's chunk 0 (exact equality), then timed
    at the main path's chunk beside its bound and a library call:
@@ -97,8 +97,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    sparse index against the dense table;
 4h. the remaining model options: (P) the attention BEAR of
    bear_attn_bear.cfg through train_bear_net.main on YSD1 in float32 (10,000
-   Adam applies; its first ELBOs and its held-out perplexities against CPU
-   float64 from the same parameters), training alone timed and profiled;
+   Adam applies; its first ELBOs and its held-out perplexities, evaluated by
+   the attention_forward kernel, against CPU float64 from the same
+   parameters), training alone timed and profiled; the lag-13 attention AR
+   served at MC-41 through BearServer.score on the main path's table and
+   reads (one attention_forward launch an AR slice); then the kernel held
+   against the plain block at a genome13_attn_score_mc41 call's AR slices
+   (ATTN_SLICES) in both float types and timed there beside its bound;
    (Q) the seven optax optimizers (adamw, adamax, rmsprop, adagrad, nadam,
    adadelta, lion) on the YSD1 linear BEAR, 200 float64 applies on the card
    against the CPU, then 300 float32 applies each, timed; (R) bfloat16
@@ -1305,6 +1310,170 @@ def cnn_forward_timing(fn, card, reps=20):
           f"{out['kernel_err64']:.3e}, the plain forward {out['plain_err64']:.3e}), max_rel_err "
           f"{out['max_rel_err_float64']:.3e} (float64) [{card}]")
     return out
+
+
+# The attention kernel (csrc/attention_forward.cu) against the plain block
+# (AttentionAR._block_plain) on the card: float64 at rtol 1e-12, float32 at
+# ATTN_F32_ATOL on the probabilities and, from float64, within twice the plain
+# block's own float32 gap (+1e-7). ATTN_SLICES: the AR slices of a
+# genome13_attn_score_mc41 call (618,496 windows in slices of 2^18 rows).
+ATTN_F32_ATOL = 1e-6
+ATTN_SLICES = (1 << 18, 1 << 18, 94_208)
+
+
+def attention_case(dev, dtype, lag=LAG, A=4, kw=ATTN_KW, seed=SEED):
+    """An AttentionAR of these widths on ``dev`` and seeded parameters with
+    every leaf away from its init (pos and the biases non-zero)."""
+    import torch
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    g = torch.Generator().manual_seed(seed)
+    ar = get_ar_func("attention", lag, A, kw, dtype=dtype, device=dev, generator=g)
+    params = [(p + 0.05 * torch.randn(p.shape, generator=g, dtype=dtype).to(dev)).detach()
+              for p in ar.params_list()]
+    return ar, params
+
+
+def attention_contexts(n, lag, A1, dtype, dev, seed=SEED):
+    """n seeded one-hot contexts [n, lag, A1] on ``dev``."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed + n)
+    codes = torch.randint(0, A1, (n, lag), generator=g)
+    return torch.nn.functional.one_hot(codes, A1).to(dtype).to(dev)
+
+
+def attention_forward_vs_plain(ar, x, params, shape=None):
+    """{max_abs_err, max_rel_err, held}: the kernel (in launch shape
+    ``shape``, or the chosen one) against the plain block on contexts x [N,
+    lag, A1]; in float32 also each one's largest gap from the plain block in
+    float64 (``kernel_err64``, ``plain_err64``)."""
+    import torch
+    from bear_tpu_torch.ops import attention_forward
+
+    n = x.shape[0]
+    with torch.no_grad():
+        want = ar._block_plain(params, x, (n,), x.dtype)
+        if shape is None:
+            got = attention_forward.attention_probs(x, params, ar.num_heads)
+        else:
+            got = attention_forward.launch(x, params, ar.num_heads, torch.empty_like(want),
+                                           shape)
+        truth = None
+        if x.dtype == torch.float32:
+            p64 = [p.double() for p in params]
+            truth = ar._block_plain(p64, x.double(), (n,), torch.float64)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = (CNN_F64_RTOL * want.abs() if x.dtype == torch.float64
+           else torch.full_like(want, ATTN_F32_ATOL))
+    out = {"max_abs_err": float(diff.max()) if n else 0.0,
+           "max_rel_err": float((diff / want.abs()).max()) if n else 0.0,
+           "held": bool((diff <= tol).all())}
+    if truth is not None and n:
+        out["kernel_err64"] = float((got.double() - truth).abs().max())
+        out["plain_err64"] = float((want.double() - truth).abs().max())
+        out["held"] = out["held"] and out["kernel_err64"] <= 2 * out["plain_err64"] + 1e-7
+    return out
+
+
+def attention_forward_timing(card, slices=ATTN_SLICES, reps=20):
+    """The kernel at a scoring call's AR slices of the lag-13 attention AR
+    (ATTN_KW): held against the plain block in float32 and float64 on every
+    slice (attention_forward_vs_plain), then the kernel and the plain block
+    timed in float32 (CUDA events, ``reps`` calls of all the slices) beside
+    the bound (the model FLOPs at CNN_FLOPS_PER_S), with the kernel's
+    registers and spills. Returns the JSON line's fields."""
+    import torch
+    from bear_tpu_torch import _build
+    from bear_tpu_torch.ops import attention_forward
+    from bench_gpu.metrics import _work_attention  # the benchmark's count of a row's FLOPs
+
+    dev = torch.device("cuda", 0)
+    held = {}
+    for dtype in (torch.float32, torch.float64):
+        ar, params = attention_case(dev, dtype)
+        for i, n in enumerate(slices):
+            stats = attention_forward_vs_plain(ar, attention_contexts(n, LAG, 5, dtype, dev),
+                                               params)
+            held[f"{dtype} slice {i}"] = stats
+            check(stats["held"], f"attention_forward differs from the plain block on slice {i} "
+                                 f"({n:,} rows) in {dtype}: {stats}")
+    ar, params = attention_case(dev, torch.float32)
+    xs = [attention_contexts(n, LAG, 5, torch.float32, dev) for n in slices]
+    H, D, M = ar.num_heads, ar.d_model, ar.mlp_width
+    with torch.no_grad():
+        ms = timed_ms(lambda: [attention_forward.attention_probs(x, params, H) for x in xs],
+                      reps, None)
+        plain_ms = timed_ms(lambda: [ar._block_plain(params, x, (x.shape[0],), x.dtype)
+                                     for x in xs], reps, None)
+        slice_ms = timed_ms(lambda: attention_forward.attention_probs(xs[0], params, H), reps,
+                            None)
+    flops = _work_attention.attention_forward_flops(
+        {"lag": LAG, "alphabet_size": 4, "model": {"d_model": D, "mlp_width": M}})
+    bound_ms = flops * sum(slices) / CNN_FLOPS_PER_S * 1e3
+    slice_bound_ms = flops * slices[0] / CNN_FLOPS_PER_S * 1e3
+    shape = attention_forward.launch_shape(slices[0], 4, torch.cuda.get_device_properties(0)
+                                           .multi_processor_count, LAG, 5, D, H, M)
+    log = _build.library_path(attention_forward.SOURCE).with_suffix(".log")
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="operations",
+               slice_ms=slice_ms, slice_bound_ms=slice_bound_ms, slices=list(slices),
+               roofline_pct=100 * bound_ms / ms, launch_shape=list(shape),
+               smem_bytes=attention_forward.smem_bytes(shape.warps, 4, LAG, 5, D, H, M,
+                                                       shape.resident),
+               max_abs_err=max(h["max_abs_err"] for k, h in held.items() if "float32" in k),
+               max_rel_err_float64=max(h["max_rel_err"] for k, h in held.items()
+                                       if "float64" in k),
+               kernel_err64=max(h["kernel_err64"] for k, h in held.items() if "float32" in k),
+               plain_err64=max(h["plain_err64"] for k, h in held.items() if "float32" in k),
+               ptxas=ptxas_report(log.read_text()) if log.exists() else None)
+    print(f"[kernel] attention_forward at a scoring call's AR slices {list(slices)} (lag {LAG}, "
+          f"A1 5, D {D}, {H} heads, M {M}, float32): ms {ms:.6f} plain_ms {plain_ms:.6f} "
+          f"bound_ms {bound_ms:.6f} (operations: {flops:,} FLOPs a row at 67 TFLOP/s) = "
+          f"{out['roofline_pct']:.2f}% of the roofline; one {slices[0]:,}-row slice "
+          f"{slice_ms:.6f} ms, bound {slice_bound_ms:.6f}; {shape.blocks} blocks of "
+          f"{shape.warps} warps, weights resident {shape.resident}, {out['smem_bytes']:,} bytes "
+          f"of shared memory a block; ptxas "
+          f"{out['ptxas']}; max_abs_err {out['max_abs_err']:.3e} (float32; from float64 the "
+          f"kernel {out['kernel_err64']:.3e}, the plain block {out['plain_err64']:.3e}), "
+          f"max_rel_err {out['max_rel_err_float64']:.3e} (float64) [{card}]")
+    return out
+
+
+def attention_serving_launches(table, seqs, card):
+    """The lag-13 attention AR (ATTN_KW, float32) served through
+    ``BearServer.score`` at MC-41, reduced to mean and std, on the main
+    path's table and held-out reads, at the real ``AR_SLICE_ROWS``: one
+    ``attention_forward`` launch an AR slice, counted from 0 just before the
+    call (after a warm-up call). Returns the launches."""
+    import torch
+    from bear_tpu_torch.inference import serving
+    from bear_tpu_torch.inference.serving import BearServer
+    from bear_tpu_torch.ops import attention_forward
+    from bear_tpu_torch.ops import keyed_random as kr
+
+    ar, params = attention_case(torch.device("cuda", 0), torch.float32)
+    ar.load_params(params)
+    ar.requires_grad_(False)
+    server = BearServer(table, LAG, h=H, ar_apply=ar)
+    kw = dict(mode="sample", mc_samples=41, reduce="mean_std")
+    server.score(seqs, key=kr.key(SEED), **kw)  # warm-up
+    torch.cuda.synchronize()
+    attention_forward.launches = 0
+    t0 = time.perf_counter()
+    got = server.score(seqs, key=kr.key(SEED + 1), **kw)
+    call_s = time.perf_counter() - t0
+    launches = attention_forward.launches
+    slices = -(-len(seqs) * (READ_LEN + 1) // serving.AR_SLICE_ROWS)
+    check(launches == slices, f"BearServer.score with the attention AR launched "
+                              f"attention_forward {launches} times for {slices} AR slices")
+    check(got.shape == (len(seqs), 2) and bool(np.isfinite(got).all()),
+          "the attention AR's MC-41 scores are not finite of shape [reads, 2]")
+    print(f"[serve] {len(seqs):,} held-out reads at MC-41 with the lag-{LAG} attention AR "
+          f"(float32): {call_s:.6f} s = {len(seqs) / call_s:.6g} sequences/s; "
+          f"attention_forward launches {launches} for {slices} AR slices of "
+          f"{serving.AR_SLICE_ROWS:,} rows [{card}]")
+    return launches
 
 
 def sampler_share(server, fn):
@@ -4003,7 +4172,7 @@ def main() -> int:
     from bear_tpu_torch.inference.serving import BearServer
     from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import LinearAR
-    from bear_tpu_torch.ops import cnn_forward, keyed_draw
+    from bear_tpu_torch.ops import attention_forward, cnn_forward, keyed_draw
 
     # 1. device
     dev = torch.device("cuda", 0)
@@ -4015,7 +4184,7 @@ def main() -> int:
     # 2. build: every kernel, one nvcc per source, all started together
     t0 = time.perf_counter()
     libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE, keyed_draw.SOURCE,
-                         cnn_forward.SOURCE])
+                         cnn_forward.SOURCE, attention_forward.SOURCE])
     print(f"[build] {', '.join(p.name for p in libs.values())} in "
           f"{time.perf_counter() - t0:.2f} s")
     for p in libs.values():
@@ -4284,7 +4453,6 @@ def main() -> int:
               f"{count_chunk_update.launches}, window_hist {window_update.launches}, "
               f"keyed_draw by path {keyed_by_path}, cnn_forward by path {cnn_by_path} (the Δ "
               f"window math is PyTorch ops)")
-    del train_table
     torch.cuda.empty_cache()
 
     # Where training's time goes.
@@ -4370,8 +4538,19 @@ def main() -> int:
         count_chunk_update.launches = 0
         window_update.launches = 0
         timer = StageTimer()
+        attention_forward.launches = 0
         with timer.stage("(P) attention"):
             attention_phase(os.path.join(tmp, "attn"), card)
+        attn_launches = {"attention_cli": attention_forward.launches}
+        check(attn_launches["attention_cli"] > 0,
+              "(P)'s evaluation under no_grad ran without launching attention_forward")
+        torch.cuda.empty_cache()
+        with timer.stage("(P) attention serving"):
+            attn_launches["scoring"] = attention_serving_launches(train_table, seqs, card)
+        del train_table
+        torch.cuda.empty_cache()
+        with timer.stage("(P) attention_forward"):
+            d_attn = attention_forward_timing(card)
         torch.cuda.empty_cache()
         with timer.stage("(Q) optimizers"):
             optimizer_phase(card)
@@ -4383,8 +4562,9 @@ def main() -> int:
         print(f"[4h] phase 4h {sum(t for _, t in timer.stages):.3f} s: "
               + ", ".join(f"{n} {t:.3f} s" for n, t in timer.stages)
               + f" (StageTimer; checks and CPU references included); kernel launches in 4h: "
-              f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches} "
-              f"(the options are PyTorch ops) [{card}]")
+              f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches}, "
+              f"attention_forward by path {attn_launches} (the options are PyTorch ops) "
+              f"[{card}]")
 
         # 4i. counting across devices and processes, in 4e's directory: (S)
         # the data-sharded counter, (T) the row-split counter, (U) the sparse
@@ -4502,6 +4682,15 @@ def main() -> int:
         "launches_by_path": cnn_by_path,
         "library_ms": None, **d_cnn,
         "ptxas": ptxas_report(libs[cnn_forward.SOURCE].with_suffix(".log").read_text()),
+    }, {
+        "name": "attention_forward", "route": "cuda",
+        "source": "bear_tpu_torch/csrc/attention_forward.cu",
+        "replaces": None,
+        "replaces_kind": "no TPU kernel: bear_tpu's attention AR (bear_tpu/models/ar_funcs.py "
+                         "make_ar_func_attention) is jitted XLA; the port's ATen block before it",
+        "launches": sum(attn_launches.values()),
+        "launches_by_path": attn_launches,
+        "library_ms": None, **d_attn,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -158,25 +158,25 @@ def test_cnn_forward_takes_aten_on_the_cpu_bit_for_bit(grad, dtype):
 
 
 def test_cnn_kernel_dispatch_reads_device_type_and_grad():
-    from bear_tpu_torch.models.ar_funcs import _cnn_kernel_takes
+    from bear_tpu_torch.models.ar_funcs import _kernel_takes
 
     def live(dtype=torch.float32, grad=False):
         return [torch.zeros(2, dtype=dtype, requires_grad=grad) for _ in range(8)]
 
     cuda = _Input("cuda")
-    assert _cnn_kernel_takes(cuda, live(), None)
-    assert _cnn_kernel_takes(cuda, live(torch.float64), None)
-    assert not _cnn_kernel_takes(_Input("cpu"), live(), None)
-    assert not _cnn_kernel_takes(cuda, live(), torch.bfloat16)
-    assert not _cnn_kernel_takes(cuda, live(torch.bfloat16), None)
+    assert _kernel_takes(cuda, live(), None)
+    assert _kernel_takes(cuda, live(torch.float64), None)
+    assert not _kernel_takes(_Input("cpu"), live(), None)
+    assert not _kernel_takes(cuda, live(), torch.bfloat16)
+    assert not _kernel_takes(cuda, live(torch.bfloat16), None)
     # autograd would record: a parameter or the input requires grad, grad on
-    assert not _cnn_kernel_takes(cuda, live(grad=True), None)
-    assert not _cnn_kernel_takes(_Input("cuda", requires_grad=True), live(), None)
+    assert not _kernel_takes(cuda, live(grad=True), None)
+    assert not _kernel_takes(_Input("cuda", requires_grad=True), live(), None)
     with torch.no_grad():
-        assert _cnn_kernel_takes(cuda, live(grad=True), None)
-        assert _cnn_kernel_takes(_Input("cuda", requires_grad=True), live(), None)
+        assert _kernel_takes(cuda, live(grad=True), None)
+        assert _kernel_takes(_Input("cuda", requires_grad=True), live(), None)
     with torch.inference_mode():
-        assert _cnn_kernel_takes(cuda, live(grad=True), None)
+        assert _kernel_takes(cuda, live(grad=True), None)
 
 
 def test_cnn_compute_dtype_keeps_its_path():

@@ -880,7 +880,7 @@ def test_sampled_serving_launches_the_cnn_kernel_per_ar_slice(cuda, monkeypatch)
     before = cnn_forward.launches
     got = server.score(seqs, **kw)
     assert cnn_forward.launches == before + slices == before + 4
-    monkeypatch.setattr(ar_funcs, "_cnn_kernel_takes", lambda *a: False)
+    monkeypatch.setattr(ar_funcs, "_kernel_takes", lambda *a: False)
     want = server.score(seqs, **kw)
     assert cnn_forward.launches == before + slices
     with open(os.path.join(os.path.dirname(chip_smoke.__file__), "bench_gpu", "cells",
@@ -888,3 +888,190 @@ def test_sampled_serving_launches_the_cnn_kernel_per_ar_slice(cuda, monkeypatch)
         cell = json.load(f)
     got_r = readings([got], [want], cell["params"]["share_over"])
     assert all(got_r[k] <= v for k, v in cell["limits"].items()), got_r
+
+
+# The attention kernel (csrc/attention_forward.cu) against AttentionAR's plain
+# block under no_grad, through forward and apply_codes, at the benchmark's
+# widths and at a second (lag 5, A1 21, D 24, 3 heads, M 40), every leaf
+# non-zero; chip_smoke.attention_forward_vs_plain holds float64 at rtol 1e-12
+# and float32 at ATTN_F32_ATOL and within twice the plain block's own gap to
+# float64. Row counts: one, around a block's 16 rows and a warp's 2, a 2^18
+# slice and genome13_attn_score_mc41's 94,208-row tail.
+ATTN_CASES = {"published": (13, 4, chip_smoke.ATTN_KW),
+              "second": (5, 20, {"d_model": 24, "num_heads": 3, "mlp_width": 40}),
+              # heads wider than a team of 16 lanes: one head of 128 columns
+              # (two column blocks in float; double's wk and wv overflow
+              # shared memory), one of 64 (two blocks in double, a whole team
+              # in float)
+              "head128": (13, 4, {"d_model": 128, "num_heads": 1, "mlp_width": 64}),
+              "head64": (13, 4, {"d_model": 64, "num_heads": 1, "mlp_width": 96})}
+
+
+def _attention_inputs(cuda, case, dtype, n):
+    lag, A, kw = ATTN_CASES[case]
+    ar, params = chip_smoke.attention_case(cuda, dtype, lag=lag, A=A, kw=kw)
+    g = torch.Generator().manual_seed(n)
+    codes = torch.randint(0, A + 1, (n, lag), generator=g, dtype=torch.int8).to(cuda)
+    oh = torch.nn.functional.one_hot(codes.long(), A + 1).to(dtype)
+    return ar, params, codes, oh
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 1 << 18, 94_208])
+@pytest.mark.parametrize("path", ["forward", "apply_codes"])
+@pytest.mark.parametrize("case", ["published", "second"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["float32", "float64"])
+def test_attention_forward_equals_plain(cuda, n, path, case, dtype):
+    _hold_attention_forward(cuda, n, path, case, dtype)
+
+
+@pytest.mark.parametrize("n", [1, 65, 1 << 18, 94_208])
+@pytest.mark.parametrize("path", ["forward", "apply_codes"])
+@pytest.mark.parametrize("dtype,case", [(torch.float32, "head128"), (torch.float64, "head64"),
+                                        (torch.float32, "head64")],
+                         ids=["float32-head128", "float64-head64", "float32-head64"])
+def test_attention_forward_wide_heads_equal_plain(cuda, n, path, dtype, case):
+    """Heads past a team's 16 lanes take the kernel (the instance whose
+    heads span column blocks) and equal the plain block as any other."""
+    from bear_tpu_torch.ops import attention_forward
+
+    lag, A, kw = ATTN_CASES[case]
+    width = kw["d_model"] // kw["num_heads"]
+    itemsize = torch.tensor([], dtype=dtype).element_size()
+    assert attention_forward.head_lanes(kw["d_model"], kw["num_heads"], itemsize) == 16
+    assert (width > 16 * 16 // itemsize) is (case == "head128" or dtype == torch.float64)
+    _hold_attention_forward(cuda, n, path, case, dtype)
+
+
+def _hold_attention_forward(cuda, n, path, case, dtype):
+    """One launch through ``path`` under no_grad, held against the plain
+    block; every launch shape that fits shared memory gives the same bits."""
+    from bear_tpu_torch.ops import attention_forward
+
+    ar, params, codes, oh = _attention_inputs(cuda, case, dtype, n)
+    before = attention_forward.launches
+    with torch.no_grad():
+        got = ar(oh, params) if path == "forward" else ar.apply_codes(codes, params)
+    assert attention_forward.launches == before + 1
+    assert got.dtype == dtype and got.shape == (n, oh.shape[-1])
+    stats = chip_smoke.attention_forward_vs_plain(ar, oh, params)
+    assert stats["held"], stats
+    # Every launch shape the kernel takes computes a row alike: the same bits.
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widths = (ar.lag, ar.A1, ar.d_model, ar.num_heads, ar.mlp_width)
+    itemsize = oh.element_size()
+    for resident in (False, True):
+        for warps in (8, 4, 1):
+            if attention_forward.smem_bytes(warps, itemsize, *widths, resident) \
+                    > attention_forward.SMEM_MAX:
+                continue
+            shape = attention_forward.LaunchShape(warps, min(sms, n), resident)
+            with torch.no_grad():
+                other = attention_forward.launch(oh, params, ar.num_heads,
+                                                 torch.empty_like(got), shape)
+            torch.testing.assert_close(other, got, rtol=0, atol=0)
+
+
+def test_attention_forward_shared_memory_mirror_and_refusals(cuda):
+    """ops.attention_forward.smem_bytes against the launcher's own layout at
+    the edge of shared memory: at the longest lag whose block of 8 warps
+    fits, 8 warps launch, and one position more they are refused while 4
+    launch, both equal to the plain block; the same edge with the weights
+    resident; a shape the launcher lacks is refused."""
+    from bear_tpu_torch.ops import attention_forward
+
+    for resident in (False, True):
+        def smem(warps, lag):
+            return attention_forward.smem_bytes(warps, 4, lag, 5, 64, 4, 128, resident)
+
+        lag = max(l for l in range(1, 200) if smem(8, l) <= attention_forward.SMEM_MAX)
+        for L, fits in ((lag, True), (lag + 1, False)):
+            ar, params = chip_smoke.attention_case(cuda, torch.float32, lag=L)
+            x = chip_smoke.attention_contexts(300, L, 5, torch.float32, cuda)
+            with torch.no_grad():
+                want = ar._block_plain(params, x, (300,), torch.float32)
+                for warps in (8, 4):
+                    out = torch.empty_like(want)
+                    shape = attention_forward.LaunchShape(warps, 19, resident)
+                    if warps == 8 and not fits:
+                        with pytest.raises(RuntimeError, match="launch failed"):
+                            attention_forward.launch(x, params, 4, out, shape)
+                        continue
+                    attention_forward.launch(x, params, 4, out, shape)
+                    assert float((out - want).abs().max()) <= chip_smoke.ATTN_F32_ATOL
+    ar, params, _, oh = _attention_inputs(cuda, "second", torch.float32, 40)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        attention_forward.launch(oh, params, 3, torch.empty((40, 21), device=cuda),
+                                 attention_forward.LaunchShape(9, 1, False))  # 288 threads
+
+
+def test_attention_forward_nan_and_inf_propagate_as_in_plain(cuda):
+    # A non-finite input reaches only its own row, as in the plain block.
+    ar, params, _, oh = _attention_inputs(cuda, "published", torch.float32, 200)
+    oh[3, 0, 0], oh[70, 12, 4], oh[150, 5, 2] = float("nan"), float("inf"), -float("inf")
+    with torch.no_grad():
+        got, want = ar(oh, params), ar._block_plain(params, oh, (200,), torch.float32)
+    torch.testing.assert_close(got.isnan(), want.isnan(), rtol=0, atol=0)
+    finite = want.isfinite().all(-1)
+    assert int(finite.sum()) >= 197
+    assert float((got[finite] - want[finite]).abs().max()) <= chip_smoke.ATTN_F32_ATOL
+
+
+def test_attention_forward_keeps_aten_under_grad_and_compute_dtype(cuda):
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+    from bear_tpu_torch.ops import attention_forward
+
+    ar, params, codes, oh = _attention_inputs(cuda, "published", torch.float32, 300)
+    before = attention_forward.launches
+    live = [p.clone().requires_grad_(True) for p in params]
+    ar(oh, live).log().sum().backward()
+    ar.apply_codes(codes, live).log().sum().backward()
+    assert attention_forward.launches == before and all(p.grad is not None for p in live)
+    ar16 = get_ar_func("attention", 13, 4, chip_smoke.ATTN_KW, compute_dtype=torch.bfloat16,
+                       device=cuda)
+    with torch.no_grad():
+        ar16(oh, params)
+    assert attention_forward.launches == before
+
+
+def test_sampled_serving_launches_the_attention_kernel_per_ar_slice(cuda, monkeypatch):
+    """BearServer.score at MC-41 with the attention AR, reduced to mean and
+    std: one launch per AR slice. Its MAP scores with the kernel lie no
+    farther from a float64 server's than twice those of the ATen block (the
+    kernel's own rule against float64), + 1e-7 relative. (Sampled scores are
+    not compared here: on these short random reads two float32 roundings of
+    the AR, ATen's against float64's, flip accept tests in 0.12% of the
+    reads, past the benchmark cell's 0.1%.)"""
+    from bear_tpu_torch.inference import serving
+    from bear_tpu_torch.models import ar_funcs
+    from bear_tpu_torch.ops import attention_forward
+
+    rng = np.random.default_rng(7)
+    reads = rng.integers(0, 4, size=(4096, 60)).astype(np.int8)
+    tc = engine.TransitionCounter(lags=[9], device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(4096, np.int32), rows=1024):
+        tc.add_chunk(c)
+    _, params = chip_smoke.attention_case(cuda, torch.float32, lag=9)
+    servers = {}
+    for dtype in (torch.float32, torch.float64):  # the same weights in both types
+        ar, _ = chip_smoke.attention_case(cuda, dtype, lag=9)
+        ar.load_params([p.to(dtype) for p in params])
+        ar.requires_grad_(False)
+        servers[dtype] = BearServer(tc.table(9)[0], 9, h=0.05, dtype=dtype,
+                                    ar_apply=lambda oh, ar=ar: ar(oh) + 1e-7)
+    server = servers[torch.float32]
+    seqs = chip_smoke.decode_reads(reads)
+    monkeypatch.setattr(serving, "AR_SLICE_ROWS", 1 << 16)
+    slices = -(-len(seqs) * 61 // (1 << 16))
+    before = attention_forward.launches
+    got = server.score(seqs, mode="sample", key=kr.key(3), mc_samples=41, reduce="mean_std")
+    assert attention_forward.launches == before + slices == before + 4
+    assert got.shape == (len(seqs), 2) and np.isfinite(got).all()
+    truth = servers[torch.float64].score(seqs, mode="map")
+    kernel = server.score(seqs, mode="map")
+    monkeypatch.setattr(ar_funcs.AttentionAR, "_takes_attention_kernel", lambda *a: False)
+    launches = attention_forward.launches
+    plain = server.score(seqs, mode="map")
+    assert attention_forward.launches == launches
+    gap = {k: float(np.max(np.abs(np.asarray(v, np.float64) - truth) / np.abs(truth)))
+           for k, v in (("kernel", kernel), ("plain", plain))}
+    assert gap["kernel"] <= 2 * gap["plain"] + 1e-7, gap
