@@ -1,148 +1,142 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card, and check it.
+"""Drive the PyTorch port's whole path once on one CUDA card, and check it.
 
     python3 chip_smoke.py
+
+This is the card gate: it checks the path, it does not measure it. Each
+fact about the card has one home: a kernel against its plain version on
+edge cases and at launch edges is tests/test_torch_cuda.py's (pytest -m
+cuda); the speed of a path is a cell of bench_gpu/; this script holds the
+whole path at genome scale against the CPU in float64, the published
+results and the launch counts per path, and times each kernel alone beside
+its bound (the kernels line; keyed_draw_timing.py and count_chunk_timing.py
+time one kernel in turns against another checkout).
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
-2. build: every kernel of the path, from bear_tpu_torch/csrc (one nvcc per
-   source, all started together), cnn_forward and attention_forward included;
-3. kernels: each kernel against its plain PyTorch version on the card, on
-   edge cases and on the main path's chunk 0 (exact equality), then timed
-   at the main path's chunk beside its bound and a library call:
-   window_hist (keys -> counts, off the main path since count_chunk) with
-   an ablation of what holds its atomics back, and count_chunk (codes ->
-   counts, the main path's kernel) beside the earlier keys design, with
-   the launch shape it picks there (and at 4e's and 4g's chunks); and
-   keyed_draw (the keyed Dirichlet sampler) on seeded rows of both
-   alphabets, every proposal count, both float types and both modes,
-   against its plain version (KEYED_DRAW_CASES);
+2. build: every kernel, from bear_tpu_torch/csrc (one nvcc per source, all
+   started together), with ptxas's report;
+3. kernels: window_hist (keys -> counts, off the main path) and count_chunk
+   (codes -> counts, the main path's kernel) against their plain versions
+   on the main path's chunk 0 (exact), then each timed alone there beside
+   its bound and a library call, with count_chunk's launch shape;
 4. main path: the examples/genome_lag13.py workload — a 4.6 Mb synthetic
    genome (seed 0) cut into 150 bp reads at coverage 10, train/test groups —
-   counted at lag 13 by TransitionCounter on the card (one count_chunk
-   launch per chunk), then 4,096 held-out reads scored by BearServer (MAP)
-   with a seeded lag-13 LinearAR, held against the same scores from the
-   port on the CPU in float64; after the path's kernel counts are read,
-   four chunks and one scoring call are profiled;
-4b. training, the published YSD1 protocol: train_bear_net.main on the
-   values of bear_lin_bear.cfg in float32 (10,000 Adam applies, held-out
-   and train-as-test evaluation, config.cfg + results.pickle), then the
-   same training alone, timed; h and the BEAR held-out perplexity against
-   the published values, BMM against the port's CPU float64 evaluation;
+   counted at lag 13 by TransitionCounter on the card (conservation; one
+   count_chunk launch per chunk), then 4,096 held-out reads scored by
+   BearServer (MAP) with a seeded lag-13 LinearAR, against the port on the
+   CPU in float64;
+4b. the published YSD1 protocol: train_bear_net.main on bear_lin_bear.cfg's
+   values in float32 (10,000 Adam applies, held-out and train-as-test
+   evaluation); h and the BEAR held-out perplexity against the published
+   values, BMM against the port's CPU float64 evaluation;
 4c. training on the main path: the same chunks counted again into a fresh
-   TransitionCounter, handed off on the card (to_device_dataset, before
-   any flush), a CNN BEAR of examples/genome_lag13.py's widths trained
-   (its first ELBOs against CPU float64), evaluated, written, reloaded by
-   load_bear and served to the 4,096 held-out reads (against CPU float64);
-   then 200 YSD1 applies and 20 CNN applies are profiled;
-4d. posterior-sampled serving and variant scoring, from the main path's
-   train table with 4c's reloaded CNN and its h: (C) the 4,096 held-out
-   reads at MC-41 (41 posterior draws, reduce "mean_std" and "none"); (D)
-   the deep-mutational-scan grid of the first 10 kb of the genome (30,000
-   SNVs), MAP and MC-41; (E) 10,000 seeded SNVs, substitutions, insertions
-   and deletions on the same 10 kb, MAP and MC-41; (F) the score CLI on
-   4b's YSD1 model (snv --all --sample --std, variants --device, seqs
-   --map). MAP against the port on the CPU in float64; sampled float64 on
-   the card against the CPU in float64 from the same keys, on subsets; the
-   in-call reductions against the raw draws. (C)'s draw input held
-   keyed_draw against its plain version (float32 and float64, picked and
-   full) and timed beside the plain version and the bound (counted by
-   execution unit: sampler_work_per_draw), in float64 too, and (K)'s
-   per-step draw held and timed on the device alone. Rates, peak
-   device memory, the sampler's share of device time, and profiles of (C)
-   and (D). keyed_draw's launches are counted on (C), (D), (E), (F) and in
-   4f (K) and 4g (O) (sampled assembly), each from 0 just before its path.
-   The CNN's forward under inference is one kernel (cnn_forward): (C)'s AR
-   slices held against the plain forward in float32 and float64 and timed
-   beside it and the bound (the model FLOPs at 67 TFLOP/s); its launches
-   are counted on (C), (D) and (E);
-4e. the on-disk workflow: phase 4's reads written as FASTQ (the train
-   group over 3 files, one gzip-compressed; the held-out group in 1), the
-   summarize CLI at -l 13 through its parser on the card (native parser for
-   every file, one count_chunk launch per chunk over all 13 lag tables,
-   conservation at every lag, the lag-13 shards read back equal to phase
-   4's counts), count_chunk timed at the summarize chunk over 13 lags, then
-   the streaming training CLI on the lag-13 shards (4c's CNN BEAR, shuffle,
-   shard cache, checkpoints every 32 applies; first ELBOs against CPU
-   float64 from the same start and stream, streamed held-out perplexities
-   against the in-memory evaluation on the card) and the score CLI on the
-   trained model directory;
+   TransitionCounter and handed off on the card (to_device_dataset, before
+   any flush; conservation), a CNN BEAR of examples/genome_lag13.py's widths
+   trained (its first ELBOs against CPU float64), evaluated, written,
+   reloaded by load_bear and served to the 4,096 held-out reads (against
+   CPU float64);
+4d. posterior-sampled serving and variant scoring from the main path's
+   table with 4c's reloaded CNN: (C) the 4,096 held-out reads at MC-41 (41
+   posterior draws, reduce "mean_std" and "none"); (D) the 30,000 SNVs of
+   the genome's first 10 kb, MAP and MC-41; (E) 10,000 seeded SNVs,
+   substitutions, insertions and deletions on the same 10 kb, MAP and
+   MC-41; (F) the score CLI on 4b's YSD1 model. MAP against the CPU in
+   float64; sampled float64 on the card against the CPU from the same keys,
+   on subsets; the in-call reductions against the raw draws; each call's
+   peak device memory within PEAK_BUDGET of what is resident. (C)'s draw
+   input holds keyed_draw against its plain version (float32 and float64,
+   picked and full; and (K)'s per-step draw), (C)'s AR slices hold
+   cnn_forward against the plain forward (float32 and float64), and each
+   is timed alone there beside its bound. keyed_draw's launches are counted
+   on (C)-(F) and 4f (K) and 4g (O), cnn_forward's on (C)-(E), each path
+   from 0 just before it;
+4e. the on-disk workflow: phase 4's reads written as FASTQ (the train group
+   over 3 files, one gzip-compressed; the held-out group in 1), the
+   summarize CLI at -l 13 on the card (the native parser for every file, one
+   count_chunk launch per chunk over all 13 lag tables, conservation at
+   every lag, the lag-13 shards equal to phase 4's counts), count_chunk held
+   and timed alone on a summarize chunk over 13 lags, then the streaming
+   training CLI on the lag-13 shards (4c's CNN BEAR, shuffle, shard cache,
+   checkpoints every 32 applies: first ELBOs against CPU float64 from the
+   same start and stream, epoch 1 parsing every shard and every later load
+   hitting the cache, streamed held-out perplexities against the in-memory
+   evaluation, the mid-run state cleared) and the score CLI on its model;
 4f. generation and the other models, in 4e's directory: (H) the reads as
    groups 0 and 1 and the genome's unmutated template as reference group 2,
-   counted at lag 13 (3 groups), handed off on the card, the
+   counted at lag 13 (conservation), handed off on the card, the
    reference-guided CNN BEAR trained (first ELBOs against CPU float64) and
    evaluated, then the reference-guided CLI on YSD1 (BMM against
-   bmm_likelihood); (I) vBEAR on YSD1, 3,000 applies (h and sigma against
-   the published scale); (J) lag selection at lags 1..13 over (G) by the
+   bmm_likelihood); (I) vBEAR on YSD1, 3,000 applies (h within 25% of
+   0.0433, sigma below 0.25); (J) lag selection at lags 1..13 by the
    resident table of a recount, the TSV shards and both CLI routes (all
-   agree); (K) the assembly CLI on (G)'s reads with 4e's streamed CNN, 64
-   seeds x 16 samples, 500 letters each side, sampled and MAP, with one
-   profiler window of the sampler's share, and a float64 rollout on the card
-   held against the CPU sequence for sequence;
+   agree); (K) the assembly CLI on 4e's reads with 4e's streamed CNN, 64
+   seeds x 16 samples, 500 letters each side, sampled and MAP (its FASTA
+   checked; its count and generation called apart give its sequences), and
+   float64 rollouts on the card, BMM and BEAR, against the CPU sequence for
+   sequence;
 4g. counting beyond the dense table, in 4e's directory: count_chunk's
    row-range form held against its plain version on a summarize chunk in
-   every pass and timed; (L) the summarize CLI at -l 15 in the fewest
-   row-range passes the int32 guard takes (9: one count_chunk launch per
-   chunk and pass); (M) the summarize CLI at -l 20, which routes itself to
-   the sparse-first counter (key buffers sorted on the card, no
-   count_chunk), then 200 linear-BEAR applies on its lag-20 rows; the
-   nonzero rows of every lag against a plain torch.unique recount, and the
-   shards of lags 1..13 byte for byte against 4e's and of lags 14-15
-   against each other; (N) select_lag over (M)'s counter (lags 1..13
-   against (J)) and lag_select_cli -l 15 --passes 9; (O) the held-out reads
-   scored at lag 20 through TableCounter on (M)'s counter, and BMM
-   assembly at lag 20 from a reverse sparse count's SparseTableIndex with
-   (K)'s seeds and sizes, float64 card against CPU, and at lag 13 the
-   sparse index against the dense table;
+   every pass and timed alone in pass 0; (L) the summarize CLI at -l 15 in
+   the fewest row-range passes the int32 guard takes (9: one count_chunk
+   launch per chunk and pass); (M) the summarize CLI at -l 20, which routes
+   itself to the sparse-first counter (no count_chunk launch; 4 chunks on
+   the card against the CPU), then 200 linear-BEAR applies on its lag-20
+   rows (first ELBOs against CPU float64); the nonzero rows of every lag
+   against a plain torch.unique recount, and the shards of lags 1..13 byte
+   for byte against 4e's and of lags 14-15 against each other; (N)
+   select_lag over (M)'s counter (lags 1..13 against (J)) and
+   lag_select_cli -l 15 --passes 9; (O) the held-out reads scored at lag 20
+   through TableCounter on (M)'s counter (against CPU float64), BMM
+   assembly at lag 20 from a SparseTableIndex (float64 card against CPU),
+   and at lag 13 the sparse index against the dense table;
 4h. the remaining model options: (P) the attention BEAR of
    bear_attn_bear.cfg through train_bear_net.main on YSD1 in float32 (10,000
    Adam applies; its first ELBOs and its held-out perplexities, evaluated by
    the attention_forward kernel, against CPU float64 from the same
-   parameters), training alone timed and profiled; the lag-13 attention AR
-   served at MC-41 through BearServer.score on the main path's table and
-   reads (one attention_forward launch an AR slice); then the kernel held
-   against the plain block at a genome13_attn_score_mc41 call's AR slices
-   (ATTN_SLICES) in both float types and timed there beside its bound;
-   (Q) the seven optax optimizers (adamw, adamax, rmsprop, adagrad, nadam,
-   adadelta, lion) on the YSD1 linear BEAR, 200 float64 applies on the card
-   against the CPU, then 300 float32 applies each, timed; (R) bfloat16
-   compute on 4c's lag-13 handoff, the CNN and a lag-13 attention AR, each
-   against float32 from the same start (last ELBO within 1%, float32
-   probabilities summing to 1), with one bfloat16 run traced by
-   utils.profiling.trace; the three timed by utils.profiling.StageTimer;
+   parameters; the BEAR perplexity against the first card run's); the
+   lag-13 attention AR served at MC-41 through BearServer.score on the main
+   path's table and reads (one attention_forward launch an AR slice); then
+   the kernel held against the plain block at a genome13_attn_score_mc41
+   call's AR slices (ATTN_SLICES) in both float types and timed alone there
+   beside its bound; (Q) the seven optax optimizers (adamw, adamax, rmsprop,
+   adagrad, nadam, adadelta, lion) on the YSD1 linear BEAR, 200 float64
+   applies on the card against the CPU, then 200 float32 applies of each
+   (and of Adam) finite; (R) bfloat16 compute on 4c's lag-13 handoff, the
+   CNN and a lag-13 attention AR, each against float32 from the same start
+   (last ELBO within 1%, float32 probabilities summing to 1), with one
+   bfloat16 run traced by utils.profiling.trace (the trace lists a kernel);
 4i. counting across devices and processes, one card playing every device
    of each mesh: (S) count -> serve's chunks through
    ShardedTransitionCounter with rows split over 2 replicas of the lag-13
    table (each replica after chunk 0 against count_chunk_plain on its
-   rows, the tables against phase 4's, 2 launches per chunk, rates beside
-   phase 4's and the idle share); (T) (G)'s files at lags 1..14 through
-   KmerShardedTransitionCounter over 3 row ranges (the int32 reckoning: 2
-   refused), summarize's iter_chunks and export, shards of lags 1..13
-   byte for byte against 4e's and of lag 14 against summarize -l 14
-   --passes 3, 3 launches per chunk, and summarize --kmer-shards 3 refused
-   on one card; (U) (M)'s -l 20 through SparseTransitionCounter with rows
-   over 2 replicas, every shard against (M)'s; (V) two processes on the
-   card joined by multihost.initialize over TCP on 127.0.0.1, each
-   counting its host_shard of count -> serve's chunks (lag 13) and of
-   (G)'s files (-l 20), merged twice by allreduce_tables, every rank's
-   tables against phase 4's and (U)'s (python3 chip_smoke.py --child
-   SPEC RANK runs one process; a child that fails or outlasts its timeout
-   fails the run);
+   rows, the tables against phase 4's, 2 launches per chunk); (T) 4e's
+   files at lags 1..14 through KmerShardedTransitionCounter over 3 row
+   ranges (the int32 reckoning: 2 refused), summarize's iter_chunks and
+   export, shards of lags 1..13 byte for byte against 4e's and of lag 14
+   against summarize -l 14 --passes 3, 3 launches per chunk, and summarize
+   --kmer-shards 3 refused on one card; (U) (M)'s -l 20 through
+   SparseTransitionCounter with rows over 2 replicas, every shard against
+   (M)'s; (V) two processes on the card joined by multihost.initialize
+   over TCP on 127.0.0.1, each counting its host_shard of count -> serve's
+   chunks (lag 13) and of 4e's files (-l 20), merged twice by
+   allreduce_tables, every rank's tables against phase 4's and (U)'s
+   (python3 chip_smoke.py --child SPEC RANK runs one process; a child that
+   fails or outlasts its timeout fails the run);
 4j. data parallelism on the card, one card playing each mesh's entries:
    (W) count -> serve's chunks counted again and handed off, 4c's CNN BEAR
    over a 2-entry data mesh: 5 float64 applies on the mesh against off it,
-   4c's float32 protocol (first ELBOs against 4c's CPU float64, applies/s
-   beside 4c's, a profile), evaluation(mesh=) against evaluation in
-   float64, train_streaming(mesh=) on 4e's lag-13 shards (32 applies, a
-   checkpoint every 16, resumed after completion) and
-   evaluation_streaming(mesh=) against the calls without; (X)
-   train_bear_net.main with [train] data_parallel = True on YSD1 (h and
+   4c's float32 protocol (first ELBOs against 4c's CPU float64),
+   evaluation(mesh=) against evaluation in float64, train_streaming(mesh=)
+   on 4e's lag-13 shards (32 applies, a checkpoint every 16, resumed after
+   completion) and evaluation_streaming(mesh=) against the calls without;
+   (X) train_bear_net.main with [train] data_parallel = True on YSD1 (h and
    BEAR as 4b), train_bear_ref.main over the mesh (BMM against
-   bmm_likelihood), vBEAR over it (200 float64 applies against off it,
-   then 4f (I)'s protocol); (Y) 4c's CNN served by from_model_dir(mesh=)
-   with the lag-13 table's rows split over a 2-entry kmer mesh (MAP bits
-   equal to 4c's unsplit server's; float64 MAP, MC-41 and SNV Δ against
+   bmm_likelihood), vBEAR over it (200 float64 applies against off it, then
+   4f (I)'s protocol); (Y) 4c's CNN served by from_model_dir(mesh=) with
+   the lag-13 table's rows split over a 2-entry kmer mesh (MAP bits equal
+   to 4c's unsplit server's; float64 MAP, MC-41 and SNV Δ against
    unsplit), bmm_likelihood(mesh=); (Z) in (V)'s children, after their
    dense merge: (W)'s CNN trained 16 float32 applies and evaluated over a
    mesh that spans both processes (ranks bit-equal, first ELBOs against
@@ -150,12 +144,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    directory and aborted on diverged rank-local ones;
 4k. the example programs, at their defaults on the card: (AA)
    examples/torch_genome_lag13.py's main([]) in this process (19
-   count_chunk launches, 4c's rows, conservation, BMM against 4c's);
-   (AB) examples/torch_multihost_counting.py --nproc 2 --bench (two gloo
-   processes on the card, lags 1..5, 4 files x 20,000 reads x 150 bp);
-   (AC) examples/torch_multihost_train.py --nproc 2 --bench, then with
-   --streaming (ranks' h bit-equal, the same k-mers in both);
-5. one JSON line of the kernels, then the device line, last.
+   count_chunk launches, 4c's rows, conservation, BMM against 4c's); (AB)
+   examples/torch_multihost_counting.py --nproc 2 --bench (two gloo
+   processes on the card, lags 1..5, 4 files x 20,000 reads x 150 bp; its
+   bench line's transitions); (AC) examples/torch_multihost_train.py
+   --nproc 2 --bench, then with --streaming (ranks' h bit-equal, the same
+   k-mers in both);
+5. one JSON line of the kernels (launches by path, errors, times alone),
+   then the device line, last.
 
 Needs one CUDA card. Imports nothing of JAX and nothing of bear_tpu.
 """
@@ -201,7 +197,6 @@ SCORE_ATOL = 1e-3
 # does not depend on training: card float32 against CPU float64 at 1e-5
 # (float32 lgamma of counts up to ~1e5, summed over 1,365 rows).
 YSD1_H, YSD1_H_RTOL = 0.04326, 0.02
-YSD1_TIMED_APPLIES = 2000  # training alone, timed (the CLI runs all 10,000)
 YSD1_PERPLEXITY, YSD1_PERPLEXITY_ATOL = 3.79, 0.01
 BMM_RTOL = 1e-5
 VAN_REG = [0.1, 1.0, 10.0]
@@ -277,7 +272,6 @@ YSD1_VBEAR_H, VBEAR_H_RTOL, VBEAR_SIGMA_MAX = 0.0433, 0.25, 0.25
 LAG_SELECT_RTOL = 1e-10
 ASM_SEEDS, ASM_NUM, ASM_FLANK, ASM_SEED_BP = 64, 16, 500, 150
 ASM_CHECK = (8, 4, 8, 50)  # seeds, samples, lag, letters each side
-ASM_PROFILE_FLANK = 8
 ASM_MARGIN = 1e-12
 # Phase 4g: counting beyond the dense table, in 4e's directory on (G)'s FASTQ
 # files. (L) summarize -l 15 in the fewest row-range passes the int32 guard
@@ -298,7 +292,7 @@ SPARSE_APPLIES = 200
 # ELBOs and its evaluation against CPU float64 from the same parameters; (Q)
 # the seven optax optimizers on the YSD1 linear BEAR, float64 on the card
 # against the CPU (the same update rules, summed in another order), then
-# timed in float32; (R) bfloat16 compute of the AR network on 4c's lag-13
+# finite in float32; (R) bfloat16 compute of the AR network on 4c's lag-13
 # handoff, CNN and attention, each against float32 from the same start
 # (tests/test_ar_funcs.py:244's 1%).
 ATTN_KW = {"d_model": 64, "num_heads": 4, "mlp_width": 128}
@@ -307,11 +301,9 @@ ATTN_LR = 0.002
 # of (P) (NVIDIA H100 80GB HBM3, 700 W): BEAR 3.790651 (the counts dominate,
 # as the linear BEAR's 3.790637), held within 0.01 as (A)'s.
 ATTN_PERPLEXITY, ATTN_PERPLEXITY_ATOL = 3.790651, 0.01
-ATTN_TIMED_APPLIES = 300
 OPTAX_NAMES = ["adamw", "adamax", "rmsprop", "adagrad", "nadam", "adadelta", "lion"]
 OPT_CHECK_APPLIES = 200
 OPT_RTOL = 1e-9
-OPT_TIMED_APPLIES = 300
 BF16_EPOCHS = 3  # 108 applies of 2^15 rows on 4c's 1,158,428
 BF16_LOSS_RTOL = 1e-2
 BF16_SUM_ATOL = 1e-5
@@ -500,63 +492,6 @@ def device_ms(fn, reps, l2_flush=None, sleep_cycles=2_000_000):
     return total / reps
 
 
-def device_breakdown(label, fn, card, top=8):
-    """Run fn once plain and once under torch.profiler: wall times, device busy
-    time (sum of the kernels and copies on the one stream) and the top
-    device entries. Host-side op rows are left out: they repeat the device
-    time of the kernels they launch."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        # A record_function span (e.g. Optimizer.step) shows on the device
-        # as an annotation covering its kernels: left out, not counted twice.
-        annotation = getattr(e, "is_user_annotation", False)
-        if e.device_type == DeviceType.CUDA and us > 0 and not annotation:
-            rows.append((us / 1e3, e.count, e.key))
-    busy_ms = sum(r[0] for r in rows)
-    if busy_ms == 0:
-        print(f"[profile] {label}: wall {wall_ms:.3f} ms; device time not measured "
-              "(the profiler recorded none)")
-        return
-    print(f"[profile] {label}: wall {plain_wall_ms:.3f} ms ({wall_ms:.3f} ms profiled), "
-          f"device busy {busy_ms:.3f} ms = {100 * busy_ms / plain_wall_ms:.1f}% of the "
-          f"unprofiled wall, idle {100 * (1 - busy_ms / plain_wall_ms):.1f}% [{card}]")
-    for ms, n, key in sorted(rows, reverse=True)[:top]:
-        print(f"[profile]   {ms:9.4f} ms {n:5d}x {key[:100]}")
-
-
-def host_breakdown(label, fn, top=8):
-    """Run fn under cProfile and print the host functions that took the
-    most time of their own (the count loop's host side)."""
-    import cProfile
-    import pstats
-
-    prof = cProfile.Profile()
-    t0 = time.perf_counter()
-    prof.runcall(fn)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    stats = pstats.Stats(prof).stats
-    rows = sorted(((tt * 1e3, nc, f"{os.path.basename(k[0])}:{k[1]}({k[2]})")
-                   for k, (_, nc, tt, _, _) in stats.items()), reverse=True)
-    print(f"[host] {label}: {wall_ms:.3f} ms under cProfile; own time by function:")
-    for ms, n, key in rows[:top]:
-        print(f"[host]   {ms:9.4f} ms {n:5d}x {key[:100]}")
-
-
 def hist_edge_cases(dev):
     """(name, base table, keys) cases for window_update on the card."""
     import torch
@@ -654,11 +589,11 @@ def synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def ysd1_phase(out_dir, card, device="cuda"):
+def ysd1_phase(out_dir, device="cuda"):
     """4b: the published YSD1 protocol through the training CLI's ``main``
-    in float32, then the same training alone, timed; checks h and the BEAR
-    held-out perplexity against the published values and the BMM
-    perplexities against the port's CPU float64 evaluation."""
+    in float32; checks h and the BEAR held-out perplexity against the
+    published values and the BMM perplexities against the port's CPU
+    float64 evaluation."""
     import torch
     from bear_tpu_torch.data import load_dense
     from bear_tpu_torch.models import bear_net, train_bear_net
@@ -668,10 +603,7 @@ def ysd1_phase(out_dir, card, device="cuda"):
 
     cfg = ysd1_config(out_dir + "*")
     run = RunConfig.from_configparser(cfg)
-    t0 = time.perf_counter()
     train_bear_net.main(cfg, device=device)
-    synchronize(device)
-    cli_s = time.perf_counter() - t0
     res = cfg["results"]  # main writes its results into the config
     applies = load_results(out_dir)["torch_opt_state"]["step"]
     h = float(res["h"])
@@ -679,35 +611,21 @@ def ysd1_phase(out_dir, card, device="cuda"):
     acc = {k: json.loads(res[f"heldout_accuracy_{k}"]) for k in ("BEAR", "AR", "BMM")}
 
     ds = load_dense(bundled_ysd1_path(), "dna", run.num_ds)
-    ar = get_ar_func("linear", run.lag, 4, dtype=torch.float32, device=device)
-    kw = dict(num_kmers=ds.num_kmers, ar_func=ar, batch_size=int(run.batch_size_raw),
-              learning_rate=run.learning_rate, seed=run.seed, dtype=torch.float32,
-              device=device)
-    synchronize(device)
-    t0 = time.perf_counter()
-    alone = bear_net.train(ds.codes, ds.counts[:, 0], epochs=YSD1_TIMED_APPLIES, **kw)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
-
     ar64 = get_ar_func("linear", run.lag, 4, dtype=torch.float64, device="cpu")
     ref = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", h, ar64,
                               load_params_list(out_dir)[1:], VAN_REG,
                               dtype=torch.float64, device="cpu")
     bmm_err = float(np.max(np.abs(np.asarray(perp["BMM"]) / ref[5] - 1)))
     print(f"[ysd1] train_bear_net.main, bear_lin_bear.cfg values in float32: {applies:,} "
-          f"optimizer applies; the CLI run (load, train, evaluate twice, write) "
-          f"{cli_s:.3f} s; training alone, {YSD1_TIMED_APPLIES:,} applies, {train_s:.3f} s = "
-          f"{YSD1_TIMED_APPLIES / train_s:.6g} applies/s (h {alone.h:.6g}) [{card}]")
-    print(f"[ysd1] h {h:.6g} (published {YSD1_H}); held-out perplexity BEAR "
+          f"optimizer applies; h {h:.6g} (published {YSD1_H}); held-out perplexity BEAR "
           f"{perp['BEAR']:.6f} AR {perp['AR']:.6f} BMM {perp['BMM']}; accuracy BEAR "
           f"{acc['BEAR']:.6f} AR {acc['AR']:.6f} BMM {acc['BMM']}; BMM vs CPU float64 "
-          f"max rel err {bmm_err:.3e} [{card}]")
+          f"max rel err {bmm_err:.3e}")
     check(abs(h / YSD1_H - 1) <= YSD1_H_RTOL, f"YSD1 h {h} not within 2% of {YSD1_H}")
     check(abs(perp["BEAR"] - YSD1_PERPLEXITY) <= YSD1_PERPLEXITY_ATOL,
           f"YSD1 BEAR held-out perplexity {perp['BEAR']} not within 0.01 of 3.79")
     check(bmm_err <= BMM_RTOL, f"YSD1 BMM perplexities {perp['BMM']} differ from "
           f"CPU float64 {ref[5]} by {bmm_err:.3e}")
-    return ds, kw
 
 
 def write_model_dir(out_dir, res, lag, ar_name, af_kwargs, epochs, batch, lr=TRAIN_LR):
@@ -736,17 +654,17 @@ def write_model_dir(out_dir, res, lag, ar_name, af_kwargs, epochs, batch, lr=TRA
     return dir64
 
 
-def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=LAG,
-                      cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-                      n_score=N_SCORE, record=None):
+def lag13_train_phase(chunks, reads, groups, out_dir, device="cuda", lag=LAG, cnn_kw=CNN_KW,
+                      batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, n_score=N_SCORE, record=None):
     """4c: count the chunks into a fresh TransitionCounter, hand the counts
     off on the device before any flush, train the CNN BEAR, evaluate,
     write and reload the model and serve held-out reads with it. Checks
     conservation of the handoff, the first applies' ELBOs against CPU
     float64 and the trained model's scores against CPU float64. Returns
-    what the profiles reuse; ``record`` (a dict) receives what phase 4j
-    holds its mesh runs against: the CPU float64 ELBOs, the applies/s, the
-    trained parameters and h, the reads and their scores."""
+    the count_chunk launches, the handoff (codes, counts), the AR, its
+    start and the row count; ``record`` (a dict) receives what phase 4j holds
+    its mesh runs against: the CPU float64 ELBOs, the trained parameters
+    and h, the reads and their scores."""
     import torch
     from bear_tpu_torch.counting import engine
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
@@ -755,34 +673,24 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     from bear_tpu_torch.models.ar_funcs import get_ar_func
 
     count_chunk_update.launches = 0
-    t_first_read = time.perf_counter()
     counter = engine.TransitionCounter(lags=[lag], n_groups=N_GROUPS, device=device)
     for chunk in chunks:
         counter.add_chunk(chunk)
     counter.sync()
     launches = count_chunk_update.launches
-    t0 = time.perf_counter()
-    count_s = t0 - t_first_read
     codes, counts = counter.to_device_dataset(lag)
-    synchronize(device)
-    handoff_s = time.perf_counter() - t0
     n_rows = codes.shape[0]
 
     gen = torch.Generator().manual_seed(SEED)
     ar = get_ar_func("cnn", lag, 4, cnn_kw, device=device)
     init = bear_net.init_params(gen, ar)
     p0 = [init["h_signed"]] + init["ar"]
-    synchronize(device)
-    t0 = time.perf_counter()
     res = bear_net.train(codes, counts[:, 0], num_kmers=n_rows, ar_func=ar,
                          batch_size=batch, epochs=epochs, learning_rate=TRAIN_LR,
                          params_restart=p0, dtype=torch.float32, device=device)
-    synchronize(device)
-    t_trained = time.perf_counter()
-    train_s = t_trained - t0
 
-    # The checks, outside the timed span: conservation of the handoff
-    # against validate(), which flushes the table (hence after the handoff).
+    # Conservation of the handoff against validate(), which flushes the
+    # table (hence after the handoff).
     handed = counts.sum(dim=(0, 2), dtype=torch.float64).cpu().numpy()
     expected = len(reads) * (reads.shape[1] + 1)
     counter.validate(expected)
@@ -791,17 +699,15 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
           f"handoff totals {handed} differ from the tables' {per_group}")
     check(codes.is_cuda == counts.is_cuda == (torch.device(device).type == "cuda"),
           "the handoff left the device")
-    print(f"[train] count again into a fresh counter ({launches} count_chunk launches, "
-          f"{count_s:.4f} s), then to_device_dataset({lag}) before any flush: {n_rows:,} "
-          f"rows in {handoff_s:.4f} s; per-group totals {handed.astype(np.int64).tolist()} "
-          f"== the tables' [{card}]")
+    print(f"[train] count again into a fresh counter ({launches} count_chunk launches), then "
+          f"to_device_dataset({lag}) before any flush: {n_rows:,} rows; per-group totals "
+          f"{handed.astype(np.int64).tolist()} == the tables'")
     elbos = res.elbos
     check(np.isfinite(elbos).all() and len(elbos) == epochs * -(-n_rows // batch),
           f"ELBOs not finite or of the wrong count: {len(elbos)}")
     print(f"[train] CNN BEAR {cnn_kw}, batch {batch}, {epochs} epochs, lr {TRAIN_LR}, "
-          f"float32: {len(elbos)} applies in {train_s:.3f} s = {len(elbos) / train_s:.6g} "
-          f"applies/s; h {res.h:.6g}; ELBO {elbos[0]:.7g} -> {elbos[-1]:.7g}; from the "
-          f"first read to a trained model {t_trained - t_first_read:.3f} s [{card}]")
+          f"float32: {len(elbos)} applies; h {res.h:.6g}; ELBO {elbos[0]:.7g} -> "
+          f"{elbos[-1]:.7g}")
 
     k = min(N_ELBO_CHECK, -(-n_rows // batch))  # applies of the first epoch
     ar64 = get_ar_func("cnn", lag, 4, cnn_kw, dtype=torch.float64, device="cpu")
@@ -816,14 +722,11 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     print(f"[train] first {k} ELBOs vs CPU float64 from the same initial parameters: "
           f"max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL})")
 
-    synchronize(device)
-    t0 = time.perf_counter()
     out = bear_net.evaluation(codes, counts, 0, 1, "dna", res.h, ar, res.params["ar"],
                               VAN_REG, dtype=torch.float32, device=device)
-    eval_s = time.perf_counter() - t0
-    print(f"[train] evaluation {eval_s:.3f} s: held-out perplexity BEAR {float(out[3]):.6f} "
-          f"AR {float(out[4]):.6f} BMM {np.asarray(out[5]).tolist()}; accuracy BEAR "
-          f"{float(out[6]):.6f} AR {float(out[7]):.6f} [{card}]")
+    print(f"[train] evaluation: held-out perplexity BEAR {float(out[3]):.6f} AR "
+          f"{float(out[4]):.6f} BMM {np.asarray(out[5]).tolist()}; accuracy BEAR "
+          f"{float(out[6]):.6f} AR {float(out[7]):.6f}")
     check(all(np.isfinite(np.asarray(o)).all() for o in out), "evaluation not finite")
 
     # Write the model directory, reload it, and serve with the trained CNN.
@@ -835,11 +738,7 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
     lag_, _, h, ar_apply, _ = load_bear(out_dir, device=device)
     check(lag_ == lag and abs(h / res.h - 1) < 1e-6, "load_bear read another model")
     server = BearServer(tables[0], lag, h=h, ar_apply=ar_apply, device=device)
-    server.score(seqs)  # warm-up
-    synchronize(device)
-    t0 = time.perf_counter()
     scores = server.score(seqs)
-    serve_s = time.perf_counter() - t0
     del server
     _, _, h64, ar_apply64, _ = load_bear(dir64, device="cpu")
     ref_scores = BearServer(tables[0], lag, h=h64, ar_apply=ar_apply64,
@@ -849,14 +748,11 @@ def lag13_train_phase(chunks, reads, groups, out_dir, card, device="cuda", lag=L
           and bool((diff <= SCORE_ATOL + SCORE_RTOL * np.abs(ref_scores)).all()),
           f"trained-model scores differ from CPU float64: max {diff.max()}")
     print(f"[train] save_results + config.cfg -> load_bear -> BearServer with the trained "
-          f"CNN: {len(seqs)} held-out reads in {serve_s:.4f} s = {len(seqs) / serve_s:.6g} "
-          f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e}; scores "
-          f"{ref_scores.min():.3f}..{ref_scores.max():.3f} [{card}]")
+          f"CNN: {len(seqs)} held-out reads; vs CPU float64 max |diff| {diff.max():.3e}; "
+          f"scores {ref_scores.min():.3f}..{ref_scores.max():.3f}")
     if record is not None:
-        record.update(bmm=np.asarray(out[5]), rows=n_rows,
-                      elbo_ref=ref.elbos[:k], applies_per_s=len(elbos) / train_s,
-                      params=res.params_list, h=res.h, seqs=seqs, scores=scores,
-                      sequences_per_s=len(seqs) / serve_s, p0=p0)
+        record.update(bmm=np.asarray(out[5]), rows=n_rows, elbo_ref=ref.elbos[:k],
+                      params=res.params_list, h=res.h, seqs=seqs, scores=scores, p0=p0)
     return launches, codes, counts, ar, p0, n_rows
 
 
@@ -1199,14 +1095,6 @@ CNN_F64_RTOL = 1e-12
 CNN_FLOPS_PER_S = 67e12
 
 
-def cnn_flops_per_row(lag, A1, fw, nf, w1):
-    """Model FLOPs of one row through the CNN: the conv, the dense layer and
-    the head, two a multiply-add (normalisations and activations
-    uncounted)."""
-    cl = lag - fw + 1
-    return 2 * (cl * fw * A1 * nf + cl * nf * w1 + w1 * A1)
-
-
 def cnn_plain_module(x, params):
     """A CNNAR of the widths of x [N, lag, A1] and ``params``, for its plain
     forward (the parameters are passed to it, not loaded)."""
@@ -1256,6 +1144,7 @@ def cnn_forward_timing(fn, card, reps=20):
     CNN_FLOPS_PER_S). Returns the JSON line's fields."""
     import torch
     from bear_tpu_torch.ops import cnn_forward
+    from bench_gpu.metrics import _work  # the benchmark's count of a row's FLOPs
 
     captured = []
     inner = cnn_forward.cnn_probs
@@ -1286,7 +1175,8 @@ def cnn_forward_timing(fn, card, reps=20):
         plain_ms = timed_ms(lambda: [plain._forward_plain(x, p) for x, p in captured], reps,
                             None)
         slice_ms = timed_ms(lambda: inner(x0, p0), reps, None)
-    flops = cnn_flops_per_row(lag, A1, fw, nf, w1)
+    flops = _work.cnn_forward_flops({"lag": lag, "alphabet_size": A1 - 1, "model": {
+        "filter_width": fw, "num_filters": nf, "kmer_layer1_width": w1}})
     bound_ms = flops * sum(rows) / CNN_FLOPS_PER_S * 1e3
     slice_bound_ms = flops * rows[0] / CNN_FLOPS_PER_S * 1e3
     shape = cnn_forward.launch_shape(rows[0], 4, torch.cuda.get_device_properties(0)
@@ -1440,12 +1330,12 @@ def attention_forward_timing(card, slices=ATTN_SLICES, reps=20):
     return out
 
 
-def attention_serving_launches(table, seqs, card):
+def attention_serving_launches(table, seqs):
     """The lag-13 attention AR (ATTN_KW, float32) served through
     ``BearServer.score`` at MC-41, reduced to mean and std, on the main
     path's table and held-out reads, at the real ``AR_SLICE_ROWS``: one
     ``attention_forward`` launch an AR slice, counted from 0 just before the
-    call (after a warm-up call). Returns the launches."""
+    call. Returns the launches."""
     import torch
     from bear_tpu_torch.inference import serving
     from bear_tpu_torch.inference.serving import BearServer
@@ -1456,13 +1346,8 @@ def attention_serving_launches(table, seqs, card):
     ar.load_params(params)
     ar.requires_grad_(False)
     server = BearServer(table, LAG, h=H, ar_apply=ar)
-    kw = dict(mode="sample", mc_samples=41, reduce="mean_std")
-    server.score(seqs, key=kr.key(SEED), **kw)  # warm-up
-    torch.cuda.synchronize()
     attention_forward.launches = 0
-    t0 = time.perf_counter()
-    got = server.score(seqs, key=kr.key(SEED + 1), **kw)
-    call_s = time.perf_counter() - t0
+    got = server.score(seqs, key=kr.key(SEED), mode="sample", mc_samples=41, reduce="mean_std")
     launches = attention_forward.launches
     slices = -(-len(seqs) * (READ_LEN + 1) // serving.AR_SLICE_ROWS)
     check(launches == slices, f"BearServer.score with the attention AR launched "
@@ -1470,62 +1355,27 @@ def attention_serving_launches(table, seqs, card):
     check(got.shape == (len(seqs), 2) and bool(np.isfinite(got).all()),
           "the attention AR's MC-41 scores are not finite of shape [reads, 2]")
     print(f"[serve] {len(seqs):,} held-out reads at MC-41 with the lag-{LAG} attention AR "
-          f"(float32): {call_s:.6f} s = {len(seqs) / call_s:.6g} sequences/s; "
-          f"attention_forward launches {launches} for {slices} AR slices of "
-          f"{serving.AR_SLICE_ROWS:,} rows [{card}]")
+          f"(float32): attention_forward launches {launches} for {slices} AR slices of "
+          f"{serving.AR_SLICE_ROWS:,} rows")
     return launches
-
-
-def sampler_share(server, fn):
-    """(draw ms, call ms, draw bound ms, bound unit): device time of the
-    keyed draws (BearServer._draw_picked) inside one call of fn and of the
-    whole call, both between CUDA events, and the least time the card could
-    take for those draws (keyed_draw_work, bound_of)."""
-    import torch
-
-    spans = []
-    nbytes, work = [0], {}
-    inner = server._draw_picked
-
-    def timed(base_keys, group, rows, nxt, conc):
-        b, w = keyed_draw_work(base_keys, group, rows, conc, nxt)
-        nbytes[0] += b
-        _add(work, w)
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = inner(base_keys, group, rows, nxt, conc)
-        e.record()
-        spans.append((s, e))
-        return out
-
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    server._draw_picked = timed
-    try:
-        torch.cuda.synchronize()
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-    finally:
-        del server._draw_picked
-    return (sum(s.elapsed_time(e) for s, e in spans), start.elapsed_time(end),
-            *bound_of(nbytes[0], work)[:2])
 
 
 def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda",
                   mc=MC, n_variants=N_VARIANTS, sampled_check=SAMPLED_CHECK,
-                  map_check=MAP_CHECK, cli_wt_bp=CLI_WT_BP, profile=True, record=None):
+                  map_check=MAP_CHECK, cli_wt_bp=CLI_WT_BP, record=None):
     """4d: posterior-sampled serving (C), the SNV scan (D), arbitrary
     variants (E) and the score CLI (F), from ``table`` with the model of
     ``model_dir`` (and its float64 copy ``model_dir + '_float64'``).
     Checks MAP against CPU float64, sampled float64 on the device against
     the CPU from the same keys on subsets, the reductions against the raw
-    draws, and finiteness; reports rates and peak device memory, and with
-    ``profile`` the sampler's share of device time and the profiles of (C)
-    and (D). On the card, (C)'s draw input is held kernel against plain and
-    timed (keyed_draw_timing). ``record`` gets each path's keyed_draw
-    launches (counted from 0 just before its timed calls, read just after)
-    under "keyed_launches" and the kernel's numbers under "keyed_draw"."""
+    draws, finiteness and, on the card, each call's peak device memory
+    against PEAK_BUDGET. On the card (labelled ``card``), (C)'s draw input
+    and AR slices hold keyed_draw and cnn_forward against their plain
+    versions and time them alone (keyed_draw_timing, cnn_forward_timing).
+    ``record`` gets each path's keyed_draw and cnn_forward launches
+    (counted from 0 just before its calls, read just after) under
+    "keyed_launches" and "cnn_launches", and the kernels' numbers under
+    "keyed_draw" and "cnn_forward"."""
     import contextlib
     import io
 
@@ -1545,17 +1395,13 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
                        device="cpu")
     key = make_key(SEED)
 
-    def run(label, n, unit, fn):
-        fn()  # warm-up
-        synchronize(device)
+    def run(label, fn):
+        fn()  # warm-up: what a first call leaves resident is not held to the budget
         base = 0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
         out = fn()
-        synchronize(device)
-        sec = time.perf_counter() - t0
         mem = ""
         if on_card:
             peak = torch.cuda.max_memory_allocated()
@@ -1564,9 +1410,8 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
                    f"{base / 2**30:.3f} GiB")
             check(peak - base <= PEAK_BUDGET,
                   f"{label} took {peak - base} bytes above the resident, over the budget")
-        print(f"[sample] {label}: {n:,} {unit} in {sec:.4f} s = {n / sec:.6g} {unit}/s"
-              f"{mem} [{card}]")
         check(np.isfinite(out).all(), f"{label}: values not finite")
+        print(f"[sample] {label}: {out.shape} values, finite{mem}")
         return out
 
     def held(label, got, want, n_values):
@@ -1602,10 +1447,8 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
     kw = dict(mode="sample", key=key, mc_samples=mc)
     score_ms = lambda: server.score(seqs, reduce="mean_std", **kw)  # noqa: E731
     keyed_draw.launches = cnn_forward.launches = 0
-    ms = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='mean_std'", len(seqs),
-             "sequences", score_ms)
-    raw = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='none'", len(seqs), "sequences",
-              lambda: server.score(seqs, **kw))
+    ms = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='mean_std'", score_ms)
+    raw = run(f"(C) {len(seqs)} reads, MC-{mc}, reduce='none'", lambda: server.score(seqs, **kw))
     launches["sampled_serving"] = keyed_draw.launches
     cnn_launches["sampled_serving"] = cnn_forward.launches
     check(ms.shape == (len(seqs), 2) and raw.shape == (len(seqs), mc), "(C) shapes")
@@ -1618,11 +1461,10 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
 
     # (D) the deep-mutational-scan grid
     pos, alts = snv_grid(wt)
-    snv_ms = lambda: server.delta_scores_snv(wt, pos, alts, reduce="mean_std", **kw)  # noqa: E731
     keyed_draw.launches = cnn_forward.launches = 0
-    d_map = run(f"(D) {len(pos):,} SNVs, MAP", len(pos), "SNVs",
-                lambda: server.delta_scores_snv(wt, pos, alts))
-    d_ms = run(f"(D) {len(pos):,} SNVs, MC-{mc}, reduce='mean_std'", len(pos), "SNVs", snv_ms)
+    d_map = run(f"(D) {len(pos):,} SNVs, MAP", lambda: server.delta_scores_snv(wt, pos, alts))
+    d_ms = run(f"(D) {len(pos):,} SNVs, MC-{mc}, reduce='mean_std'",
+               lambda: server.delta_scores_snv(wt, pos, alts, reduce="mean_std", **kw))
     launches["snv_scan"] = keyed_draw.launches
     cnn_launches["snv_scan"] = cnn_forward.launches
     check(d_map.shape == (len(pos),) and d_ms.shape == (len(pos), 2), "(D) shapes")
@@ -1637,11 +1479,10 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
     # (E) arbitrary variants
     variants = make_variants(wt, n_variants)
     keyed_draw.launches = cnn_forward.launches = 0
-    e_map = run(f"(E) {len(variants):,} variants, MAP", len(variants), "variants",
+    e_map = run(f"(E) {len(variants):,} variants, MAP",
                 lambda: server.delta_scores_variants(wt, variants))
-    e_ms = run(f"(E) {len(variants):,} variants, MC-{mc}, reduce='mean_std'", len(variants),
-               "variants", lambda: server.delta_scores_variants(wt, variants,
-                                                                reduce="mean_std", **kw))
+    e_ms = run(f"(E) {len(variants):,} variants, MC-{mc}, reduce='mean_std'",
+               lambda: server.delta_scores_variants(wt, variants, reduce="mean_std", **kw))
     launches["variants"] = keyed_draw.launches
     cnn_launches["variants"] = cnn_forward.launches
     check(e_map.shape == (len(variants),) and e_ms.shape == (len(variants), 2), "(E) shapes")
@@ -1655,16 +1496,14 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
     # (F) the score CLI on the YSD1 model
     def cli(argv, rows, header):
         buf = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = score_cli.main(argv + ["--torch-device", torch.device(device).type])
-        sec = time.perf_counter() - t0
         lines = buf.getvalue().splitlines()
         vals = np.array([[float(x) for x in l.split("\t")[1:]] for l in lines[1:]])
         check(rc == 0 and lines[0] == header and len(lines) == rows + 1
               and np.isfinite(vals).all(), f"score_cli {argv[:1]} output: {lines[:2]}")
         print(f"[cli] score_cli {argv[0]} {' '.join(a for a in argv if a.startswith('--'))}"
-              f": {rows:,} rows in {sec:.4f} s (model load included) [{card}]")
+              f": {rows:,} rows, finite")
 
     cli_wt = "".join(np.random.default_rng(SEED).choice(list("ACGT"), cli_wt_bp))
     keyed_draw.launches = 0
@@ -1676,16 +1515,6 @@ def sampled_phase(table, lag, model_dir, ysd1_dir, seqs, wt, card, device="cuda"
     cli(["seqs", ysd1_dir, *seqs[:CLI_READS], "--map"], min(CLI_READS, len(seqs)),
         "target\tAR\tBEAR")
     launches["score_cli"] = keyed_draw.launches
-
-    if profile:
-        for label, fn in ((f"(C) serve {len(seqs)} reads MC-{mc} mean_std", score_ms),
-                          (f"(D) {len(pos):,} SNVs MC-{mc} mean_std", snv_ms)):
-            draw_ms, call_ms, bound_ms, bound_by = sampler_share(server, fn)
-            print(f"[sample] {label}: keyed draws {draw_ms:.3f} ms of the call's "
-                  f"{call_ms:.3f} ms on the device = {100 * draw_ms / call_ms:.1f}%; the "
-                  f"draws' bound_ms {bound_ms:.6f} ({bound_by}) [{card}]")
-            device_breakdown(label, fn, card, top=10)
-            host_breakdown(label, fn, top=10)
 
 
 def write_fastq(reads, groups, out_dir, n_train_files=N_TRAIN_FILES):
@@ -1726,27 +1555,22 @@ def codes_to_rows(codes, lag, A=4):
     return (A ** suffix - 1) // (A - 1) + code
 
 
-def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="cuda",
-                    lag=LAG, profile=True):
+def summarize_phase(reads, groups, want_rows, want_counts, work, device="cuda", lag=LAG):
     """4e, counting: write the reads as FASTQ, run the summarize CLI at
     ``-l lag`` on ``device`` through its parser, and read the lag-``lag``
     shards back. Checks that the native parser took every file, one
     count_chunk launch per chunk on the card, conservation (summarize's own
     check, at every lag) and that the shards hold exactly ``want_rows`` /
-    ``want_counts`` (phase 4's nonzero rows and counts). With ``profile``,
-    profiles the count loop on the card and the host side of the export.
-    Returns what the later steps use."""
+    ``want_counts`` (phase 4's nonzero rows and counts). Returns what the
+    later steps use."""
     import glob
 
     import torch
-    from bear_tpu_torch.counting import summarize
     from bear_tpu_torch.data import load_files
 
-    t0 = time.perf_counter()
     csv, files = write_fastq(reads, groups, os.path.join(work, "reads"))
-    write_s = time.perf_counter() - t0
     prefix = os.path.join(work, "counts", "run")
-    n_bins, run, launches, wall_s = summarize_run(csv, prefix, ["-l", str(lag)], device)
+    n_bins, run, launches = summarize_run(csv, prefix, ["-l", str(lag)], device)
     stats = run["stats"]
     per_lag = stats["bases"] + stats["reads"]
     on_card = torch.device(device).type == "cuda"
@@ -1756,18 +1580,12 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
     check(launches == (stats["chunks"] if on_card else 0),
           f"summarize launched count_chunk {launches} times for {stats['chunks']} chunks")
     print(f"[summarize] {len(files)} FASTQ files ({', '.join(os.path.basename(p) for p, _, _ in files)}; "
-          f"{stats['reads']:,} reads) written in {write_s:.3f} s; parsers: "
-          f"{sorted(set(stats['parser'].values()))} for all {len(files)}")
+          f"{stats['reads']:,} reads); parsers: {sorted(set(stats['parser'].values()))} for all "
+          f"{len(files)}")
     print(f"[summarize] -l {lag}: {per_lag:,} transitions per lag x {lag} lags conserved; "
-          f"parse {stats['parse_s']:.4f} s (inside the native parser, overlapped with "
-          f"counting), count {run['count_s']:.4f} s = {lag * per_lag / run['count_s']:.6g} "
-          f"transitions/s over all {lag} lags, export {run['export_s']:.4f} s = "
-          f"{sum(run['rows'].values()) / run['export_s']:.6g} rows/s; whole CLI {wall_s:.3f} s "
-          f"[{card}]")
-    print(f"[summarize] table {run['table_bytes']:,} bytes (int32, lags 1..{lag} x "
-          f"{N_GROUPS} groups) on {device}; {stats['chunks']} chunks, {launches} count_chunk "
-          f"launches; {n_bins} shards per lag; nonzero rows per lag "
-          f"{[run['rows'][l] for l in sorted(run['rows'])]}")
+          f"table {run['table_bytes']:,} bytes (int32, lags 1..{lag} x {N_GROUPS} groups) on "
+          f"{device}; {stats['chunks']} chunks, {launches} count_chunk launches; {n_bins} shards "
+          f"per lag; nonzero rows per lag {[run['rows'][l] for l in sorted(run['rows'])]}")
 
     shards = sorted(glob.glob(f"{prefix}_lag_{lag}_file_*.tsv"))
     check(len(shards) == n_bins, f"{len(shards)} lag-{lag} shards, expected {n_bins}")
@@ -1780,18 +1598,6 @@ def summarize_phase(reads, groups, want_rows, want_counts, work, card, device="c
           f"({len(want_rows):,} rows)")
     print(f"[summarize] lag-{lag} shards read back with load_files: {len(rows):,} rows, "
           "both groups' counts == phase 4's exactly")
-    if profile:
-        # Where the time goes: the count loop on the card (counting alone,
-        # a fresh table each run), and the host side of one lag's export.
-        from bear_tpu_torch.counting.engine import write_tsv_shards
-
-        device_breakdown(f"summarize count, lags 1..{lag}", lambda: summarize.run_counting(
-            csv, range(1, lag + 1), device=device).sync(), card)
-        out = os.path.join(work, "profile", "run")
-        os.makedirs(os.path.dirname(out))
-        host_breakdown(f"export of lag {lag} ({len(rows):,} rows, {n_bins} shards)",
-                       lambda: write_tsv_shards(out, lag, want_rows, want_counts,
-                                                int(np.log2(n_bins))), top=10)
     return dict(launches=launches, chunks=stats["chunks"], prefix=prefix, files=files,
                 shards=shards, csv=csv, n_bins=n_bins)
 
@@ -1909,17 +1715,17 @@ def stream_config(out_folder, counts_prefix, lag=LAG, cnn_kw=CNN_KW, batch=TRAIN
     return cfg
 
 
-def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="cuda",
-                          lag=LAG, cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
-                          n_cli=CLI_READS, profile=True, record=None):
+def streaming_train_phase(prefix, shards, reads, groups, out_dir, device="cuda", lag=LAG,
+                          cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS, n_cli=CLI_READS,
+                          record=None):
     """4e, training: the streaming training CLI on the lag-``lag`` shards,
-    timed by wrapping its load, train and evaluation calls. Checks the
-    first ELBOs against train_streaming on the CPU in float64 from the same
-    initial parameters over the same shard stream, the streamed held-out
+    its shard loads and its training call seen through wrappers. Checks
+    the first ELBOs against train_streaming on the CPU in float64 from the
+    same initial parameters over the same shard stream, that epoch 1 parses
+    every shard and every later load hits the cache, the streamed held-out
     perplexities against the in-memory evaluation of the concatenated
     shards on ``device``, that the mid-run state is gone and the shard
-    cache is there, and scores held-out reads with the score CLI. With
-    ``profile``, profiles one epoch of streamed training without loads.
+    cache is there, and scores held-out reads with the score CLI.
     ``record`` (a dict) receives the run's ELBOs, its initial parameters,
     seed and k-mer count, and the CLI's data config, for phase 4j."""
     import contextlib
@@ -1935,44 +1741,26 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
     cfg = stream_config(out_dir + "*", prefix, lag, cnn_kw, batch, epochs)
     seed = int(cfg["general"]["seed"])
     cache = os.path.join(out_dir, "shard_cache")
-    loads, spans, seen = [], {"eval": []}, {}
-    real = (train_bear_net.load_files_cached, bear_net.train_streaming,
-            bear_net.evaluation_streaming)
+    hits, seen = [], {}
+    real = (train_bear_net.load_files_cached, bear_net.train_streaming)
 
-    def timed_load(files, *args, **kw):
+    def seen_load(files, *args, **kw):
         before = len(os.listdir(cache)) if os.path.isdir(cache) else 0
-        t0 = time.perf_counter()
         out = real[0](files, *args, **kw)
-        loads.append((time.perf_counter() - t0, len(os.listdir(cache)) == before))
+        hits.append(len(os.listdir(cache)) == before)
         return out
 
-    def timed_train(shard_fn, **kw):
+    def seen_train(shard_fn, **kw):
         init = bear_net.init_params(torch.Generator().manual_seed(kw["seed"]), kw["ar_func"])
         seen.update(kw=kw, p0=[init["h_signed"]] + init["ar"])
-        synchronize(device)
-        t0 = time.perf_counter()
         seen["result"] = real[1](shard_fn, **kw)
-        synchronize(device)
-        spans["train"] = time.perf_counter() - t0
         return seen["result"]
 
-    def timed_eval(*args, **kw):
-        synchronize(device)
-        t0 = time.perf_counter()
-        out = real[2](*args, **kw)
-        spans["eval"].append(time.perf_counter() - t0)
-        return out
-
-    train_bear_net.load_files_cached = timed_load
-    bear_net.train_streaming, bear_net.evaluation_streaming = timed_train, timed_eval
+    train_bear_net.load_files_cached, bear_net.train_streaming = seen_load, seen_train
     try:
-        t0 = time.perf_counter()
         train_bear_net.main(cfg, device=device)
-        synchronize(device)
-        cli_s = time.perf_counter() - t0
     finally:
-        train_bear_net.load_files_cached = real[0]
-        bear_net.train_streaming, bear_net.evaluation_streaming = real[1], real[2]
+        train_bear_net.load_files_cached, bear_net.train_streaming = real
     res, kw = seen["result"], seen["kw"]
     elbos = res.elbos
     if record is not None:
@@ -1983,24 +1771,17 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
     n_batches = sum(-(-count_kmers([f]) // batch) for f in shards)
     check(len(elbos) == n_batches * epochs and np.isfinite(elbos).all(),
           f"{len(elbos)} ELBOs for {n_batches} batches x {epochs} epochs, or not finite")
-    check(len(loads) == F * (epochs + 2), f"{len(loads)} shard loads, expected {F * (epochs + 2)}")
-    per_epoch = [loads[e * F:(e + 1) * F] for e in range(epochs + 2)]
-    check(not any(hit for _, hit in per_epoch[0]) and all(hit for _, hit in loads[F:]),
+    check(len(hits) == F * (epochs + 2), f"{len(hits)} shard loads, expected {F * (epochs + 2)}")
+    check(not any(hits[:F]) and all(hits[F:]),
           "epoch 1 should parse every shard and every later load hit the cache")
-    load_in_train = sum(t for t, _ in loads[: F * epochs])
     print(f"[stream] train_bear_net.main, streaming CNN BEAR {cnn_kw} on {F} lag-{lag} shards "
           f"({n_rows:,} rows), batch {batch}, {epochs} epochs, shuffle, cache, checkpoint_every "
-          f"{STREAM_CHECKPOINT_EVERY}: {len(elbos)} applies in {spans['train']:.3f} s = "
-          f"{len(elbos) / spans['train']:.6g} applies/s, of which shard loads "
-          f"{load_in_train:.3f} s ({len(elbos) / (spans['train'] - load_in_train):.6g} "
-          f"applies/s without them); the CLI run {cli_s:.3f} s; ELBO {elbos[0]:.7g} -> "
-          f"{elbos[-1]:.7g} [{card}]")
+          f"{STREAM_CHECKPOINT_EVERY}: {len(elbos)} applies; ELBO {elbos[0]:.7g} -> "
+          f"{elbos[-1]:.7g}")
     labels = [f"epoch {e + 1}" for e in range(epochs)] + ["held-out eval", "train-as-test eval"]
     print("[stream] shard loads: " + "; ".join(
-        f"{label} {sum(t for t, _ in part):.4f} s ({sum(h for _, h in part)}/{F} cache hits)"
-        for label, part in zip(labels, per_epoch)))
-    print(f"[stream] streamed evaluation {' + '.join(f'{t:.3f}' for t in spans['eval'])} s "
-          f"(held out, train-as-test) [{card}]")
+        f"{label} ({sum(hits[i * F:(i + 1) * F])}/{F} cache hits)"
+        for i, label in enumerate(labels)))
 
     # The first ELBOs against CPU float64: the first shard of epoch 0's file
     # order, permuted as train_streaming permutes it, its first batches.
@@ -2026,12 +1807,9 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
     results = cfg["results"]
     h = float(results["h"])
     ds = load_files(shards, "dna", N_GROUPS)
-    synchronize(device)
-    t0 = time.perf_counter()
     memory = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", h, kw["ar_func"],
                                  res.params["ar"], VAN_REG, dtype=torch.float32, seed=seed,
                                  device=device)
-    memory_s = time.perf_counter() - t0
     streamed = [float(results["heldout_perplex_BEAR"]), float(results["heldout_perplex_AR"]),
                 *json.loads(results["heldout_perplex_BMM"])]
     in_memory = [float(memory[3]), float(memory[4]), *np.asarray(memory[5]).tolist()]
@@ -2039,39 +1817,23 @@ def streaming_train_phase(prefix, shards, reads, groups, out_dir, card, device="
     check(perp_err <= EVAL_RTOL, f"streamed held-out perplexities {streamed} differ from "
           f"the in-memory evaluation's {in_memory} by {perp_err:.3e}")
     print(f"[stream] held-out perplexity BEAR {streamed[0]:.6f} AR {streamed[1]:.6f} BMM "
-          f"{streamed[2:]}; vs in-memory evaluation on {device} ({memory_s:.3f} s) max rel "
-          f"err {perp_err:.3e} (tolerance {EVAL_RTOL}); h {h:.6g}")
+          f"{streamed[2:]}; vs in-memory evaluation on {device} max rel err {perp_err:.3e} "
+          f"(tolerance {EVAL_RTOL}); h {h:.6g}")
     cached = [f for f in os.listdir(cache) if f.endswith(".npz")]
     check(not os.path.exists(os.path.join(out_dir, TRAIN_STATE_FILE)) and len(cached) == F,
           f"after the run: train_state.pickle present or {len(cached)} cached shards of {F}")
 
-    if profile:
-        # Where streamed training's time goes without its shard loads: one
-        # epoch over the shards held in memory, no checkpoints.
-        held = [(d.codes, d.counts[:, 0]) for d in (load_dense(f, "dna", N_GROUPS)
-                                                    for f in shards)]
-        one = {k: v for k, v in kw.items() if k not in ("checkpoint_dir", "checkpoint_every")}
-        one.update(epochs=1, writer=None)
-        label = f"streamed training, 1 epoch over {F} shards held in memory"
-        device_breakdown(label, lambda: bear_net.train_streaming(lambda: iter(held), **one),
-                         card, top=10)
-        host_breakdown(label, lambda: bear_net.train_streaming(lambda: iter(held), **one),
-                       top=10)
-
     seqs = decode_reads(reads[np.flatnonzero(groups == 1)[:n_cli]])
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = score_cli.main(["seqs", out_dir, *seqs, "--map", "--torch-device",
                              torch.device(device).type])
-    cli_score_s = time.perf_counter() - t0
     lines = buf.getvalue().splitlines()
     vals = np.array([[float(x) for x in l.split("\t")[1:]] for l in lines[1:]])
     check(rc == 0 and len(lines) == len(seqs) + 1 and np.isfinite(vals).all(),
           f"score_cli seqs on the streamed model: {lines[:2]}")
     print(f"[stream] train_state.pickle cleared, {len(cached)} shards cached; score_cli seqs "
-          f"--map on {len(seqs)} held-out reads against the streamed model: finite, "
-          f"{cli_score_s:.3f} s (model and counts load included) [{card}]")
+          f"--map on {len(seqs)} held-out reads against the streamed model: finite")
     return len(elbos)
 
 
@@ -2084,9 +1846,8 @@ def reference_template(genome_mb=GENOME_MB, seed=SEED, template_len=100_000):
     return np.tile(template, -(-G // template_len))[:G]
 
 
-def reference_phase(reads, chunks, out_dir, card, device="cuda", lag=LAG,
-                    genome_mb=GENOME_MB, cnn_kw=CNN_KW, batch=TRAIN_BATCH,
-                    epochs=TRAIN_EPOCHS):
+def reference_phase(reads, chunks, out_dir, device="cuda", lag=LAG, genome_mb=GENOME_MB,
+                    cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS):
     """4f (H): count -> serve's reads as groups 0 (train) and 1 (held out)
     and the genome's template, counted as one long sequence, as group 2 (the
     reference), at ``lag``; the counts handed off on the device; the
@@ -2106,7 +1867,6 @@ def reference_phase(reads, chunks, out_dir, card, device="cuda", lag=LAG,
 
     ref = reference_template(genome_mb)
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     counter = engine.TransitionCounter(lags=[lag], n_groups=N_REF_GROUPS, device=device)
     for chunk in chunks:
         counter.add_chunk(chunk)
@@ -2114,68 +1874,51 @@ def reference_phase(reads, chunks, out_dir, card, device="cuda", lag=LAG,
         counter.add_chunk(chunk)
     counter.sync()
     launches = count_chunk_update.launches
-    count_s = time.perf_counter() - t0
     counter.validate(len(reads) * (reads.shape[1] + 1) + len(ref) + 1)
-    t0 = time.perf_counter()
     codes, counts = counter.to_device_dataset(lag)
-    synchronize(device)
-    handoff_s = time.perf_counter() - t0
     n_rows, table_bytes = codes.shape[0], 4 * counter.table_size
     del counter
     print(f"[ref] reads (groups 0, 1) and the {len(ref):,} bp template (group 2) counted at "
-          f"lag {lag} into {table_bytes:,} bytes ({launches} count_chunk launches, "
-          f"{count_s:.4f} s), conserved; handed off on {device}: {n_rows:,} rows in "
-          f"{handoff_s:.4f} s [{card}]")
+          f"lag {lag} into {table_bytes:,} bytes ({launches} count_chunk launches), conserved; "
+          f"handed off on {device}: {n_rows:,} rows")
 
     gen = torch.Generator().manual_seed(SEED)
     ar = bear_ref.make_ref_ar("cnn", lag, 4, cnn_kw, device=device)
     p0 = [torch.zeros(())] + ar.init(gen)
     kw = dict(lag=lag, batch_size=batch, learning_rate=TRAIN_LR, params_restart=p0)
-    synchronize(device)
-    t0 = time.perf_counter()
     res = bear_ref.train(codes, counts[:, 0], counts[:, 2], n_rows, "cnn", cnn_kw,
                          epochs=epochs, dtype=torch.float32, device=device, **kw)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
     elbos = res.elbos
     steps = -(-n_rows // batch)
     check(np.isfinite(elbos).all() and len(elbos) == epochs * steps,
           f"reference-guided ELBOs not finite or of the wrong count: {len(elbos)}")
     print(f"[ref] reference-guided CNN BEAR {cnn_kw}, batch {batch}, {epochs} epochs, lr "
-          f"{TRAIN_LR}, float32: {len(elbos)} applies in {train_s:.3f} s = "
-          f"{len(elbos) / train_s:.6g} applies/s; h {res.h:.6g}, error_rate "
+          f"{TRAIN_LR}, float32: {len(elbos)} applies; h {res.h:.6g}, error_rate "
           f"{bear_ref.error_rate(res.params):.6g}, stop_rate "
           f"{bear_ref.stop_rate_inverse(res.params):.6g}; ELBO {elbos[0]:.7g} -> "
-          f"{elbos[-1]:.7g} [{card}]")
+          f"{elbos[-1]:.7g}")
     k = min(N_ELBO_CHECK, steps)
-    t0 = time.perf_counter()
     cpu = bear_ref.train(codes[: k * batch].cpu(), counts[: k * batch, 0].cpu(),
                          counts[: k * batch, 2].cpu(), n_rows, "cnn", cnn_kw, epochs=1,
                          dtype=torch.float64, device="cpu", **kw)
-    cpu_s = time.perf_counter() - t0
     elbo_err = float(np.max(np.abs(elbos[:k] / cpu.elbos[:k] - 1)))
     check(len(cpu.elbos) == k and elbo_err <= ELBO_RTOL,
           f"first {k} reference-guided ELBOs {elbos[:k]} differ from CPU float64 "
           f"{cpu.elbos} by {elbo_err:.3e}")
     print(f"[ref] first {k} ELBOs vs CPU float64 from the same initial parameters: max rel "
-          f"err {elbo_err:.3e} (tolerance {ELBO_RTOL}); the CPU run {cpu_s:.3f} s")
-    synchronize(device)
-    t0 = time.perf_counter()
+          f"err {elbo_err:.3e} (tolerance {ELBO_RTOL})")
     out = bear_ref.evaluation(codes, counts, 0, 1, 2, "dna", res.h, ar, res.params["ar"],
                               VAN_REG, dtype=torch.float32, device=device)
-    eval_s = time.perf_counter() - t0
     check(all(np.isfinite(np.asarray(o)).all() for o in out), "reference-guided evaluation "
           "not finite")
-    print(f"[ref] evaluation {eval_s:.3f} s: held-out perplexity BEAR {float(out[3]):.6f} AR "
+    print(f"[ref] evaluation: held-out perplexity BEAR {float(out[3]):.6f} AR "
           f"{float(out[4]):.6f} BMM {np.asarray(out[5]).tolist()}; accuracy BEAR "
-          f"{float(out[6]):.6f} AR {float(out[7]):.6f} [{card}]")
+          f"{float(out[6]):.6f} AR {float(out[7]):.6f}")
     del codes, counts, res, ar
 
     cfg = ysd1_config(os.path.join(out_dir, "ysd1_ref") + "*")
     cfg["train"].update(epochs="1", train_ar="True")  # bear_test.cfg's values
-    t0 = time.perf_counter()
     _, ll_van, perp_van = train_bear_ref.main(cfg, device=device)
-    cli_s = time.perf_counter() - t0
     ds = load_dense(bundled_ysd1_path(), "dna", 3)
     calc = bmm_likelihood(ds.counts, np.array(VAN_REG) + EPSILON, device="cpu")[0]
     want = np.exp(-calc / ds.counts[:, 0].sum())
@@ -2183,19 +1926,19 @@ def reference_phase(reads, chunks, out_dir, card, device="cuda", lag=LAG,
     check(bmm_err <= BMM_RTOL, f"train_bear_ref BMM perplexities {perp_van} differ from "
           f"bmm_likelihood's {want} by {bmm_err:.3e}")
     res = cfg["results"]
-    print(f"[ref] train_bear_ref.main on YSD1, bear_test.cfg's values in float32: {cli_s:.3f} "
-          f"s; h {float(res['h']):.6g}, error_rate {float(res['error_rate']):.6g}, stop_rate "
+    print(f"[ref] train_bear_ref.main on YSD1, bear_test.cfg's values in float32: h "
+          f"{float(res['h']):.6g}, error_rate {float(res['error_rate']):.6g}, stop_rate "
           f"{float(res['stop_rate']):.6g}, held-out perplexity BEAR "
           f"{float(res['heldout_perplex_BEAR']):.6f}; BMM vs bmm_likelihood float64 max rel "
-          f"err {bmm_err:.3e} (tolerance {BMM_RTOL}) [{card}]")
+          f"err {bmm_err:.3e} (tolerance {BMM_RTOL})")
     return launches
 
 
-def vbear_phase(card, device="cuda", applies=VBEAR_APPLIES, gate=True, profile=True):
+def vbear_phase(device="cuda", applies=VBEAR_APPLIES, gate=True):
     """4f (I): vBEAR on YSD1 (docs/usage.md:176-185): linear, batch 1,500,
     ``applies`` applies, lr 0.01, seed 10, float32. With ``gate``, checks
     the posterior median h within 25% of the published 0.0433 and sigma
-    below 0.25; with ``profile``, profiles 50 applies."""
+    below 0.25."""
     import torch
     from bear_tpu_torch.data import load_dense
     from bear_tpu_torch.models import vbear
@@ -2204,27 +1947,19 @@ def vbear_phase(card, device="cuda", applies=VBEAR_APPLIES, gate=True, profile=T
 
     ds = load_dense(bundled_ysd1_path(), "dna", 3)
     ar = get_ar_func("linear", 5, 4, dtype=torch.float32, device=device)
-    kw = dict(batch_size=1500, learning_rate=0.01, seed=10, dtype=torch.float32, device=device)
-    synchronize(device)
-    t0 = time.perf_counter()
-    vb = vbear.train_variational_h(ds.codes, ds.counts[:, 0], ds.num_kmers, ar,
-                                   epochs=applies, **kw)
-    synchronize(device)
-    sec = time.perf_counter() - t0
+    vb = vbear.train_variational_h(ds.codes, ds.counts[:, 0], ds.num_kmers, ar, epochs=applies,
+                                   batch_size=1500, learning_rate=0.01, seed=10,
+                                   dtype=torch.float32, device=device)
     mu, sigma = vb.h_posterior
     check(np.isfinite(vb.losses).all() and len(vb.losses) == applies, "vBEAR losses")
-    print(f"[vbear] YSD1 linear, batch 1500, lr 0.01, seed 10, float32: {applies:,} applies in "
-          f"{sec:.3f} s = {applies / sec:.6g} applies/s; h {vb.h:.6g} (published EB 0.0433), "
-          f"mu {mu:.6g}, sigma {sigma:.6g} [{card}]")
+    print(f"[vbear] YSD1 linear, batch 1500, lr 0.01, seed 10, float32: {applies:,} applies; "
+          f"h {vb.h:.6g} (published EB 0.0433), mu {mu:.6g}, sigma {sigma:.6g}")
     if gate:
         check(abs(vb.h - YSD1_VBEAR_H) / YSD1_VBEAR_H < VBEAR_H_RTOL and sigma < VBEAR_SIGMA_MAX,
               f"vBEAR h {vb.h} not within 25% of {YSD1_VBEAR_H}, or sigma {sigma} >= 0.25")
-    if profile:
-        device_breakdown("vBEAR YSD1, 50 applies", lambda: vbear.train_variational_h(
-            ds.codes, ds.counts[:, 0], ds.num_kmers, ar, epochs=50, **kw), card, top=8)
 
 
-def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
+def lag_select_phase(csv, prefix, device="cuda", lag=LAG):
     """4f (J): lag selection over (G) by every route: select_lag on a
     recount of the reads at lags 1..lag (the summarize counter is gone),
     select_lag_from_tsvs on summarize's shards, and the CLI's counting and
@@ -2242,39 +1977,30 @@ def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
 
     lags = range(1, lag + 1)
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     counter = summarize.run_counting(csv, lags, device=device)
     counter.sync()
     launches = {"lag_select": count_chunk_update.launches}
-    count_s = time.perf_counter() - t0
-    table_s = []
-    for _ in range(2):  # the first call loads the sweep's kernels
-        t0 = time.perf_counter()
-        table = lag_selection.select_lag(counter)
-        table_s.append(time.perf_counter() - t0)
+    table = lag_selection.select_lag(counter)
     del counter
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     tsv = lag_selection.select_lag_from_tsvs(prefix, lags, device=device)
-    tsv_s = time.perf_counter() - t0
 
     def cli(argv):
         buf = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             best = lag_select_cli.main(lag_select_cli.build_parser().parse_args(
                 argv + ["-l", str(lag), "--json", "--device", torch.device(device).type]))
         payload = json.loads(buf.getvalue())
         check(best == payload["best_lag"], "lag_select_cli's best lag")
-        return np.array(payload["log_marginals"]), payload["best_lag"], time.perf_counter() - t0
+        return np.array(payload["log_marginals"]), payload["best_lag"]
 
     count_chunk_update.launches = 0
-    counted, counted_best, counted_s = cli([csv])
+    counted, counted_best = cli([csv])
     launches["lag_select_cli"] = count_chunk_update.launches
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    from_tsv, tsv_best, tsv_cli_s = cli([prefix, "--counts"])
+    from_tsv, tsv_best = cli([prefix, "--counts"])
     err = max(float(np.max(np.abs(m / table.log_marginals - 1)))
               for m in (tsv.log_marginals, counted, from_tsv))
     check(err <= LAG_SELECT_RTOL and table.best == tsv.best == counted_best == tsv_best,
@@ -2283,11 +2009,9 @@ def lag_select_phase(csv, prefix, card, device="cuda", lag=LAG):
     print(f"[lag] lags 1..{lag}, alphas {table.alphas.tolist()}: best lag {table.best} (alpha "
           f"{table.best_alpha(table.best):g}); the four routes agree to {err:.3e} (tolerance "
           f"{LAG_SELECT_RTOL}); log marginals at the best alpha "
-          f"{[round(float(v), 1) for v in table.log_marginals.max(axis=-1)]}")
-    print(f"[lag] recount {count_s:.3f} s ({launches['lag_select']} count_chunk launches) + "
-          f"select_lag on the resident table {table_s[0]:.3f} s, again {table_s[1]:.3f} s; "
-          f"select_lag_from_tsvs {tsv_s:.3f} s; lag_select_cli counting route {counted_s:.3f} s "
-          f"({launches['lag_select_cli']} launches), --counts route {tsv_cli_s:.3f} s [{card}]")
+          f"{[round(float(v), 1) for v in table.log_marginals.max(axis=-1)]}; count_chunk "
+          f"launches of the recount {launches['lag_select']}, of the CLI's counting route "
+          f"{launches['lag_select_cli']}")
     return launches, table
 
 
@@ -2322,58 +2046,23 @@ def assembly_margin(gen, seed_s, index, direction, step, table, lag, prior, seed
     return float(top[0] - top[1])
 
 
-def assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device):
-    """One torch.profiler window over a short sampled rollout with the CLI's
-    table and model: the device time of the keyed draws against that of all
-    kernels. The draws are the keyed_draw kernel's launches, read by name
-    (a ctypes launch belongs to no op, so no span carries their device
-    time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-    from bear_tpu_torch.inference import assemble
-
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        assemble.assemble_no_ends(seeds, [[ASM_PROFILE_FLANK] * 2] * len(seeds), num, lag=lag,
-                                  counter_table=table, h=h, ar_apply=ar_apply, seed=SEED,
-                                  device=device)
-        synchronize(device)
-        wall_us = (time.perf_counter() - t0) * 1e6
-    busy = draw_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-            busy += getattr(e, "self_device_time_total", 0)
-            if "keyed_draw_kernel" in e.key:
-                draw_us += getattr(e, "self_device_time_total", 0)
-    letters = 2 * ASM_PROFILE_FLANK * len(seeds) * num
-    if busy == 0:
-        print(f"[assemble] sampler share not measured: the profiler recorded no device time "
-              f"({letters:,} letters) [{card}]")
-        return
-    print(f"[assemble] one torch.profiler window, {letters:,} sampled letters: keyed draws "
-          f"{draw_us / 1e3:.3f} ms of {busy / 1e3:.3f} ms of kernels = "
-          f"{100 * draw_us / busy:.1f}% of device time; the window's wall (profiled) "
-          f"{wall_us / 1e3:.3f} ms, the device busy {100 * busy / wall_us:.1f}% of it [{card}]")
-
-
-def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", lag=LAG,
+def assembly_phase(reads, groups, csv, model_dir, out_dir, device="cuda", lag=LAG,
                    genome_mb=GENOME_MB, n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
-                   check_cfg=ASM_CHECK, profile=True, keyed=None):
+                   check_cfg=ASM_CHECK, keyed=None):
     """4f (K): the assembly CLI on (G)'s reads (counted with reverse=True at
     ``lag``) with the streamed CNN of ``model_dir``: ``n_seeds`` seeded 150
     bp windows of the genome, ``num`` samples each, ``flank`` letters left
-    and right, sampled and --map, timed whole with its FASTA checked (count,
-    lengths, letters, the seed in place). Its count and its generation are
-    timed apart by calling ``run_counting`` and ``assemble_no_ends`` the way
-    the CLI does, and must give the CLI's sequences. With ``profile``, one
-    torch.profiler window of a short sampled rollout gives the keyed
-    sampler's share of device time. Then float64 rollouts on ``device`` of
-    ``check_cfg`` = (seeds, samples, lag, flank letters) from a small table,
-    BMM and BEAR (a small linear AR), are held against the same on the CPU,
-    sequence for sequence (a flip is allowed only at a Gumbel margin below
-    ASM_MARGIN). Returns the count_chunk launches of the CLI and of the
-    direct count; ``keyed`` gets the keyed_draw launches of the sampled CLI
-    run ("assemble_cli") and of its generation called apart ("assemble")."""
+    and right, sampled and --map, its FASTA checked (count, lengths,
+    letters, the seed in place). Its count and its generation, called apart
+    by ``run_counting`` and ``assemble_no_ends`` the way the CLI calls
+    them, must give the CLI's sequences. Then float64 rollouts on
+    ``device`` of ``check_cfg`` = (seeds, samples, lag, flank letters) from
+    a small table, BMM and BEAR (a small linear AR), are held against the
+    same on the CPU, sequence for sequence (a flip is allowed only at a
+    Gumbel margin below ASM_MARGIN). Returns the count_chunk launches of
+    the CLI and of the direct count; ``keyed`` gets the keyed_draw
+    launches of the sampled CLI run ("assemble_cli") and of its generation
+    called apart ("assemble")."""
     import torch
     from bear_tpu_torch.counting import engine, fastx
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
@@ -2398,10 +2087,7 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
         out = os.path.join(out_dir, mode)
         count_chunk_update.launches = 0
         keyed_draw.launches = 0
-        t0 = time.perf_counter()
         rc = assemble_cli.main(argv + ["--out", out] + (["--map"] if mode == "map" else []))
-        synchronize(device)
-        cli_s = time.perf_counter() - t0
         launches["assemble_cli"] += count_chunk_update.launches
         if mode == "sampled":
             keyed["assemble_cli"] = keyed_draw.launches
@@ -2411,42 +2097,32 @@ def assembly_phase(reads, groups, csv, model_dir, out_dir, card, device="cuda", 
             len(s) == L and set(s) <= set("ACGT") and s[flank:flank + ASM_SEED_BP]
             == seeds[i // num] for i, s in enumerate(gen)))
         check(ok, f"assemble_cli {mode}: {len(gen)} sequences, or wrong lengths/letters")
-        cli[mode] = (gen, cli_s, count_chunk_update.launches)
+        cli[mode] = (gen, count_chunk_update.launches)
 
     # the CLI's count and generation, called apart with its arguments
     lag_m, _, h, ar_apply, _ = load_bear(model_dir, device=device)
     check(lag_m == lag, f"the model directory's lag {lag_m} is not {lag}")
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     counter = run_counting(csv, lags=[lag], reverse=True, alphabet="dna", device=device)
     counter.sync()
-    count_s = time.perf_counter() - t0
     launches["assemble"] = count_chunk_update.launches
     table = counter.table(lag)[0]
     for mode in ("sampled", "map"):
-        synchronize(device)
         keyed_draw.launches = 0
-        t0 = time.perf_counter()
         gen, _ = assemble.assemble_no_ends(
             seeds, [[flank, flank]] * n_seeds, num, lag=lag, counter_table=table, h=h,
             ar_apply=ar_apply, get_map=mode == "map", seed=SEED, device=device)
-        synchronize(device)
-        gen_s = time.perf_counter() - t0
         if mode == "sampled":
             keyed["assemble"] = keyed_draw.launches
-        cli_gen, cli_s, cli_launches = cli[mode]
+        cli_gen, cli_launches = cli[mode]
         same = int(np.sum(gen.reshape(-1) == np.array(cli_gen)))
         check(same == len(cli_gen), f"assemble_no_ends {mode} called apart gives {same} of "
               f"{len(cli_gen)} of the CLI's sequences")
-        n_letters = 2 * flank * n_seeds * num
         print(f"[assemble] assemble_cli {mode}, lag {lag}, {n_seeds} seeds x {num}, "
-              f"--left {flank} --right {flank}: the CLI {cli_s:.3f} s ({cli_launches} count_chunk "
-              f"launches), {len(set(cli_gen))} distinct sequences; its generation called apart "
-              f"{n_letters:,} letters in {gen_s:.3f} s = {n_letters / gen_s:.6g} letters/s, the "
-              f"same {same} sequences; its reverse count called apart {count_s:.3f} s "
-              f"({launches['assemble']} count_chunk launches) [{card}]")
-    if profile:
-        assembly_sampler_share(seeds, num, table, lag, h, ar_apply, card, device)
+              f"--left {flank} --right {flank}: the CLI ({cli_launches} count_chunk launches) "
+              f"{len(set(cli_gen))} distinct sequences; its generation called apart "
+              f"{2 * flank * n_seeds * num:,} letters, the same {same} sequences; its reverse "
+              f"count called apart {launches['assemble']} count_chunk launches")
     del counter, table
     if dev_type == "cuda":
         torch.cuda.empty_cache()
@@ -2596,7 +2272,7 @@ def same_shards(prefix_a, prefix_b, lags):
 def summarize_run(csv, prefix, argv, device):
     """summarize.main through its parser, its count_chunk launches counted
     from 0 just before and read just after. Returns (shards per lag, the
-    forward pass's report, launches, wall s)."""
+    forward pass's report, launches)."""
     import torch
     from bear_tpu_torch.counting import summarize
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
@@ -2606,13 +2282,11 @@ def summarize_run(csv, prefix, argv, device):
         [csv, prefix, *argv, "--device", torch.device(device).type])
     report = {}
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     n_bins, _ = summarize.main(args, report)
-    synchronize(device)
-    return n_bins, report["forward"], count_chunk_update.launches, time.perf_counter() - t0
+    return n_bins, report["forward"], count_chunk_update.launches
 
 
-def passes_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG, lag=PASSES_LAG,
+def passes_phase(s_run, ref_rows, work, device="cuda", dense_lag=LAG, lag=PASSES_LAG,
                  passes=None):
     """4g (L): summarize -l ``lag`` in ``passes`` row-range passes (by
     default the fewest the int32 guard accepts) on 4e's FASTQ files, -mf set
@@ -2626,7 +2300,7 @@ def passes_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG, lag=
     passes = passes or min_passes(lags, N_GROUPS)
     prefix = os.path.join(work, "passes", "run")
     mf = mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"])
-    n_bins, run, launches, wall_s = summarize_run(
+    n_bins, run, launches = summarize_run(
         s_run["csv"], prefix, ["-l", str(lag), "--passes", str(passes), "-mf", mf], device)
     stats = run["stats"]
     on_card = device != "cpu"
@@ -2640,17 +2314,14 @@ def passes_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG, lag=
     per_lag = stats["bases"] + stats["reads"]
     print(f"[passes] summarize -l {lag} --passes {passes} (-mf {mf}): {stats['chunks']} chunks "
           f"per pass, {launches} count_chunk launches, a {run['table_bytes']:,}-byte row range "
-          f"on {device}; {per_lag:,} transitions per lag x {lag} lags conserved; count "
-          f"{run['count_s']:.3f} s (every pass re-reads the files) = "
-          f"{passes * lag * per_lag / run['count_s']:.6g} transitions/s counted over the passes, "
-          f"export {run['export_s']:.3f} s; whole CLI {wall_s:.3f} s [{card}]")
+          f"on {device}; {per_lag:,} transitions per lag x {lag} lags conserved")
     print(f"[passes] nonzero rows per lag == the plain torch.unique recount's; lags "
           f"1..{dense_lag}: {n_files} shards byte-identical to 4e's; rows at lags "
           f"{dense_lag + 1}..{lag}: {[run['rows'][l] for l in range(dense_lag + 1, lag + 1)]}")
     return dict(passes=passes, prefix=prefix, launches=launches, chunks=stats["chunks"])
 
 
-def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
+def sparse_phase(s_run, p_run, ref_rows, work, device="cuda", dense_lag=LAG,
                  passes_lag=PASSES_LAG, lag=SPARSE_LAG, applies=SPARSE_APPLIES,
                  batch=TRAIN_BATCH, check_chunks=SPARSE_CHECK_CHUNKS):
     """4g (M): summarize -l ``lag`` on 4e's files, which routes itself to
@@ -2674,8 +2345,8 @@ def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LA
     lags = range(1, lag + 1)
     prefix = os.path.join(work, "sparse", "run")
     mf = mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"])
-    n_bins, run, launches, wall_s = summarize_run(s_run["csv"], prefix,
-                                                  ["-l", str(lag), "-mf", mf], device)
+    n_bins, run, launches = summarize_run(s_run["csv"], prefix, ["-l", str(lag), "-mf", mf],
+                                          device)
     counter = run["counter"]
     stats = run["stats"]
     check(isinstance(counter, SparseTransitionCounter) and launches == 0,
@@ -2689,9 +2360,7 @@ def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LA
     print(f"[sparse] summarize -l {lag} (-mf {mf}) -> SparseTransitionCounter: "
           f"{stats['chunks']} chunks, 0 count_chunk launches, key buffers "
           f"{run['table_bytes']:,} bytes on {device}; {per_lag:,} transitions per lag x {lag} "
-          f"lags conserved; count {run['count_s']:.3f} s = "
-          f"{lag * per_lag / run['count_s']:.6g} transitions/s over all {lag} lags, export "
-          f"{run['export_s']:.3f} s; whole CLI {wall_s:.3f} s [{card}]")
+          f"lags conserved")
     print(f"[sparse] nonzero rows per lag == the plain recount's; {n_dense} shards of lags "
           f"1..{dense_lag} == 4e's and {n_passes} of lags {dense_lag + 1}..{passes_lag} == "
           f"(L)'s, byte for byte; rows at lags {passes_lag + 1}..{lag}: "
@@ -2715,9 +2384,7 @@ def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LA
           f"({sum(len(on['cpu']._consolidated(l)[0]) for l in lags):,} keys)")
     del on
 
-    t0 = time.perf_counter()
     ds = counter.to_dataset(lag)
-    dataset_s = time.perf_counter() - t0
     n_rows = len(ds.kmers)
     n_use = min(n_rows, applies * batch)
     per_epoch = -(-n_use // batch)
@@ -2729,12 +2396,8 @@ def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LA
     init = bear_net.init_params(gen, ar)
     p0 = [init["h_signed"]] + init["ar"]
     kw = dict(num_kmers=n_rows, batch_size=batch, learning_rate=0.01, params_restart=p0)
-    synchronize(device)
-    t0 = time.perf_counter()
     res = bear_net.train(codes, counts, ar_func=ar, epochs=epochs, dtype=torch.float32,
                          device=device, **kw)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
     elbos = res.elbos
     check(np.isfinite(elbos).all(), "lag-20 ELBOs not finite")
     k = min(N_ELBO_CHECK, per_epoch)
@@ -2746,14 +2409,13 @@ def sparse_phase(s_run, p_run, ref_rows, work, card, device="cuda", dense_lag=LA
           f"float64 {cpu.elbos} by {elbo_err:.3e}")
     model_dir = os.path.join(work, f"linear_lag{lag}")
     write_model_dir(model_dir, res, lag, "linear", {}, epochs, batch, lr=0.01)
-    print(f"[sparse] to_dataset({lag}): {n_rows:,} rows in {dataset_s:.3f} s; linear BEAR on "
-          f"{n_use:,} of them, batch {batch}: {len(elbos)} applies in {train_s:.3f} s = "
-          f"{len(elbos) / train_s:.6g} applies/s, h {res.h:.6g}; first {k} ELBOs vs CPU "
-          f"float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL}) [{card}]")
+    print(f"[sparse] to_dataset({lag}): {n_rows:,} rows; linear BEAR on {n_use:,} of them, "
+          f"batch {batch}: {len(elbos)} applies, h {res.h:.6g}; first {k} ELBOs vs CPU "
+          f"float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL})")
     return counter, model_dir
 
 
-def sparse_lag_phase(counter, dense, csv, passes, chunks, card, device="cuda", dense_lag=LAG,
+def sparse_lag_phase(counter, dense, csv, passes, chunks, device="cuda", dense_lag=LAG,
                      passes_lag=PASSES_LAG):
     """4g (N): select_lag over (M)'s counter (lags 1..counter's max), which
     routes to select_lag_sparse, against (J)'s dense sweep ``dense`` at lags
@@ -2767,20 +2429,16 @@ def sparse_lag_phase(counter, dense, csv, passes, chunks, card, device="cuda", d
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
     from bear_tpu_torch.models import lag_select_cli, lag_selection
 
-    t0 = time.perf_counter()
     sel = lag_selection.select_lag(counter)
-    sel_s = time.perf_counter() - t0
     err = float(np.max(np.abs(sel.log_marginals[:dense_lag] / dense.log_marginals - 1)))
     check(sel.lags == tuple(counter.lags) and err <= LAG_SELECT_RTOL,
           f"select_lag_sparse differs from (J)'s dense sweep at lags 1..{dense_lag}: {err:.3e}")
     buf = io.StringIO()
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         best = lag_select_cli.main(lag_select_cli.build_parser().parse_args(
             [csv, "-l", str(passes_lag), "--passes", str(passes), "--json", "--device",
              torch.device(device).type]))
-    cli_s = time.perf_counter() - t0
     launches = count_chunk_update.launches
     payload = json.loads(buf.getvalue())
     cli_err = float(np.max(np.abs(np.array(payload["log_marginals"])
@@ -2789,12 +2447,11 @@ def sparse_lag_phase(counter, dense, csv, passes, chunks, card, device="cuda", d
           f"lag_select_cli --passes differs from select_lag_sparse: {cli_err:.3e}")
     check(launches == (passes * chunks if device != "cpu" else 0),
           f"lag_select_cli --passes {passes} launched count_chunk {launches} times")
-    print(f"[lag] select_lag over the sparse counter, lags 1..{max(counter.lags)}: "
-          f"{sel_s:.3f} s, best lag {sel.best} (alpha {sel.best_alpha(sel.best):g}); lags "
-          f"1..{dense_lag} vs (J)'s dense sweep max rel err {err:.3e}; lag_select_cli -l "
-          f"{passes_lag} --passes {passes}: {cli_s:.3f} s, {launches} count_chunk launches, "
-          f"best lag {best}, vs select_lag_sparse {cli_err:.3e} (tolerance {LAG_SELECT_RTOL}) "
-          f"[{card}]")
+    print(f"[lag] select_lag over the sparse counter, lags 1..{max(counter.lags)}: best lag "
+          f"{sel.best} (alpha {sel.best_alpha(sel.best):g}); lags 1..{dense_lag} vs (J)'s dense "
+          f"sweep max rel err {err:.3e}; lag_select_cli -l {passes_lag} --passes {passes}: "
+          f"{launches} count_chunk launches, best lag {best}, vs select_lag_sparse "
+          f"{cli_err:.3e} (tolerance {LAG_SELECT_RTOL})")
     return launches
 
 
@@ -2806,7 +2463,7 @@ def assembly_seeds(genome_mb=GENOME_MB, n_seeds=ASM_SEEDS):
     return decode_reads(genome[starts[:, None] + np.arange(ASM_SEED_BP)[None, :]])
 
 
-def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cuda",
+def sparse_generation_phase(counter, model_dir, reads, groups, device="cuda",
                             lag=SPARSE_LAG, dense_lag=LAG, genome_mb=GENOME_MB,
                             n_seeds=ASM_SEEDS, num=ASM_NUM, flank=ASM_FLANK,
                             check_cfg=ASM_CHECK, n_score=N_SCORE, keyed=None):
@@ -2830,13 +2487,9 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
     keyed = {} if keyed is None else keyed
     test = np.flatnonzero(groups == 1)[:n_score]
     seqs = decode_reads(reads[test])
-    t0 = time.perf_counter()
     table_counter = TableCounter(counter, lag)
-    index_s = time.perf_counter() - t0
     kw = dict(vans=VAN_REG, get_map=True, counter=table_counter)
-    t0 = time.perf_counter()
     scores = get_bear_probs_seqs(model_dir, seqs, 0, device=device, **kw)
-    score_s = time.perf_counter() - t0
     ref = get_bear_probs_seqs(model_dir + "_float64", seqs, 0, device="cpu", **kw)
     diff = np.abs(scores - ref)
     check(scores.shape == (len(seqs), 2 + len(VAN_REG)) and np.isfinite(scores).all()
@@ -2844,29 +2497,22 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
           f"lag-{lag} scores through the sparse index differ from CPU float64: max "
           f"{diff.max()}")
     print(f"[sparse] {len(seqs)} held-out reads scored at lag {lag} through TableCounter on "
-          f"the sparse counter (index {index_s:.3f} s): get_bear_probs_seqs MAP, AR + BEAR + "
-          f"{len(VAN_REG)} BMM columns, {score_s:.3f} s = {len(seqs) / score_s:.6g} "
-          f"sequences/s; vs CPU float64 max |diff| {diff.max():.3e} [{card}]")
+          f"the sparse counter: get_bear_probs_seqs MAP, AR + BEAR + {len(VAN_REG)} BMM "
+          f"columns; vs CPU float64 max |diff| {diff.max():.3e}")
     del table_counter
 
     train = np.flatnonzero(groups == 0)
-    t0 = time.perf_counter()
     sp = SparseTransitionCounter([lag], reverse=True, device=device)
     for chunk in read_chunks(reads[train], np.zeros(len(train), np.int32)):
         sp.add_chunk(chunk)
     index = SparseTableIndex(sp, lag)
-    count_s = time.perf_counter() - t0
     seeds = assembly_seeds(genome_mb, n_seeds)
     van = VAN_REG[0]
     for mode in ("sampled", "map"):
-        synchronize(device)
         keyed_draw.launches = 0
-        t0 = time.perf_counter()
         gen, _ = assemble.assemble_no_ends(seeds, [[flank, flank]] * n_seeds, num, lag=lag,
                                            counter_table=index, van=van,
                                            get_map=mode == "map", seed=SEED, device=device)
-        synchronize(device)
-        gen_s = time.perf_counter() - t0
         if mode == "sampled":
             keyed["sparse_assembly"] = keyed_draw.launches
         flat = gen.reshape(-1)
@@ -2874,12 +2520,9 @@ def sparse_generation_phase(counter, model_dir, reads, groups, card, device="cud
             len(s) == ASM_SEED_BP + 2 * flank and set(s) <= set("ACGT")
             and s[flank:flank + ASM_SEED_BP] == seeds[i // num] for i, s in enumerate(flat)),
             f"lag-{lag} sparse assembly {mode}: wrong count, lengths or letters")
-        n_letters = 2 * flank * n_seeds * num
         print(f"[sparse] assembly at lag {lag} from a SparseTableIndex ({len(index.rows):,} "
-              f"rows; reverse count of {len(train):,} reads and index {count_s:.3f} s), BMM "
-              f"van {van}, {mode}, {n_seeds} seeds x {num}, {flank} letters each side: "
-              f"{n_letters:,} letters in {gen_s:.3f} s = {n_letters / gen_s:.6g} letters/s, "
-              f"{len(set(flat))} distinct sequences [{card}]")
+              f"rows; reverse count of {len(train):,} reads), BMM van {van}, {mode}, {n_seeds} "
+              f"seeds x {num}, {flank} letters each side: {len(set(flat))} distinct sequences")
 
     c_seeds, c_num, _, c_flank = check_cfg
     lengths = [[c_flank, c_flank]] * c_seeds
@@ -2921,15 +2564,13 @@ def rel_err(a, b):
     return float(np.max(np.abs(a / b - 1)))
 
 
-def attention_phase(out_dir, card, device="cuda", epochs=None, timed=ATTN_TIMED_APPLIES,
-                    profile=True):
+def attention_phase(out_dir, device="cuda", epochs=None):
     """4h (P): bear_attn_bear.cfg's values through ``train_bear_net.main`` in
     float32 (``epochs`` overrides its 10,000 for a rehearsal). Checks the
     first ELBOs against CPU float64 from the same initial parameters, the
     CLI's held-out perplexities (evaluated on the device) against CPU
     float64 evaluation of the written parameters and, at the full 10,000,
-    the BEAR perplexity against the first card run's; then times ``timed``
-    applies of training alone and profiles 200."""
+    the BEAR perplexity against the first card run's."""
     import torch
     from bear_tpu_torch.data import load_dense
     from bear_tpu_torch.models import bear_net, train_bear_net
@@ -2941,11 +2582,7 @@ def attention_phase(out_dir, card, device="cuda", epochs=None, timed=ATTN_TIMED_
     if epochs is not None:
         cfg["train"]["epochs"] = str(epochs)
     run = RunConfig.from_configparser(cfg)
-    synchronize(device)
-    t0 = time.perf_counter()
     train_bear_net.main(cfg, device=device)
-    synchronize(device)
-    cli_s = time.perf_counter() - t0
     res = cfg["results"]
     h = float(res["h"])
     perp = {k: json.loads(res[f"heldout_perplex_{k}"]) for k in ("BEAR", "AR", "BMM")}
@@ -2981,35 +2618,22 @@ def attention_phase(out_dir, card, device="cuda", epochs=None, timed=ATTN_TIMED_
               f"attention BEAR held-out perplexity {perp['BEAR']} not within "
               f"{ATTN_PERPLEXITY_ATOL} of {ATTN_PERPLEXITY}")
 
-    ar = get_ar_func("attention", run.lag, 4, ATTN_KW, device=device)
-    kw = dict(ar_func=ar, params_restart=p0, dtype=torch.float32, device=device, **base)
-    synchronize(device)
-    t0 = time.perf_counter()
-    bear_net.train(ds.codes, ds.counts[:, 0], epochs=timed, **kw)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
     print(f"[attn] train_bear_net.main, bear_attn_bear.cfg values in float32 (d_model 64, 4 "
-          f"heads, mlp 128, lr {run.learning_rate}): {len(elbos):,} applies; the CLI run "
-          f"(load, train, evaluate twice, write) {cli_s:.3f} s; training alone {timed:,} "
-          f"applies in {train_s:.3f} s = {timed / train_s:.6g} applies/s [{card}]")
-    print(f"[attn] h {h:.6g}; held-out perplexity BEAR {perp['BEAR']:.6f} AR "
-          f"{perp['AR']:.6f} BMM {perp['BMM']}; accuracy BEAR {acc['BEAR']:.6f} AR "
-          f"{acc['AR']:.6f} BMM {acc['BMM']}; ELBO {elbos[0]:.7g} -> {elbos[-1]:.7g} [{card}]")
+          f"heads, mlp 128, lr {run.learning_rate}): {len(elbos):,} applies; h {h:.6g}; "
+          f"held-out perplexity BEAR {perp['BEAR']:.6f} AR {perp['AR']:.6f} BMM {perp['BMM']}; "
+          f"accuracy BEAR {acc['BEAR']:.6f} AR {acc['AR']:.6f} BMM {acc['BMM']}; ELBO "
+          f"{elbos[0]:.7g} -> {elbos[-1]:.7g}")
     print(f"[attn] first {k} ELBOs vs CPU float64 from the same initial parameters: max rel "
           f"err {elbo_err:.3e}; held-out perplexities vs CPU float64 evaluation of the "
           f"written parameters: max rel err {eval_err:.3e} (tolerance {ELBO_RTOL})")
-    if profile:
-        device_breakdown("train YSD1 attention BEAR, 200 applies",
-                         lambda: bear_net.train(ds.codes, ds.counts[:, 0], epochs=200, **kw),
-                         card, top=10)
 
 
-def optimizer_phase(card, device="cuda", check_applies=OPT_CHECK_APPLIES,
-                    timed=OPT_TIMED_APPLIES):
-    """4h (Q): the seven optax optimizers (and Adam, for scale) on the YSD1
-    linear BEAR: ``check_applies`` float64 applies on the device and on the
-    CPU from the same parameters, then ``timed`` float32 applies on the
-    device, timed.
+def optimizer_phase(device="cuda", check_applies=OPT_CHECK_APPLIES):
+    """4h (Q): the seven optax optimizers on the YSD1 linear BEAR:
+    ``check_applies`` float64 applies on the device and on the CPU from the
+    same parameters, then ``check_applies`` float32 applies on the device
+    of each and of Adam, their ELBOs finite. Returns {name: float32
+    applies}.
 
     Each rule's float64 run is also repeated on the CPU from a start one ulp
     away (the AR matrix times 1 + 2^-52), which measures how far the rule's
@@ -3041,7 +2665,6 @@ def optimizer_phase(card, device="cuda", check_applies=OPT_CHECK_APPLIES,
     def param_err(a, b):
         return max(float(np.max(np.abs(x - y))) for x, y in zip(a.params_list, b.params_list))
 
-    rates = {}
     for name in OPTAX_NAMES:
         got, want, ulp = run64(name, device, p0), run64(name, "cpu", p0), run64(name, "cpu", p_ulp)
         check(got.opt_state["step"] == check_applies, f"{name}: {got.opt_state['step']} applies")
@@ -3064,23 +2687,19 @@ def optimizer_phase(card, device="cuda", check_applies=OPT_CHECK_APPLIES,
         print(f"[optim] {name}: {check_applies} float64 applies, {device} vs CPU: ELBO max rel "
               f"err {rel_err(got.elbos, want.elbos):.3e}, parameters max abs err "
               f"{param_err(got, want):.3e}; {held}; h {got.h:.6g}")
+    ran = {}
     for name in ["adam"] + OPTAX_NAMES:
         ar = get_ar_func("linear", 5, 4, device=device)
-        bear_net.train(c, n, ar_func=ar, epochs=20, optimizer_name=name, params_restart=p0,
-                       dtype=torch.float32, device=device, **base)  # warm-up, untimed
-        synchronize(device)
-        t0 = time.perf_counter()
-        res = bear_net.train(c, n, ar_func=ar, epochs=timed, optimizer_name=name,
+        res = bear_net.train(c, n, ar_func=ar, epochs=check_applies, optimizer_name=name,
                              params_restart=p0, dtype=torch.float32, device=device, **base)
-        synchronize(device)
-        rates[name] = timed / (time.perf_counter() - t0)
         check(np.isfinite(res.elbos).all(), f"{name}: float32 ELBOs not finite")
-    print(f"[optim] YSD1 linear BEAR, float32, {timed:,} applies each: applies/s "
-          + ", ".join(f"{k} {v:.6g}" for k, v in rates.items()) + f" [{card}]")
-    return rates
+        ran[name] = res.opt_state["step"]
+    print(f"[optim] YSD1 linear BEAR, float32, {check_applies:,} applies each, ELBOs finite: "
+          + ", ".join(ran))
+    return ran
 
 
-def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn_kw=CNN_KW,
+def bf16_phase(codes, counts, n_rows, out_dir, device="cuda", lag=LAG, cnn_kw=CNN_KW,
                attn_kw=ATTN_KW, batch=TRAIN_BATCH, epochs=BF16_EPOCHS, trace_applies=20):
     """4h (R): bfloat16 compute of the AR network on the lag-``lag`` handoff:
     the CNN and an attention AR, each trained in float32 and with
@@ -3105,26 +2724,13 @@ def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn
         res = {}
         for cd in (None, torch.bfloat16):
             ar = get_ar_func(name, lag, 4, kw, compute_dtype=cd, device=device)
-            bear_net.train(codes[:2 * batch], counts[:2 * batch, 0], ar_func=ar, epochs=1,
-                           params_restart=p0, **train_kw)  # warm-up, untimed
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-                held = torch.cuda.memory_allocated()
-            synchronize(device)
-            t0 = time.perf_counter()
             r = bear_net.train(codes, counts[:, 0], ar_func=ar, epochs=epochs,
                                params_restart=p0, **train_kw)
-            synchronize(device)
-            sec = time.perf_counter() - t0
-            peak = (f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.1f} MiB" if on_card
-                    else "not measured")
             check(len(r.elbos) == n_apply and np.isfinite(r.elbos).all(),
                   f"{name} {cd}: {len(r.elbos)} ELBOs for {n_apply} applies, or not finite")
             label = "bfloat16" if cd is not None else "float32"
             print(f"[bf16] lag-{lag} {name} BEAR {kw}, {label} compute: {n_apply} applies of "
-                  f"{batch:,} rows in {sec:.3f} s = {n_apply / sec:.6g} applies/s; peak device "
-                  f"memory above the resident {peak}; ELBO {r.elbos[0]:.7g} -> "
-                  f"{r.elbos[-1]:.7g} [{card}]")
+                  f"{batch:,} rows; ELBO {r.elbos[0]:.7g} -> {r.elbos[-1]:.7g}")
             res[label] = (r, ar)
         (r32, _), (r16, ar16) = res["float32"], res["bfloat16"]
         loss_err = rel_err(r16.elbos[-1], r32.elbos[-1])
@@ -3140,11 +2746,9 @@ def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn
               f"{sum_err:.3e}")
 
     n_trace = trace_applies * batch
-    t0 = time.perf_counter()
-    with trace(out_dir) as prof:
+    with trace(out_dir):
         bear_net.train(codes[:n_trace], counts[:n_trace, 0], ar_func=ar16, epochs=1,
                        params_restart=p0, **train_kw)
-    wall_ms = (time.perf_counter() - t0) * 1e3
     path = os.path.join(out_dir, "trace.json")
     check(os.path.exists(path), f"no trace file at {path}")
     with open(path) as fh:
@@ -3152,16 +2756,8 @@ def bf16_phase(codes, counts, n_rows, out_dir, card, device="cuda", lag=LAG, cnn
     want = "kernel" if on_card else "cpu_op"
     n_events = sum(e.get("cat") == want for e in events)
     check(n_events > 0, f"the trace lists no {want} event")
-    busy_ms = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel") / 1e3
-    busy = (f"device kernels {busy_ms:.3f} ms of {wall_ms:.3f} ms traced wall = "
-            f"{100 * busy_ms / wall_ms:.1f}% busy" if on_card else "device time not measured")
     print(f"[bf16] utils.profiling.trace over {trace_applies} bfloat16 attention applies: "
-          f"{os.path.getsize(path):,} bytes, {n_events:,} {want} events, {busy} [{card}]")
-    top = sorted(prof.key_averages(), key=lambda e: -getattr(e, "self_device_time_total", 0))
-    for e in top[:6]:
-        us = getattr(e, "self_device_time_total", 0)
-        if us > 0:
-            print(f"[bf16]   {us / 1e3:9.4f} ms {e.count:5d}x {e.key[:90]}")
+          f"{os.path.getsize(path):,} bytes, {n_events:,} {want} events")
 
 
 def refused(fn, match):
@@ -3196,51 +2792,25 @@ def mem_available_gb():
     return float("nan")
 
 
-def data_sharded_breakdown(chunks, card, lag=LAG, shards=MESH_DATA):
-    """The device's idle share while 4i (S)'s data-split counter counts 4
-    chunks, profiled beside phase 4's counter: late in the script the
-    profiler recorded no device time for this window (the same window in a
-    fresh process, or after 4h's trace there, does record it)."""
-    from bear_tpu_torch.parallel import ShardedTransitionCounter
-
-    prof = ShardedTransitionCounter(mesh_of("cuda", shards, "data"), [lag], n_groups=N_GROUPS)
-    for chunk in chunks[:2]:
-        prof.add_chunk(chunk)
-
-    def four():
-        for chunk in chunks[2:6]:
-            prof.add_chunk(chunk)
-        prof.sync()
-
-    device_breakdown(f"(S) data-sharded count, 4 chunks x {shards} replicas (phase 4i's "
-                     "counter)", four, card)
-
-
-def data_sharded_phase(chunks, want_rows, want_counts, single_s, card, device="cuda",
-                       lag=LAG, shards=MESH_DATA):
+def data_sharded_phase(chunks, want_rows, want_counts, device="cuda", lag=LAG, shards=MESH_DATA):
     """4i (S): count -> serve's chunks through ShardedTransitionCounter on a
     mesh that names the card ``shards`` times (one int32 replica of the
     lag-``lag`` table each). Checks each replica after chunk 0 against
     count_chunk_plain on that replica's rows, one count_chunk launch per
     replica per chunk, conservation, and the summed tables against phase
-    4's nonzero rows and counts exactly; rates against phase 4's
-    ``single_s`` (its idle share: :func:`data_sharded_breakdown`).
-    Returns (launches, s)."""
+    4's nonzero rows and counts exactly. Returns the launches."""
     import torch
     from bear_tpu_torch.counting.count_chunk import (count_chunk_plain, count_chunk_update,
                                                      pack_meta)
     from bear_tpu_torch.parallel import ShardedTransitionCounter
     from bear_tpu_torch.parallel.counting import split_rows
 
-    t_start = time.perf_counter()
     mesh = mesh_of(device, shards, "data")
     expected = sum(int(c.lengths.sum()) + int(c.stopped.sum()) for c in chunks)
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     counter = ShardedTransitionCounter(mesh, [lag], n_groups=N_GROUPS)
     counter.add_chunk(chunks[0])
     counter.sync()
-    first_s = time.perf_counter() - t0
     c0 = chunks[0]
     blocks = split_rows((c0.codes, c0.lengths, c0.skip, c0.stopped, c0.groups, c0.fresh),
                         shards)
@@ -3254,33 +2824,26 @@ def data_sharded_phase(chunks, want_rows, want_counts, single_s, card, device="c
     print(f"[4i] (S) chunk 0 ({len(c0.codes):,} rows) split over {shards} replicas on "
           f"{device}: each replica's table == count_chunk_plain on its "
           f"{len(blocks[0][0]):,} rows, exactly")
-    t0 = time.perf_counter()
     for chunk in chunks[1:]:
         counter.add_chunk(chunk)
     counter.sync()
-    count_s = first_s + time.perf_counter() - t0
     launches = count_chunk_update.launches
     on_card = torch.device(device).type == "cuda"
     check(launches == (shards * len(chunks) if on_card else 0),
           f"(S) launched count_chunk {launches} times for {len(chunks)} chunks x {shards}")
-    t0 = time.perf_counter()
     counter.validate(expected)
     rows = counter.nonzero_rows(lag)
     check(np.array_equal(rows, want_rows)
           and np.array_equal(counter.row_counts(lag, rows), want_counts),
           f"(S) tables ({len(rows):,} rows) differ from phase 4's ({len(want_rows):,})")
-    read_s = time.perf_counter() - t0
     print(f"[4i] (S) ShardedTransitionCounter, {shards} replicas of {4 * counter.table_size:,} "
           f"bytes on {device}: {len(chunks)} chunks, {launches} count_chunk launches; "
           f"{expected:,} transitions conserved; tables == phase 4's exactly "
-          f"({len(rows):,} rows, both groups; flush and read {read_s:.3f} s)")
-    print(f"[4i] (S) count {count_s:.4f} s = {expected / count_s:.6g} transitions/s; phase 4's "
-          f"TransitionCounter in this run {single_s:.4f} s = {expected / single_s:.6g} "
-          f"transitions/s ({single_s / count_s:.3f}x) [{card}]")
-    return launches, time.perf_counter() - t_start
+          f"({len(rows):,} rows, both groups)")
+    return launches
 
 
-def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
+def row_split_phase(s_run, ref_rows, work, device="cuda", dense_lag=LAG,
                     lag=MESH_ROW_LAG, shards=MESH_ROWS, passes=MESH_ROWS):
     """4i (T): (G)'s FASTQ files through KmerShardedTransitionCounter on a
     mesh that names the card ``shards`` times (a ``kmer`` axis: every slice
@@ -3291,7 +2854,7 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
     rows against the plain recount, lags 1..dense_lag byte for byte against
     4e's shards and lag ``lag`` against summarize -l ``lag`` --passes
     ``passes``; then the one-card refusal of summarize --kmer-shards.
-    Returns ({path: launches}, s)."""
+    Returns {path: launches}."""
     import shutil
 
     import torch
@@ -3299,7 +2862,6 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
     from bear_tpu_torch.parallel import KmerShardedTransitionCounter
 
-    t_start = time.perf_counter()
     lags = range(1, lag + 1)
     # The int32 guard's reckoning at MESH_ROW_LAG (no table is allocated
     # before the first chunk): MESH_ROWS slices fit, one fewer does not.
@@ -3316,18 +2878,15 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
     entries = fastx.read_input_csv(s_run["csv"])
     stats = {}
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     for chunk in summarize.iter_chunks(entries, lag, stats=stats):
         counter.add_chunk(chunk)
         stats["chunks"] = stats.get("chunks", 0) + 1
     counter.sync()
-    count_s = time.perf_counter() - t0
     launches = count_chunk_update.launches
     on_card = torch.device(device).type == "cuda"
     check(launches == (shards * stats["chunks"] if on_card else 0),
           f"(T) launched count_chunk {launches} times for {stats['chunks']} chunks x {shards}")
     per_lag = stats["bases"] + stats["reads"]
-    t0 = time.perf_counter()
     counter.validate(expected_transitions=per_lag)
     rows = {l: counter.nonzero_rows(l) for l in lags}
     check({l: len(r) for l, r in rows.items()} == {l: ref_rows[l] for l in lags},
@@ -3339,10 +2898,9 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
     os.makedirs(os.path.dirname(prefix))
     for l in lags:
         counter.export_tsv(prefix, l, bits, rows=rows[l])
-    export_s = time.perf_counter() - t0
     n_dense = same_shards(s_run["prefix"], prefix, range(1, dense_lag + 1))
     del counter
-    _, run, passes_launches, passes_s = summarize_run(
+    _, _, passes_launches = summarize_run(
         s_run["csv"], os.path.join(work, "row_split_passes", "run"),
         ["-l", str(lag), "--passes", str(passes), "-mf", repr(mf)], device)
     n_last = same_shards(os.path.join(work, "row_split_passes", "run"), prefix, [lag])
@@ -3350,11 +2908,7 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
           f"{stats['chunks']} chunks, {launches} count_chunk launches; {per_lag:,} transitions "
           f"per lag x {lag} lags conserved; nonzero rows per lag == the plain recount's; "
           f"{n_dense} shards of lags 1..{dense_lag} == 4e's and {n_last} of lag {lag} == "
-          f"summarize -l {lag} --passes {passes}'s ({passes_launches} launches, {passes_s:.3f} s), "
-          "byte for byte")
-    print(f"[4i] (T) count {count_s:.4f} s = {lag * per_lag / count_s:.6g} transitions/s over "
-          f"all {lag} lags ({per_lag / count_s:.6g} per lag), drain and export "
-          f"{export_s:.3f} s [{card}]")
+          f"summarize -l {lag} --passes {passes}'s ({passes_launches} launches), byte for byte")
     n = max(3, torch.cuda.device_count() + 1)
     args = summarize.build_parser().parse_args(
         [s_run["csv"], os.path.join(work, "refused", "run"), "-l", str(lag),
@@ -3364,41 +2918,32 @@ def row_split_phase(s_run, ref_rows, work, card, device="cuda", dense_lag=LAG,
     print(f"[4i] summarize --kmer-shards {n} on the card's machine is refused: {reason}")
     shutil.rmtree(os.path.dirname(prefix))
     shutil.rmtree(os.path.join(work, "row_split_passes"))
-    return {"row_split": launches, "row_split_passes": passes_launches}, \
-        time.perf_counter() - t_start
+    return {"row_split": launches, "row_split_passes": passes_launches}
 
 
-def sparse_mesh_phase(s_run, ref_rows, m_prefix, work, card, device="cuda", lag=SPARSE_LAG,
-                      shards=MESH_DATA, profile_chunks=32):
+def sparse_mesh_phase(s_run, ref_rows, m_prefix, work, device="cuda", lag=SPARSE_LAG,
+                      shards=MESH_DATA):
     """4i (U): (M)'s ``-l lag`` count through SparseTransitionCounter on a
     mesh that names the card ``shards`` times (rows of every chunk split
     over a ``data`` axis, key buffers and window sorts per replica), with
     summarize's iter_chunks and export and (M)'s -mf. Checks conservation
-    and every shard byte for byte against (M)'s. Then the host side of the
-    first ``profile_chunks`` chunks counted (and drained) by the counter
-    without a mesh and with it, in turn (cProfile). Returns (the counter,
-    s)."""
-    import itertools
+    and every shard byte for byte against (M)'s. Returns the counter."""
     import shutil
 
     from bear_tpu_torch.counting import fastx, summarize
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
     from bear_tpu_torch.counting.sparse import SparseTransitionCounter
 
-    t_start = time.perf_counter()
     lags = range(1, lag + 1)
     counter = SparseTransitionCounter(lags, n_groups=N_GROUPS,
                                       mesh=mesh_of(device, shards, "data"))
     stats = {}
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     for chunk in summarize.iter_chunks(fastx.read_input_csv(s_run["csv"]), lag, stats=stats):
         counter.add_chunk(chunk)
     counter.sync()
-    count_s = time.perf_counter() - t0
     check(count_chunk_update.launches == 0, "(U) the sparse-first path launched count_chunk")
     per_lag = stats["bases"] + stats["reads"]
-    t0 = time.perf_counter()
     counter.validate(expected_transitions=per_lag)
     rows = {l: counter.nonzero_rows(l) for l in lags}
     mf = float(mf_for(sum(ref_rows[l] for l in lags), s_run["n_bins"]))
@@ -3407,29 +2952,16 @@ def sparse_mesh_phase(s_run, ref_rows, m_prefix, work, card, device="cuda", lag=
     os.makedirs(os.path.dirname(prefix))
     for l in lags:
         counter.export_tsv(prefix, l, bits, rows=rows[l])
-    export_s = time.perf_counter() - t0
     n_files = same_shards(m_prefix, prefix, lags)
     shutil.rmtree(os.path.dirname(prefix))
     print(f"[4i] (U) SparseTransitionCounter, rows over {shards} replicas on {device} "
           f"(key buffers {4 * counter.table_size:,} bytes in all): {per_lag:,} transitions per "
-          f"lag x {lag} lags conserved; all {n_files} shards == (M)'s, byte for byte; count "
-          f"{count_s:.3f} s = {lag * per_lag / count_s:.6g} transitions/s over all {lag} lags, "
-          f"export {export_s:.3f} s; no count_chunk launch [{card}]")
-    if profile_chunks:
-        some = list(itertools.islice(summarize.iter_chunks(
-            fastx.read_input_csv(s_run["csv"]), lag), profile_chunks))
-        for mesh in (None, mesh_of(device, shards, "data")):
-            def count_some():
-                tc = SparseTransitionCounter(lags, n_groups=N_GROUPS, mesh=mesh, device=device)
-                for chunk in some:
-                    tc.add_chunk(chunk)
-                tc.flush()
-            host_breakdown(f"(U) {len(some)} chunks, lags 1..{lag}, "
-                           f"{'one device' if mesh is None else f'{shards} replicas'}", count_some)
-    return counter, time.perf_counter() - t_start
+          f"lag x {lag} lags conserved; all {n_files} shards == (M)'s, byte for byte; no "
+          f"count_chunk launch")
+    return counter
 
 
-def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, device="cuda",
+def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, device="cuda",
                       procs=MESH_PROCS, reads_kw=None, rows=CHUNK_ROWS, lag=LAG,
                       sparse_lag=SPARSE_LAG, timeout=CHILD_TIMEOUT_S, threads=None, z=None,
                       record=None):
@@ -3445,11 +2977,10 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
     ``batch``, ``applies``), each child then trains and evaluates over a
     mesh that spans the processes (:func:`z_train`, :func:`z_checkpoints`),
     and every rank's results must be bit-equal; ``record`` receives them.
-    Returns (count_chunk launches, s)."""
+    Returns the count_chunk launches."""
     import socket
     import subprocess
 
-    t_start = time.perf_counter()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -3501,21 +3032,16 @@ def two_process_phase(s_run, want_rows, want_counts, sparse_ref, work, card, dev
         zrep = [rep["z"] for rep in reports]
         print(f"[4j] (Z) {procs} processes, one mesh over their {zrep[0]['entries']} entries: "
               f"{z['applies']} float32 applies of the CNN BEAR and evaluation(mesh=); every "
-              f"rank's ELBOs, parameters and metrics bit-equal; the gradient sum (one gloo "
-              f"collective of {zrep[0]['grad_numel']:,} values) "
-              f"{[rep['sync_ms'] for rep in zrep]} ms per apply by rank; training "
-              f"{[rep['train_s'] for rep in zrep]} s; YSD1 train_streaming with a shared "
-              f"checkpoint directory resumed identically, rank-local directories with "
-              f"diverged state aborted both ranks ('differs across processes') [{card}]")
+              f"rank's ELBOs, parameters and metrics bit-equal; YSD1 train_streaming with a "
+              f"shared checkpoint directory resumed identically, rank-local directories with "
+              f"diverged state aborted both ranks ('differs across processes')")
         if record is not None:
             record.update(z_ranks[0], reports=zrep)
     launches = sum(rep["launches"] for rep in reports)
     print(f"[4i] (V) {procs} processes: every rank's merged tables == phase 4's lag-{lag} "
           f"table ({len(want_rows):,} rows) and the one-process lag 1..{sparse_lag} counts "
-          f"(whose shards are (M)'s), exactly; {launches} count_chunk launches in all; merge "
-          f"s by rank (dense first, second; sparse first, second) "
-          f"{[rep['merge_s'] for rep in reports]} [{card}]")
-    return launches, time.perf_counter() - t_start
+          f"(whose shards are (M)'s), exactly; {launches} count_chunk launches in all")
+    return launches
 
 
 def child(spec_path, rank):
@@ -3538,23 +3064,17 @@ def child(spec_path, rank):
     device, lag = spec["device"], spec["lag"]
     reads, groups = make_reads(**spec["reads"])
     chunks = multihost.host_shard(list(read_chunks(reads, groups, rows=spec["rows"])))
-    t0 = time.perf_counter()
     dense = engine.TransitionCounter([lag], n_groups=N_GROUPS, device=device)
     for chunk in chunks:
         dense.add_chunk(chunk)
     dense.sync()
-    count_s = time.perf_counter() - t0
     entries = dense.n_groups * engine.table_rows(lag) * dense.A1
-    print(f"{len(chunks)} of the chunks counted at lag {lag} on {device} in {count_s:.3f} s; "
-          f"the merge holds the table, its baseline and the delta in host int64: "
-          f"3 x {8 * entries / 1e9:.2f} GB = {24 * entries / 1e9:.2f} GB; host MemAvailable "
-          f"{mem_available_gb():.2f} GB")
-    merge_s = []
+    print(f"{len(chunks)} of the chunks counted at lag {lag} on {device}; the merge holds the "
+          f"table, its baseline and the delta in host int64: 3 x {8 * entries / 1e9:.2f} GB = "
+          f"{24 * entries / 1e9:.2f} GB; host MemAvailable {mem_available_gb():.2f} GB")
     answers = []
     for _ in range(2):
-        t0 = time.perf_counter()
         multihost.allreduce_tables(dense)
-        merge_s.append(round(time.perf_counter() - t0, 3))
         rows = dense.nonzero_rows(lag)
         answers.append((rows, dense.row_counts(lag, rows)))
     check(all(np.array_equal(a, b) for a, b in zip(*answers)),
@@ -3571,25 +3091,21 @@ def child(spec_path, rank):
     sparse = SparseTransitionCounter(range(1, spec["sparse_lag"] + 1), n_groups=N_GROUPS,
                                      device=device)
     stats = {}
-    t0 = time.perf_counter()
     for chunk in summarize.iter_chunks(files, spec["sparse_lag"], stats=stats):
         sparse.add_chunk(chunk)
     sparse.flush()
-    count_s = time.perf_counter() - t0
     total = multihost.allreduce_sum_i64([stats["bases"] + stats["reads"]])
     got = []
     for _ in range(2):
-        t0 = time.perf_counter()
         multihost.allreduce_tables(sparse)
-        merge_s.append(round(time.perf_counter() - t0, 3))
         got.append({l: sparse._consolidated(l) for l in sparse.lags})
     check(all(np.array_equal(a, b) for l in sparse.lags for a, b in zip(got[0][l], got[1][l])),
           "the second sparse merge changed the counts")
     sparse.validate(expected_transitions=int(total[0]))
     print(f"{len(files)} of the FASTQ files counted at lags 1..{spec['sparse_lag']} "
-          f"(sparse-first) in {count_s:.3f} s; merges {merge_s} s; both merges' results equal")
+          f"(sparse-first); both merges' results equal")
     np.savez(spec["outs"][rank], dense_rows=answers[0][0], dense_counts=answers[0][1],
-             report=json.dumps({"launches": launches, "merge_s": merge_s, "z": z_report}),
+             report=json.dumps({"launches": launches, "z": z_report}),
              **z_out,
              **{f"{k}_{l}": a for l, (keys, vals) in got[1].items()
                 for k, a in (("keys", keys), ("vals", vals))})
@@ -3610,17 +3126,16 @@ def same_params(a, b, rtol, atol=MESH_ATOL):
     return all(ok for ok, _ in got), max(d for _, d in got)
 
 
-def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", lag=LAG,
+def mesh_train_phase(chunks, b_rec, s_rec, shards, work, device="cuda", lag=LAG,
                      cnn_kw=CNN_KW, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
                      entries=MESH_TRAIN, f64_applies=MESH_F64_APPLIES,
-                     stream_applies=MESH_STREAM_APPLIES, stream_every=MESH_STREAM_EVERY,
-                     profile=True):
+                     stream_applies=MESH_STREAM_APPLIES, stream_every=MESH_STREAM_EVERY):
     """4j (W): data-parallel training at full width over a mesh that names
     ``device`` ``entries`` times. count -> serve's chunks counted again and
     handed off on the device (their count_chunk launches counted from 0);
     float64 applies on the mesh and off it from 4c's start (ELBOs and
     parameters at MESH_RTOL); 4c's float32 protocol on the mesh (its first
-    ELBOs against 4c's CPU float64 ones, applies/s beside 4c's);
+    ELBOs against 4c's CPU float64 ones);
     evaluation(mesh=) against evaluation, float64; train_streaming(mesh=)
     on 4e's lag-13 shards, 4e's first ``stream_applies`` batches, a
     checkpoint every ``stream_every`` applies, resumed after completion
@@ -3668,44 +3183,29 @@ def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", la
     cnn = get_ar_func("cnn", lag, 4, cnn_kw, device=device)
     kw = dict(num_kmers=n_rows, ar_func=cnn, batch_size=batch, learning_rate=TRAIN_LR,
               params_restart=p0, dtype=torch.float32, device=device, mesh=mesh)
-    synchronize(device)
-    t0 = time.perf_counter()
     res = bear_net.train(codes, counts[:, 0], epochs=epochs, **kw)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
     ref = b_rec["elbo_ref"]
     k = len(ref)
     elbo_err = rel_err(res.elbos[:k], ref)
     check(np.isfinite(res.elbos).all() and elbo_err <= ELBO_RTOL,
           f"(W) first {k} ELBOs on the mesh {res.elbos[:k]} differ from 4c's CPU float64 "
           f"{ref} by {elbo_err:.3e}")
-    rate = len(res.elbos) / train_s
-    print(f"[4j] (W) 4c's protocol over the mesh, float32: {len(res.elbos)} applies in "
-          f"{train_s:.3f} s = {rate:.6g} applies/s; 4c's without a mesh {b_rec['applies_per_s']:.6g} "
-          f"applies/s in this run ({rate / b_rec['applies_per_s']:.3f}x); first {k} ELBOs vs "
-          f"4c's CPU float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL}); h {res.h:.6g} "
-          f"[{card}]")
-    if profile:
-        n20 = 20 * batch
-        device_breakdown(f"(W) train lag-13 CNN BEAR over {entries} entries, 20 applies",
-                         lambda: bear_net.train(codes[:n20], counts[:n20, 0], epochs=1, **kw),
-                         card, top=10)
+    print(f"[4j] (W) 4c's protocol over the mesh, float32: {len(res.elbos)} applies; first "
+          f"{k} ELBOs vs 4c's CPU float64 max rel err {elbo_err:.3e} (tolerance {ELBO_RTOL}); "
+          f"h {res.h:.6g}")
 
     # evaluation, float64, on the mesh and off it
     args = (codes, counts, 0, 1, "dna", res.h, ar64, res.params_list[1:], VAN_REG)
-    synchronize(device)
-    t0 = time.perf_counter()
     ev_on = bear_net.evaluation(*args, dtype=torch.float64, device=device, mesh=mesh)
-    eval_s = time.perf_counter() - t0
     ev_off = bear_net.evaluation(*args, dtype=torch.float64, device=device)
     ok = [close(a, b, MESH_RTOL) for a, b in zip(ev_on[:6], ev_off[:6])]
     same_acc = all(np.array_equal(a, b) for a, b in zip(ev_on[6:], ev_off[6:]))
     check(all(o for o, _ in ok) and same_acc,
           f"(W) evaluation(mesh=) differs from evaluation: {[d for _, d in ok]}, accuracies "
           f"equal {same_acc}")
-    print(f"[4j] (W) evaluation(mesh=) float64 {eval_s:.3f} s == evaluation without a mesh "
-          f"(max |d| {max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; accuracies equal); "
-          f"held-out perplexity BEAR {float(ev_on[3]):.6f} [{card}]")
+    print(f"[4j] (W) evaluation(mesh=) float64 == evaluation without a mesh (max |d| "
+          f"{max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; accuracies equal); held-out "
+          f"perplexity BEAR {float(ev_on[3]):.6f}")
 
     # train_streaming over the mesh on 4e's lag-13 shards: 4e's first batches
     F, seed = len(shards), s_rec["seed"]
@@ -3739,11 +3239,7 @@ def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", la
                batch_size=batch, epochs=1, learning_rate=TRAIN_LR, params_restart=s_rec["p0"],
                dtype=torch.float32, device=device, mesh=mesh, block_steps=stream_every,
                checkpoint_every=stream_every, checkpoint_dir=ck)
-    synchronize(device)
-    t0 = time.perf_counter()
     first = bear_net.train_streaming(stream, **skw)
-    synchronize(device)
-    stream_s = time.perf_counter() - t0
     again = bear_net.train_streaming(stream, **skw)
     resumed_same = all(np.array_equal(a, b) for a, b in zip(first.params_list,
                                                             again.params_list))
@@ -3753,22 +3249,18 @@ def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", la
           and s_err <= ELBO_RTOL,
           f"(W) train_streaming(mesh=): {len(first.elbos)} applies, {len(again.elbos)} on "
           f"resume, parameters equal {resumed_same}, first ELBOs vs 4e's {s_err:.3e}")
-    print(f"[4j] (W) train_streaming(mesh=) on 4e's lag-13 shards: {stream_applies} applies "
-          f"({stream_applies / stream_s:.6g} applies/s, shard loads included), a checkpoint "
-          f"every {stream_every}; resumed after completion: no apply run, the same parameters; "
-          f"first {k} ELBOs vs 4e's streamed run max rel err {s_err:.3e} (tolerance "
-          f"{ELBO_RTOL}) [{card}]")
+    print(f"[4j] (W) train_streaming(mesh=) on 4e's lag-13 shards: {stream_applies} applies, "
+          f"a checkpoint every {stream_every}; resumed after completion: no apply run, the same "
+          f"parameters; first {k} ELBOs vs 4e's streamed run max rel err {s_err:.3e} "
+          f"(tolerance {ELBO_RTOL})")
 
     # evaluation_streaming, float64, on the mesh and off it
     for fi in range(F):
         shard(fi)
     eargs = (lambda: ((loaded[fi].codes, loaded[fi].counts) for fi in range(F)), 0, 1, "dna",
              first.h, ar64, first.params_list[1:], VAN_REG)
-    synchronize(device)
-    t0 = time.perf_counter()
     es_on = bear_net.evaluation_streaming(*eargs, dtype=torch.float64, seed=seed, device=device,
                                           mesh=mesh)
-    es_s = time.perf_counter() - t0
     es_off = bear_net.evaluation_streaming(*eargs, dtype=torch.float64, seed=seed,
                                            device=device)
     ok = [close(a, b, MESH_RTOL) for a, b in zip(es_on[:6], es_off[:6])]
@@ -3776,13 +3268,12 @@ def mesh_train_phase(chunks, b_rec, s_rec, shards, work, card, device="cuda", la
     check(all(o for o, _ in ok) and same_acc,
           f"(W) evaluation_streaming(mesh=) differs: {[d for _, d in ok]}, accuracies equal "
           f"{same_acc}")
-    print(f"[4j] (W) evaluation_streaming(mesh=) float64 over {F} shards {es_s:.3f} s == the "
-          f"call without a mesh (max |d| {max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; "
-          f"accuracies equal) [{card}]")
-    return launches, dict(codes=codes, counts=counts, elbos=res.elbos, applies_per_s=rate)
+    print(f"[4j] (W) evaluation_streaming(mesh=) float64 over {F} shards == the call without "
+          f"a mesh (max |d| {max(d for _, d in ok):.3e}, rtol {MESH_RTOL}; accuracies equal)")
+    return launches, dict(codes=codes, counts=counts, elbos=res.elbos)
 
 
-def mesh_cli_phase(out_dir, card, device="cuda", epochs=None, gate=True,
+def mesh_cli_phase(out_dir, device="cuda", epochs=None, gate=True,
                    check_applies=MESH_VBEAR_CHECK, vbear_applies=VBEAR_APPLIES,
                    entries=MESH_TRAIN):
     """4j (X): train_bear_net.main on bear_lin_bear.cfg's values with
@@ -3805,30 +3296,24 @@ def mesh_cli_phase(out_dir, card, device="cuda", epochs=None, gate=True,
     cfg["train"]["data_parallel"] = "True"
     if epochs is not None:
         cfg["train"]["epochs"] = str(epochs)
-    t0 = time.perf_counter()
     train_bear_net.main(cfg, device=device)
-    cli_s = time.perf_counter() - t0
     h, perp = float(cfg["results"]["h"]), float(cfg["results"]["heldout_perplex_BEAR"])
     print(f"[4j] (X) train_bear_net.main, bear_lin_bear.cfg's values, data_parallel = True: "
-          f"{cli_s:.3f} s; h {h:.6g} (published {YSD1_H}), held-out perplexity BEAR "
-          f"{perp:.6f} [{card}]")
+          f"h {h:.6g} (published {YSD1_H}), held-out perplexity BEAR {perp:.6f}")
     if gate:
         check(abs(h / YSD1_H - 1) <= YSD1_H_RTOL and abs(perp - YSD1_PERPLEXITY)
               <= YSD1_PERPLEXITY_ATOL, f"(X) h {h} or BEAR {perp} off the published values")
 
     cfg = ysd1_config(os.path.join(out_dir, "ysd1_ref_dp") + "*")
     cfg["train"].update(epochs="1", train_ar="True", data_parallel="True")
-    t0 = time.perf_counter()
     _, _, perp_van = train_bear_ref.main(cfg, mesh=mesh, device=device)
-    ref_s = time.perf_counter() - t0
     ds = load_dense(bundled_ysd1_path(), "dna", 3)
     calc = bmm_likelihood(ds.counts, np.array(VAN_REG) + EPSILON, device="cpu")[0]
     bmm_err = rel_err(perp_van, np.exp(-calc / ds.counts[:, 0].sum()))
     check(bmm_err <= BMM_RTOL, f"(X) train_bear_ref BMM {perp_van} off bmm_likelihood's by "
           f"{bmm_err:.3e}")
-    print(f"[4j] (X) train_bear_ref.main on YSD1, data_parallel over {mesh}: {ref_s:.3f} s; "
-          f"BMM vs bmm_likelihood float64 max rel err {bmm_err:.3e} (tolerance {BMM_RTOL}) "
-          f"[{card}]")
+    print(f"[4j] (X) train_bear_ref.main on YSD1, data_parallel over {mesh}: BMM vs "
+          f"bmm_likelihood float64 max rel err {bmm_err:.3e} (tolerance {BMM_RTOL})")
 
     kw = dict(batch_size=1500, learning_rate=0.01, seed=10, device=device)
     ar64 = get_ar_func("linear", 5, 4, dtype=torch.float64, device=device)
@@ -3841,23 +3326,18 @@ def mesh_cli_phase(out_dir, card, device="cuda", epochs=None, gate=True,
     check(ok and ok_h, f"(X) vBEAR float64 on the mesh differs: losses {d:.3e}, (mu, sigma) "
           f"{d_h:.3e}")
     ar = get_ar_func("linear", 5, 4, device=device)
-    synchronize(device)
-    t0 = time.perf_counter()
     vb = vbear.train_variational_h(ds.codes, ds.counts[:, 0], ds.num_kmers, ar,
                                    epochs=vbear_applies, dtype=torch.float32, mesh=mesh, **kw)
-    synchronize(device)
-    vb_s = time.perf_counter() - t0
     mu, sigma = vb.h_posterior
     print(f"[4j] (X) vBEAR over the mesh: {check_applies} float64 applies == without a mesh "
-          f"(max |dloss| {d:.3e}, rtol {MESH_RTOL}); {vbear_applies:,} float32 applies in "
-          f"{vb_s:.3f} s = {vbear_applies / vb_s:.6g} applies/s; h {vb.h:.6g}, sigma "
-          f"{sigma:.6g} [{card}]")
+          f"(max |dloss| {d:.3e}, rtol {MESH_RTOL}); {vbear_applies:,} float32 applies; h "
+          f"{vb.h:.6g}, sigma {sigma:.6g}")
     if gate:
         check(abs(vb.h - YSD1_VBEAR_H) / YSD1_VBEAR_H < VBEAR_H_RTOL and sigma < VBEAR_SIGMA_MAX,
               f"(X) vBEAR h {vb.h} not within 25% of {YSD1_VBEAR_H}, or sigma {sigma} >= 0.25")
 
 
-def split_serving_phase(b_rec, s_rec, w_out, out_dir, card, device="cuda", lag=LAG,
+def split_serving_phase(b_rec, s_rec, w_out, out_dir, device="cuda", lag=LAG,
                         cnn_kw=CNN_KW, entries=MESH_TRAIN, n_check=SPLIT_READS,
                         snv_bp=SPLIT_SNV_BP, genome_mb=GENOME_MB):
     """4j (Y): 4c's CNN written to a model directory whose counts are 4e's
@@ -3868,7 +3348,7 @@ def split_serving_phase(b_rec, s_rec, w_out, out_dir, card, device="cuda", lag=L
     (float32); float64 on ``n_check`` reads, MC-41 on them, MAP and MC-41
     SNV Δ on the genome's first ``snv_bp`` bases, split against unsplit at
     SPLIT_RTOL; bmm_likelihood(mesh=) over a ``data`` mesh on (W)'s handoff
-    counts against the call without. Rates and the peak device memory."""
+    counts against the call without."""
     import configparser
     import types
 
@@ -3891,33 +3371,17 @@ def split_serving_phase(b_rec, s_rec, w_out, out_dir, card, device="cuda", lag=L
     seqs = b_rec["seqs"]
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     split = BearServer.from_model_dir(out_dir, mesh=mesh, device=device)
-    setup_s = time.perf_counter() - t0
-    split.score(seqs)  # warm-up
-    synchronize(device)
-    t0 = time.perf_counter()
     got = split.score(seqs)
-    split_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else 0
     lag_, _, h, ar_apply, info = load_bear(out_dir, device=device)
     table = table_from_dataset(load_bear_dataset(info), lag)
-    dense = BearServer(table, lag, h=h, ar_apply=ar_apply, device=device)
-    dense.score(seqs)
-    synchronize(device)
-    t0 = time.perf_counter()
-    want = dense.score(seqs)
-    dense_s = time.perf_counter() - t0
-    del dense
+    want = BearServer(table, lag, h=h, ar_apply=ar_apply, device=device).score(seqs)
     gap = float(np.max(np.abs(got - b_rec["scores"])))
     check(np.array_equal(got, b_rec["scores"]) and np.array_equal(got, want),
           f"(Y) row-split MAP scores differ from 4c's unsplit server's by {gap:.3e}")
-    print(f"[4j] (Y) from_model_dir(mesh={mesh}): set-up {setup_s:.3f} s, {len(seqs)} held-out "
-          f"reads MAP in {split_s:.4f} s = {len(seqs) / split_s:.6g} sequences/s; unsplit "
-          f"{len(seqs) / dense_s:.6g} sequences/s in this run (4c's "
-          f"{b_rec['sequences_per_s']:.6g}); float32 scores bit-equal to 4c's unsplit "
-          f"server's; peak device memory {peak / 2**30:.3f} GiB [{card}]")
+    print(f"[4j] (Y) from_model_dir(mesh={mesh}): {len(seqs)} held-out reads MAP; float32 "
+          f"scores bit-equal to 4c's unsplit server's and to an unsplit server's of the same "
+          f"directory")
     del split
     _, _, h64, ar64, _ = load_bear(dir64, device=device)
     kw = dict(h=h64, ar_apply=ar64, dtype=torch.float64, device=device)
@@ -3940,19 +3404,17 @@ def split_serving_phase(b_rec, s_rec, w_out, out_dir, card, device="cuda", lag=L
         check(ok, f"(Y) float64 {name}: row-split differs from unsplit by {diffs[name]:.3e}")
     del split64, dense64
     print(f"[4j] (Y) float64 row-split == unsplit (rtol {SPLIT_RTOL}), max |d|: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()) + f" [{card}]")
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()))
     counts = w_out["counts"].double()
     alpha = np.array(VAN_REG)
     data_mesh = mesh_of(device, entries, "data")
-    t0 = time.perf_counter()
     on = bmm_likelihood(counts, alpha, mesh=data_mesh, device=device)
-    bmm_s = time.perf_counter() - t0
     off = bmm_likelihood(counts, alpha, device=device)
     ok, d = close(on, off, SPLIT_RTOL)
     check(ok, f"(Y) bmm_likelihood(mesh=) differs from the call without by {d:.3e}")
     print(f"[4j] (Y) bmm_likelihood(mesh={data_mesh}) on (W)'s handoff counts "
-          f"({counts.shape[0]:,} rows, float64): {bmm_s:.3f} s, == without a mesh (max |d| "
-          f"{d:.3e}, rtol {SPLIT_RTOL}) [{card}]")
+          f"({counts.shape[0]:,} rows, float64) == without a mesh (max |d| {d:.3e}, rtol "
+          f"{SPLIT_RTOL})")
 
 
 def z_against_w(z_rec, w_out, k=N_ELBO_CHECK):
@@ -3972,12 +3434,11 @@ def z_train(dense, z, device, lag):
     dataset of the merged table, (W)'s CNN BEAR from the same seed trained
     ``z["applies"]`` float32 applies over ``data_parallel_mesh()``, which
     spans every process (one entry each on the card), then evaluated over
-    it; the gradient sum alone timed. Returns (arrays, report)."""
+    it. Returns (arrays, report)."""
     import torch
     from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import get_ar_func
     from bear_tpu_torch.parallel import data_parallel_mesh, multihost
-    from bear_tpu_torch.parallel.mesh import DataSplit
 
     ds = dense.to_dataset(lag)
     mesh = data_parallel_mesh(device=device)
@@ -3986,31 +3447,17 @@ def z_train(dense, z, device, lag):
     ar = get_ar_func("cnn", lag, 4, z["cnn_kw"], device=device)
     init = bear_net.init_params(torch.Generator().manual_seed(SEED), ar)
     n = z["applies"] * z["batch"]
-    synchronize(device)
-    t0 = time.perf_counter()
     res = bear_net.train(ds.codes[:n], ds.counts[:n, 0], num_kmers=len(ds.codes), ar_func=ar,
                          batch_size=z["batch"], epochs=1, learning_rate=TRAIN_LR,
                          params_restart=[init["h_signed"]] + init["ar"], dtype=torch.float32,
                          mesh=mesh, device=device)
-    synchronize(device)
-    train_s = time.perf_counter() - t0
     check(len(res.elbos) == z["applies"], f"(Z) {len(res.elbos)} applies")
     ev = bear_net.evaluation(ds.codes, ds.counts, 0, 1, "dna", res.h, ar, res.params_list[1:],
                              VAN_REG, dtype=torch.float32, mesh=mesh, device=device)
-    split = DataSplit(mesh, device)
-    grads = [torch.ones_like(p) for p in res.params["ar"]] + [torch.ones(2, device=device)]
-    split.allreduce(grads)  # warm-up
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        split.allreduce(grads)
-    synchronize(device)
-    sync_ms = (time.perf_counter() - t0) / reps * 1e3
     out = {"z_elbos": res.elbos,
            "z_metrics": np.concatenate([np.asarray(m, np.float64).reshape(-1) for m in ev])}
     out.update({f"z_p{i}": p for i, p in enumerate(res.params_list)})
-    return out, {"entries": mesh.size, "train_s": round(train_s, 3),
-                 "sync_ms": round(sync_ms, 3), "grad_numel": sum(g.numel() for g in grads)}
+    return out, {"entries": mesh.size}
 
 
 def z_checkpoints(z, rank, device):
@@ -4059,16 +3506,14 @@ def z_checkpoints(z, rank, device):
 
 def run_example(script, args, timeout=EXAMPLE_TIMEOUT_S):
     """examples/``script`` as a program; its output lines printed with the
-    phase's tag. Returns (rc, stdout, seconds)."""
+    phase's tag. Returns (rc, stdout)."""
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", script)
-    t0 = time.perf_counter()
     out = subprocess.run([sys.executable, path, *args], capture_output=True, text=True,
                          timeout=timeout)
-    wall = time.perf_counter() - t0
     for line in (out.stdout + out.stderr).splitlines():
         if "socket.cpp" not in line:  # gloo's hostname warning
             print(f"[4k] {script}: {line}")
-    return out.returncode, out.stdout, wall
+    return out.returncode, out.stdout
 
 
 def bench_line(stdout):
@@ -4077,7 +3522,7 @@ def bench_line(stdout):
     return json.loads(lines[0][len("BENCH "):])
 
 
-def genome_example_phase(b_rec, card, argv=(), device="cuda", want_rows=GENOME_ROWS,
+def genome_example_phase(b_rec, argv=(), device="cuda", want_rows=GENOME_ROWS,
                          want_transitions=GENOME_TRANSITIONS):
     """4k (AA): examples/torch_genome_lag13.py's main(argv) in this process,
     by default at its defaults on the card. Gates: one count_chunk launch
@@ -4089,9 +3534,7 @@ def genome_example_phase(b_rec, card, argv=(), device="cuda", want_rows=GENOME_R
     from bear_tpu_torch.counting.count_chunk import count_chunk_update
 
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     out = genome.main(list(argv))
-    wall = time.perf_counter() - t0
     launches = count_chunk_update.launches
     n_chunks = -(-out["reads"] // CHUNK_ROWS) if device == "cuda" else 0
     check(launches == n_chunks, f"(AA) launched count_chunk {launches} times for "
@@ -4107,54 +3550,47 @@ def genome_example_phase(b_rec, card, argv=(), device="cuda", want_rows=GENOME_R
           f"{bmm_err:.3e}")
     check(all(np.isfinite(np.asarray(o)).all() for o in out["evaluation"]),
           "(AA) evaluation not finite")
-    print(f"[4k] (AA) torch_genome_lag13.main({list(argv)}) in {wall:.3f} s: {launches} "
-          f"count_chunk launches, {out['rows']:,} rows (== 4c's), {handed:,} transitions conserved, "
-          f"counting {out['count_s']:.4f} s = {out['transitions'] / out['count_s']:.6g} "
-          f"transitions/s; BMM {bmm.tolist()} vs 4c's max rel err {bmm_err:.3e} "
-          f"(tolerance {GENOME_BMM_RTOL}); stages "
-          f"{[(n, round(t, 3)) for n, t in out['stages']]} [{card}]")
+    print(f"[4k] (AA) torch_genome_lag13.main({list(argv)}): {launches} count_chunk launches, "
+          f"{out['rows']:,} rows (== 4c's), {handed:,} transitions conserved; BMM "
+          f"{bmm.tolist()} vs 4c's max rel err {bmm_err:.3e} (tolerance {GENOME_BMM_RTOL})")
     del out
     if device == "cuda":
         torch.cuda.empty_cache()
     return launches
 
 
-def multihost_examples_phase(work, card, extra=(), want_transitions=MH_COUNT_TRANSITIONS):
+def multihost_examples_phase(work, extra=(), want_transitions=MH_COUNT_TRANSITIONS):
     """4k (AB) and (AC): the two multi-process programs, two gloo processes
     each, by default at their defaults on the card (``extra`` arguments go
-    to every run). Returns the seconds of each run."""
-    rc, stdout, ab_s = run_example("torch_multihost_counting.py",
-                                   ["--nproc", "2", "--bench", "--workdir",
-                                    os.path.join(work, "mh_count"), *extra])
+    to every run). Returns the bench records of the three runs."""
+    rc, stdout = run_example("torch_multihost_counting.py",
+                             ["--nproc", "2", "--bench", "--workdir",
+                              os.path.join(work, "mh_count"), *extra])
     check(rc == 0, f"(AB) torch_multihost_counting exited {rc}")
     rec = bench_line(stdout)
     check(rec["global_transitions_per_lag"] == want_transitions,
           f"(AB) {rec['global_transitions_per_lag']:,} transitions per lag, not "
           f"{want_transitions:,}")
-    print(f"[4k] (AB) torch_multihost_counting --nproc 2 --bench in {ab_s:.3f} s: "
-          f"{rec['global_transitions_per_lag']:,} transitions per lag at lags {rec['lags']}, "
-          f"per process {rec['per_host_transitions_per_sec']} transitions/s, count "
-          f"{rec['count_seconds']} s, merge {rec['merge_seconds']} s on {rec['device']} "
-          f"[{card}]")
-    recs, walls = [], [ab_s]
+    print(f"[4k] (AB) torch_multihost_counting --nproc 2 --bench: "
+          f"{rec['global_transitions_per_lag']:,} transitions per lag at lags {rec['lags']} on "
+          f"{rec['device']}")
+    recs = [rec]
     for mode in ([], ["--streaming"]):
-        rc, stdout, wall = run_example("torch_multihost_train.py",
-                                       ["--nproc", "2", "--bench", "--workdir",
-                                        os.path.join(work, "mh_train"), *mode, *extra])
+        rc, stdout = run_example("torch_multihost_train.py",
+                                 ["--nproc", "2", "--bench", "--workdir",
+                                  os.path.join(work, "mh_train"), *mode, *extra])
         check(rc == 0, f"(AC) torch_multihost_train {mode} exited {rc}")
         rec = bench_line(stdout)
         hs = re.findall(r"^\[rank \d+\] OK h=(.*)$", stdout, re.M)
         check(len(hs) == 2 and float(hs[0]) == float(hs[1]) == rec["h"],
               f"(AC) the ranks' h differ: {hs}")
         recs.append(rec)
-        walls.append(wall)
-        print(f"[4k] (AC) torch_multihost_train --nproc 2 --bench {' '.join(mode)} in "
-              f"{wall:.3f} s: {rec['kmers']:,} k-mers, {rec['devices']} mesh entries, "
-              f"{rec['steps_per_sec']} steps/s, h {rec['h']!r} on both ranks, BEAR perplexity "
-              f"{rec['bear_perplexity']:.6f} on {rec['device']} [{card}]")
-    check(recs[0]["kmers"] == recs[1]["kmers"],
-          f"(AC) k-mers differ between the runs: {[r['kmers'] for r in recs]}")
-    return walls
+        print(f"[4k] (AC) torch_multihost_train {' '.join(['--nproc', '2', '--bench', *mode])}: "
+              f"{rec['kmers']:,} k-mers, {rec['devices']} mesh entries, h {rec['h']!r} on both "
+              f"ranks, BEAR perplexity {rec['bear_perplexity']:.6f} on {rec['device']}")
+    check(recs[1]["kmers"] == recs[2]["kmers"],
+          f"(AC) k-mers differ between the runs: {[r['kmers'] for r in recs[1:]]}")
+    return recs
 
 
 def main() -> int:
@@ -4170,7 +3606,6 @@ def main() -> int:
     from bear_tpu_torch.counting.count_chunk import count_chunk_plain, count_chunk_update
     from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
     from bear_tpu_torch.inference.serving import BearServer
-    from bear_tpu_torch.models import bear_net
     from bear_tpu_torch.models.ar_funcs import LinearAR
     from bear_tpu_torch.ops import attention_forward, cnn_forward, keyed_draw
 
@@ -4182,91 +3617,40 @@ def main() -> int:
     print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # 2. build: every kernel, one nvcc per source, all started together
-    t0 = time.perf_counter()
     libs = _build.build([window_hist.SOURCE, count_chunk.SOURCE, keyed_draw.SOURCE,
                          cnn_forward.SOURCE, attention_forward.SOURCE])
-    print(f"[build] {', '.join(p.name for p in libs.values())} in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[build] {', '.join(p.name for p in libs.values())}")
     for p in libs.values():
         log = p.with_suffix(".log")
         if log.exists():
             print("[build] ptxas: " + " | ".join(
                 l.strip() for l in log.read_text().splitlines() if l.strip()))
 
-    # 3. kernels against their plain versions on the card
-    hist_err = 0
-    for name, base, keys in hist_edge_cases(dev):
-        a = window_update(base.clone(), keys)
-        b = window_update_plain(base.clone(), keys)
-        torch.cuda.synchronize()
-        err = int((a.long() - b.long()).abs().max())
-        hist_err = max(hist_err, err)
-        check(torch.equal(a, b), f"window_hist differs from plain on {name}: {err}")
-        print(f"[kernel] window_hist == plain on {name} ({keys.numel()} keys)")
-
-    count_err = 0
-
-    def hold_count_chunk(name, lags, n_groups, A, passes):
-        nonlocal count_err
-        a, b = count_chunk_vs_plain(dev, lags, n_groups, A, passes)
-        err = int((a.long() - b.long()).abs().max())
-        count_err = max(count_err, err)
-        check(torch.equal(a, b), f"count_chunk differs from plain on {name}: {err}")
-        print(f"[kernel] count_chunk == plain on {name} ({len(passes)} launches, "
-              f"{int(a.sum()):,} transitions, max_abs_err {err})")
-
-    for name in COUNT_CASES:
-        hold_count_chunk(name, *count_case(name))
-
-    # count_chunk's row-range form (phase 4g's passes) on the same inputs
-    for name in [n for n, _ in SHARD_CASES] + ["poly_t_lag15"]:
-        lags, n_groups, A, inputs, passes, pass_ids = shard_case(name)
-        totals = []
-        for d in pass_ids:
-            a, b = shard_vs_plain(dev, lags, n_groups, A, inputs, passes, d)
-            differ = a != b
-            err = int((a[differ].long() - b[differ].long()).abs().max()) if bool(
-                differ.any()) else 0
-            count_err = max(count_err, err)
-            check(err == 0, f"count_chunk's row-range form differs from plain on {name}, "
-                  f"pass {d} of {passes}: {err}")
-            totals.append(int(a.sum()))
-            del a, b, differ
-        check(all(totals) if name == "poly_t_lag15" else sum(totals) > 0,
-              f"row-range case {name} counted nothing in a pass: {totals}")
-        print(f"[kernel] count_chunk row-range form == plain on {name}: {len(inputs)} "
-              f"launches in each of passes {pass_ids} of {passes}, transitions per pass "
-              f"{totals}, max_abs_err 0")
-    torch.cuda.empty_cache()
-
-    # keyed_draw on seeded rows of both alphabets, every proposal count,
-    # both types and modes
-    for A1, F, dtype, mode in KEYED_DRAW_CASES:
-        keyed_draw_held(f"A1 {A1}, F {F}, {dtype}, {mode}, (S, E, G) {KEYED_DRAW_SHAPE}",
-                        keyed_draw_vs_plain(keyed_draw_inputs(A1, dtype, dev), F, mode))
-    torch.cuda.empty_cache()
-
+    # 3. the counting kernels against their plain versions on the main
+    # path's chunk 0, then each timed alone there (the edge cases are
+    # tests/test_torch_cuda.py's)
     reads, groups = make_reads()
     n_reads = len(reads)
     chunks = list(read_chunks(reads, groups))
     _, total = count_chunk.lag_offsets((LAG,), N_GROUPS)
     c0 = chunks[0]
     meta0 = count_chunk.pack_meta(c0.lengths, c0.skip, c0.stopped, c0.groups, c0.fresh)
-    hold_count_chunk("the main path's chunk 0", (LAG,), N_GROUPS, 4, [(c0.codes, meta0)])
+    a, b = count_chunk_vs_plain(dev, (LAG,), N_GROUPS, 4, [(c0.codes, meta0)])
+    count_err = int((a.long() - b.long()).abs().max())
+    check(torch.equal(a, b), f"count_chunk differs from plain on the main path's chunk 0: "
+          f"{count_err}")
+    print(f"[kernel] count_chunk == plain on the main path's chunk 0 (1 launch, "
+          f"{int(a.sum()):,} transitions, max_abs_err {count_err})")
+    del a, b
     codes = torch.from_numpy(c0.codes).to(dev)
     meta = torch.from_numpy(meta0).to(dev)
     lengths, skip, stopped, grp, _ = count_chunk.unpack_meta(meta)
-
-    def chunk0_keys():  # the earlier keys design's index math, on the card
-        return count_chunk.chunk_keys(codes, lengths, skip, stopped, grp, (LAG,),
-                                      N_GROUPS, 4, sentinel=total)
-
-    keys = chunk0_keys()
+    keys = count_chunk.chunk_keys(codes, lengths, skip, stopped, grp, (LAG,), N_GROUPS, 4,
+                                  sentinel=total)
     a = window_update(torch.zeros(total, dtype=torch.int32, device=dev), keys)
     b = window_update_plain(torch.zeros(total, dtype=torch.int32, device=dev), keys)
-    err = int((a - b).abs().max())
-    hist_err = max(hist_err, err)
-    check(torch.equal(a, b), f"window_hist differs from plain on chunk 0: {err}")
+    hist_err = int((a - b).abs().max())
+    check(torch.equal(a, b), f"window_hist differs from plain on chunk 0: {hist_err}")
     print(f"[kernel] window_hist == plain on the main path's chunk 0 ({keys.numel():,} keys)")
     del a, b
 
@@ -4277,11 +3661,7 @@ def main() -> int:
     ones = torch.ones_like(valid)
     sectors = int(torch.unique(valid // 8).numel())  # 8 int32 per 32 B sector
     n_keys = keys.numel()
-
-    def hist(k):
-        return lambda: window_update(table, k)
-
-    kernel_ms = timed_ms(hist(keys), 20, l2_flush)
+    kernel_ms = timed_ms(lambda: window_update(table, keys), 20, l2_flush)
     plain_ms = timed_ms(lambda: window_update_plain(table, keys), 20, l2_flush)
     library_ms = timed_ms(
         lambda: table.index_put_((valid_long,), ones, accumulate=True), 20, l2_flush)
@@ -4295,30 +3675,10 @@ def main() -> int:
           f"library_ms {library_ms:.6f} (index_put_ accumulate) bound_ms "
           f"{bound_ms:.6f} ({bound_by}) [{card}]")
 
-    # What holds the atomics back: (a) as above, (b) the same keys sorted
-    # (same-address adds adjacent, sectors in address order), (c) without
-    # the L2 eviction (the ~17 MB of touched sectors stay in the 50 MB L2),
-    # (d) as many distinct keys in address order (8 adds per sector, no
-    # repeats); then (a) again, as the turns run a, b, c, d, a.
-    sorted_keys = torch.sort(keys).values
-    dense_keys = torch.arange(n_keys, dtype=torch.int32, device=dev)
-    abl = [timed_ms(hist(keys), 20, l2_flush), timed_ms(hist(sorted_keys), 20, l2_flush),
-           timed_ms(hist(keys), 20, None), timed_ms(hist(dense_keys), 20, l2_flush),
-           timed_ms(hist(keys), 20, l2_flush)]
-    distinct = int(torch.unique(valid).numel())
-    lines = int(torch.unique(valid // 32).numel())  # 32 int32 per 128 B L2 line
-    print(f"[ablation] window_hist on chunk 0's keys ({distinct:,} distinct, {lines:,} "
-          f"128 B lines; (d): {n_keys // 32:,} lines): (a) as "
-          f"today {abl[0]:.6f} ms, (b) sorted {abl[1]:.6f} ms, (c) without L2 eviction "
-          f"{abl[2]:.6f} ms, (d) distinct keys in address order {abl[3]:.6f} ms, "
-          f"(a) again {abl[4]:.6f} ms [{card}]")
-    del sorted_keys, dense_keys
-
     count_ms = timed_ms(
         lambda: count_chunk_update(table, codes, meta, (LAG,), N_GROUPS, 4), 20, l2_flush)
     count_plain_ms = timed_ms(
         lambda: count_chunk_plain(table, codes, meta, (LAG,), N_GROUPS, 4), 20, l2_flush)
-    earlier_ms = timed_ms(lambda: window_update(table, chunk0_keys()), 20, l2_flush)
     n_pos = codes.shape[0] * (codes.shape[1] + 1)
     count_bytes_ms = (codes.numel() + 4 * meta.numel() + 2 * 32 * sectors) / HBM_BYTES_PER_S * 1e3
     count_ops_ms = n_pos * (ROLL_OPS + KEY_OPS) / FP32_OPS_PER_S * 1e3
@@ -4328,9 +3688,8 @@ def main() -> int:
     print(f"[kernel] count_chunk at the main path's chunk: {codes.shape[0]:,} x "
           f"{codes.shape[1]} codes, {n_pos:,} positions ({valid.numel():,} counted, "
           f"{sectors:,} table sectors): ms {count_ms:.6f} plain_ms {count_plain_ms:.6f} "
-          f"bound_ms {count_bound_ms:.6f} ({count_bound_by}) earlier_ms {earlier_ms:.6f} "
-          f"(chunk_keys + window_hist) library_ms {library_ms:.6f} (index_put_ on the "
-          f"chunk's keys); launch {count_shape} [{card}]")
+          f"bound_ms {count_bound_ms:.6f} ({count_bound_by}) library_ms {library_ms:.6f} "
+          f"(index_put_ on the chunk's keys); launch {count_shape} [{card}]")
     del table, l2_flush, valid, valid_long, ones, keys, codes, meta
     del lengths, skip, stopped, grp
     torch.cuda.empty_cache()
@@ -4338,15 +3697,10 @@ def main() -> int:
     # 4. main path: counts set to 0 just before it, read just after
     window_update.launches = 0
     count_chunk_update.launches = 0
-    t0 = time.perf_counter()
     counter = engine.TransitionCounter(lags=[LAG], n_groups=N_GROUPS)
-    for i, chunk in enumerate(chunks):
+    for chunk in chunks:
         counter.add_chunk(chunk)
-        if i == 0:  # the table and the first pinned staging set are allocated
-            counter.sync()
-            first_s = time.perf_counter() - t0
     counter.sync()
-    count_s = time.perf_counter() - t0
     expected = n_reads * (READ_LEN + 1)
     counter.validate(expected)
     # Phase 4e's reference: the nonzero rows and their counts, read on the card.
@@ -4356,60 +3710,19 @@ def main() -> int:
     distinct = int(np.count_nonzero(tables[0].sum(axis=1)))
     print(f"[count] {n_reads:,} reads, {expected:,} transitions at lag {LAG} "
           f"conserved; {distinct:,} distinct train contexts")
-    print(f"[count] {count_s:.4f} s = {expected / count_s:.6g} transitions/s; the "
-          f"first chunk (with the table's and staging's allocation) {first_s:.4f} s, "
-          f"the other {len(chunks) - 1} chunks {count_s - first_s:.4f} s "
-          f"[{card}]")
 
     test_reads = reads[np.flatnonzero(groups == 1)[:N_SCORE]]
     seqs = decode_reads(test_reads)
     ar = LinearAR(LAG, 4, generator=torch.Generator().manual_seed(SEED))
     server = BearServer(tables[0], LAG, h=H, ar_apply=ar)
-    server.score(seqs)  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     scores = server.score(seqs)
-    serve_s = time.perf_counter() - t0
     launches = count_chunk_update.launches
     hist_launches = window_update.launches
-    print(f"[serve] {len(seqs)} held-out reads, MAP: {serve_s:.4f} s = "
-          f"{len(seqs) / serve_s:.6g} sequences/s [{card}]")
     check(launches == len(chunks),
           f"the main path launched count_chunk {launches} times for {len(chunks)} chunks")
     print(f"[count] kernel launches on the main path: count_chunk {launches} "
           f"({len(chunks)} chunks), window_hist {hist_launches} (off the main path)")
-
-    # The main path's table allocation, alone.
     del counter
-    torch.cuda.empty_cache()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fresh_table = torch.zeros(total, dtype=torch.int32, device=dev)
-    torch.cuda.synchronize()
-    print(f"[count] set-up alone: table of {total:,} int32 allocated and zeroed on "
-          f"the card in {time.perf_counter() - t0:.4f} s [{card}]")
-    del fresh_table
-    torch.cuda.empty_cache()
-
-    # Where the main path's time goes (after its counts were read), in
-    # steady state: the table and both pinned staging sets are allocated
-    # before the windows.
-    prof_counter = engine.TransitionCounter(lags=[LAG], n_groups=N_GROUPS)
-    for chunk in chunks[:2]:
-        prof_counter.add_chunk(chunk)
-
-    def count_four(first):
-        def run():
-            for chunk in chunks[first : first + 4]:
-                prof_counter.add_chunk(chunk)
-            prof_counter.sync()
-        return run
-
-    device_breakdown("count, 4 chunks", count_four(2), card)
-    host_breakdown("count, 4 chunks", count_four(10))
-    del prof_counter
-    data_sharded_breakdown(chunks, card)
-    device_breakdown(f"serve, {len(seqs)} reads", lambda: server.score(seqs), card)
     torch.cuda.empty_cache()
 
     ar64 = LinearAR(LAG, 4, dtype=torch.float64, device="cpu")
@@ -4421,8 +3734,8 @@ def main() -> int:
     diff = np.abs(scores - ref)
     check(bool((diff <= SCORE_ATOL + SCORE_RTOL * np.abs(ref)).all()),
           f"GPU float32 scores differ from CPU float64: max {diff.max()}")
-    print(f"[serve] float32 card vs float64 CPU: max |diff| {diff.max():.3e} "
-          f"(tolerance {SCORE_ATOL} + {SCORE_RTOL}*|score|); scores "
+    print(f"[serve] {len(seqs)} held-out reads, MAP, float32 card vs float64 CPU: max |diff| "
+          f"{diff.max():.3e} (tolerance {SCORE_ATOL} + {SCORE_RTOL}*|score|); scores "
           f"{ref.min():.3f}..{ref.max():.3f}")
     train_table = tables[0]  # the main path's counts, for phase 4d
     del server, tables, ar, ar64
@@ -4433,10 +3746,10 @@ def main() -> int:
     # 4d. sampled serving and variant scoring with 4c's model, on the main
     # path's table, and the score CLI on 4b's model
     with tempfile.TemporaryDirectory() as tmp:
-        ysd1, ysd1_kw = ysd1_phase(os.path.join(tmp, "ysd1"), card)
+        ysd1_phase(os.path.join(tmp, "ysd1"))
         b_rec = {}  # what phase 4j holds its mesh runs against
-        launches_4c, codes_d, counts_d, cnn, p0, n_rows = lag13_train_phase(
-            chunks, reads, groups, os.path.join(tmp, "cnn"), card, record=b_rec)
+        launches_4c, codes_d, counts_d, _, _, n_rows = lag13_train_phase(
+            chunks, reads, groups, os.path.join(tmp, "cnn"), record=b_rec)
         check(launches_4c == len(chunks),
               f"4c launched count_chunk {launches_4c} times for {len(chunks)} chunks")
         torch.cuda.empty_cache()
@@ -4455,171 +3768,112 @@ def main() -> int:
               f"window math is PyTorch ops)")
     torch.cuda.empty_cache()
 
-    # Where training's time goes.
-    def ysd1_200():
-        bear_net.train(ysd1.codes, ysd1.counts[:, 0], epochs=200, **ysd1_kw)
-
-    device_breakdown("train YSD1 linear BEAR, 200 applies", ysd1_200, card, top=10)
-    host_breakdown("train YSD1 linear BEAR, 200 applies", ysd1_200, top=10)
-    n_prof = 20 * TRAIN_BATCH
-    device_breakdown("train lag-13 CNN BEAR, 20 applies",
-                     lambda: bear_net.train(codes_d[:n_prof], counts_d[:n_prof, 0],
-                                            num_kmers=n_rows, ar_func=cnn,
-                                            batch_size=TRAIN_BATCH, epochs=1,
-                                            learning_rate=TRAIN_LR, params_restart=p0,
-                                            dtype=torch.float32), card, top=10)
-
     # 4e. the on-disk workflow: reads as FASTQ -> summarize -l 13 (its
     # count_chunk launches counted from 0 just before, read just after) ->
     # lag-13 TSV shards -> the streaming training CLI -> scoring
-    t_4e = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        s_run = summarize_phase(reads, groups, p4_rows, p4_counts, os.path.join(tmp, "disk"),
-                                card)
+        s_run = summarize_phase(reads, groups, p4_rows, p4_counts, os.path.join(tmp, "disk"))
         torch.cuda.empty_cache()
         s_chunk = summarize_chunk_timing(s_run["files"][0][0], card, dev)
         torch.cuda.empty_cache()
         s_rec = {}
         streaming_train_phase(s_run["prefix"], s_run["shards"], reads, groups,
-                              os.path.join(tmp, "stream"), card, record=s_rec)
-        print(f"[stream] phase 4e {time.perf_counter() - t_4e:.3f} s (profiles and checks "
-              f"included) [{card}]")
+                              os.path.join(tmp, "stream"), record=s_rec)
 
         # 4f. generation and the other models, in 4e's directory: each path's
         # count_chunk launches counted from 0 just before it, read just after
-        t_4f = [time.perf_counter()]
-        ref_launches = reference_phase(reads, chunks, os.path.join(tmp, "ref"), card)
+        ref_launches = reference_phase(reads, chunks, os.path.join(tmp, "ref"))
         torch.cuda.empty_cache()
-        t_4f.append(time.perf_counter())
-        vbear_phase(card)
-        t_4f.append(time.perf_counter())
-        lag_launches, lag_table = lag_select_phase(s_run["csv"], s_run["prefix"], card)
+        vbear_phase()
+        lag_launches, lag_table = lag_select_phase(s_run["csv"], s_run["prefix"])
         torch.cuda.empty_cache()
-        t_4f.append(time.perf_counter())
         asm_launches = assembly_phase(reads, groups, s_run["csv"], os.path.join(tmp, "stream"),
-                                      os.path.join(tmp, "assemble"), card, keyed=keyed_by_path)
+                                      os.path.join(tmp, "assemble"), keyed=keyed_by_path)
         torch.cuda.empty_cache()
-        t_4f.append(time.perf_counter())
 
         # 4g. counting beyond the dense table, in 4e's directory: each path's
         # count_chunk launches counted from 0 just before it, read just after
         # (the sparse-first path sorts keys and launches none)
-        t_4g = [time.perf_counter()]
         work = os.path.join(tmp, "beyond")
         ref_rows = distinct_rows(reads, SPARSE_LAG, dev)
         torch.cuda.empty_cache()
         print(f"[4g] plain torch.unique recount: distinct context rows at lags 1..{SPARSE_LAG} "
-              f"{[ref_rows[l] for l in range(1, SPARSE_LAG + 1)]} in "
-              f"{time.perf_counter() - t_4g[0]:.3f} s [{card}]")
-        p_run = passes_phase(s_run, ref_rows, work, card)
+              f"{[ref_rows[l] for l in range(1, SPARSE_LAG + 1)]}")
+        p_run = passes_phase(s_run, ref_rows, work)
         torch.cuda.empty_cache()
         shard_chunk = summarize_chunk_timing(s_run["files"][0][0], card, dev, lag=PASSES_LAG,
                                              passes=p_run["passes"])
         torch.cuda.empty_cache()
-        t_4g.append(time.perf_counter())
-        sparse_counter, model_dir = sparse_phase(s_run, p_run, ref_rows, work, card)
+        sparse_counter, model_dir = sparse_phase(s_run, p_run, ref_rows, work)
         torch.cuda.empty_cache()
-        t_4g.append(time.perf_counter())
         cli_passes = sparse_lag_phase(sparse_counter, lag_table, s_run["csv"], p_run["passes"],
-                                      p_run["chunks"], card)
+                                      p_run["chunks"])
         torch.cuda.empty_cache()
-        t_4g.append(time.perf_counter())
-        sparse_generation_phase(sparse_counter, model_dir, reads, groups, card,
-                                keyed=keyed_by_path)
+        sparse_generation_phase(sparse_counter, model_dir, reads, groups, keyed=keyed_by_path)
         del sparse_counter
         torch.cuda.empty_cache()
-        t_4g.append(time.perf_counter())
 
         # 4h. the remaining model options: (P) attention BEAR through the CLI,
         # (Q) the seven optax optimizers, (R) bfloat16 compute on 4c's handoff;
         # none of them counts, so count_chunk's launches here stay 0
-        from bear_tpu_torch.utils.profiling import StageTimer
-
         count_chunk_update.launches = 0
         window_update.launches = 0
-        timer = StageTimer()
         attention_forward.launches = 0
-        with timer.stage("(P) attention"):
-            attention_phase(os.path.join(tmp, "attn"), card)
+        attention_phase(os.path.join(tmp, "attn"))
         attn_launches = {"attention_cli": attention_forward.launches}
         check(attn_launches["attention_cli"] > 0,
               "(P)'s evaluation under no_grad ran without launching attention_forward")
         torch.cuda.empty_cache()
-        with timer.stage("(P) attention serving"):
-            attn_launches["scoring"] = attention_serving_launches(train_table, seqs, card)
+        attn_launches["scoring"] = attention_serving_launches(train_table, seqs)
         del train_table
         torch.cuda.empty_cache()
-        with timer.stage("(P) attention_forward"):
-            d_attn = attention_forward_timing(card)
+        d_attn = attention_forward_timing(card)
         torch.cuda.empty_cache()
-        with timer.stage("(Q) optimizers"):
-            optimizer_phase(card)
+        optimizer_phase()
         torch.cuda.empty_cache()
-        with timer.stage("(R) bfloat16"):
-            bf16_phase(codes_d, counts_d, n_rows, os.path.join(tmp, "trace"), card)
+        bf16_phase(codes_d, counts_d, n_rows, os.path.join(tmp, "trace"))
         del codes_d, counts_d
         torch.cuda.empty_cache()
-        print(f"[4h] phase 4h {sum(t for _, t in timer.stages):.3f} s: "
-              + ", ".join(f"{n} {t:.3f} s" for n, t in timer.stages)
-              + f" (StageTimer; checks and CPU references included); kernel launches in 4h: "
-              f"count_chunk {count_chunk_update.launches}, window_hist {window_update.launches}, "
-              f"attention_forward by path {attn_launches} (the options are PyTorch ops) "
-              f"[{card}]")
+        print(f"[4h] kernel launches in 4h: count_chunk {count_chunk_update.launches}, "
+              f"window_hist {window_update.launches}, attention_forward by path "
+              f"{attn_launches} (the options are PyTorch ops)")
 
         # 4i. counting across devices and processes, in 4e's directory: (S)
         # the data-sharded counter, (T) the row-split counter, (U) the sparse
         # counter's mesh=, (V) two processes merged by allreduce_tables; each
         # path's count_chunk launches counted from 0 just before it
-        t_4i = time.perf_counter()
-        launches_s, s_s = data_sharded_phase(chunks, p4_rows, p4_counts, count_s, card)
+        launches_s = data_sharded_phase(chunks, p4_rows, p4_counts)
         torch.cuda.empty_cache()
-        launches_t, t_s = row_split_phase(s_run, ref_rows, work, card)
+        launches_t = row_split_phase(s_run, ref_rows, work)
         torch.cuda.empty_cache()
-        mesh_counter, u_s = sparse_mesh_phase(s_run, ref_rows, os.path.join(work, "sparse", "run"),
-                                              work, card)
+        mesh_counter = sparse_mesh_phase(s_run, ref_rows, os.path.join(work, "sparse", "run"),
+                                         work)
         torch.cuda.empty_cache()
         z_rec = {}  # (V)'s children also run phase 4j (Z)
-        launches_v, v_s = two_process_phase(
-            s_run, p4_rows, p4_counts, mesh_counter, work, card,
+        launches_v = two_process_phase(
+            s_run, p4_rows, p4_counts, mesh_counter, work,
             z=dict(cnn_kw=CNN_KW, batch=TRAIN_BATCH, applies=Z_APPLIES), record=z_rec)
         del mesh_counter
-        print(f"[4i] phase 4i {time.perf_counter() - t_4i:.3f} s: (S) {s_s:.3f} s, (T) "
-              f"{t_s:.3f} s, (U) {u_s:.3f} s, (V) {v_s:.3f} s (checks and (Z) included); "
-              f"count_chunk launches (S) {launches_s}, (T) {launches_t}, (V) {launches_v} "
-              f"[{card}]")
         torch.cuda.empty_cache()
 
         # 4j. data parallelism on the card, in 4e's directory: (W) training
         # over a mesh (its recount's count_chunk launches counted from 0 just
         # before it), (X) the CLIs and vBEAR, (Y) row-split serving and the
         # likelihood; (Z) ran in (V)'s children and is held against (W) here
-        t_4j = [time.perf_counter()]
-        launches_w, w_out = mesh_train_phase(chunks, b_rec, s_rec, s_run["shards"], work, card)
+        launches_w, w_out = mesh_train_phase(chunks, b_rec, s_rec, s_run["shards"], work)
         z_against_w(z_rec, w_out)
         torch.cuda.empty_cache()
-        t_4j.append(time.perf_counter())
-        mesh_cli_phase(os.path.join(tmp, "dp"), card)
+        mesh_cli_phase(os.path.join(tmp, "dp"))
         torch.cuda.empty_cache()
-        t_4j.append(time.perf_counter())
-        split_serving_phase(b_rec, s_rec, w_out, os.path.join(tmp, "split"), card)
+        split_serving_phase(b_rec, s_rec, w_out, os.path.join(tmp, "split"))
         del w_out
         torch.cuda.empty_cache()
-        t_4j.append(time.perf_counter())
-        spans_4j = np.diff(t_4j)
-        print(f"[4j] phase 4j {t_4j[-1] - t_4j[0]:.3f} s: (W) {spans_4j[0]:.3f} s, (X) "
-              f"{spans_4j[1]:.3f} s, (Y) {spans_4j[2]:.3f} s ((Z) inside 4i's (V)); checks and "
-              f"profiles included; count_chunk launches (W) {launches_w} [{card}]")
 
         # 4k. the example programs: (AA) torch_genome_lag13 in this process
         # (its count_chunk launches counted from 0 just before it), (AB) and
         # (AC) the multi-process programs, each process on the card
-        t_4k = time.perf_counter()
-        launches_aa = genome_example_phase(b_rec, card)
-        aa_s = time.perf_counter() - t_4k
-        walls = multihost_examples_phase(work, card)
-        print(f"[4k] phase 4k {time.perf_counter() - t_4k:.3f} s: (AA) {aa_s:.3f} s, (AB) "
-              f"{walls[0]:.3f} s, (AC) {walls[1]:.3f} + {walls[2]:.3f} s; count_chunk "
-              f"launches (AA) {launches_aa} [{card}]")
+        launches_aa = genome_example_phase(b_rec)
+        multihost_examples_phase(work)
 
     count_err = max(count_err, int(s_chunk["max_abs_err"]), int(shard_chunk["max_abs_err"]))
     by_path = {"count_serve": launches, "summarize": s_run["launches"],
@@ -4632,15 +3886,8 @@ def main() -> int:
     check(set(keyed_by_path) == set(KEYED_DRAW_PATHS)
           and all(n > 0 for n in keyed_by_path.values()),
           f"a sampled path ran without launching keyed_draw: {keyed_by_path}")
-    print(f"[sample] keyed_draw launches by path {keyed_by_path} [{card}]")
-    spans_4f, spans_4g = np.diff(t_4f), np.diff(t_4g)
-    print(f"[4f] phase 4f {t_4f[-1] - t_4f[0]:.3f} s: (H) {spans_4f[0]:.3f} s, (I) "
-          f"{spans_4f[1]:.3f} s, (J) {spans_4f[2]:.3f} s, (K) {spans_4f[3]:.3f} s (checks, CPU "
-          f"references and profiles included); count_chunk launches by path {by_path} [{card}]")
-    print(f"[4g] phase 4g {t_4g[-1] - t_4g[0]:.3f} s: recount + (L) + the row-range chunk "
-          f"{spans_4g[0]:.3f} s, (M) {spans_4g[1]:.3f} s, (N) {spans_4g[2]:.3f} s, (O) "
-          f"{spans_4g[3]:.3f} s (checks and CPU references included); the sparse-first path "
-          f"launched no count_chunk, as designed [{card}]")
+    print(f"[count] count_chunk launches by path {by_path}")
+    print(f"[sample] keyed_draw launches by path {keyed_by_path}")
 
     # 5. kernels, then the device line
     print(json.dumps({"kernels": [{

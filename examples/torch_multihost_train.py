@@ -181,13 +181,13 @@ def worker(args) -> None:
         # splice in between.
         sys.stdout.write(line + "\n")
         sys.stdout.flush()
-    if args.pid == 0:
-        print(f"[rank 0] hosts={args.nproc} devices={mesh.size} "
-              f"lag={args.lag} kmers={len(ds.codes)}")
-        print(f"[rank 0] count+merge {count_s:.2f}s, train {train_s:.2f}s "
-              f"({len(res.losses) / max(train_s, 1e-9):.0f} steps/s)")
-        print(f"[rank 0] learned h={res.h:.5f} {perp_label} BEAR perplexity="
-              f"{perp_bear:.4f}; h identical on all {args.nproc} ranks")
+    if args.pid == 0:  # each line one write, as the BENCH line
+        sys.stdout.write(f"[rank 0] hosts={args.nproc} devices={mesh.size} "
+                         f"lag={args.lag} kmers={len(ds.codes)}\n")
+        sys.stdout.write(f"[rank 0] count+merge {count_s:.2f}s, train {train_s:.2f}s "
+                         f"({len(res.losses) / max(train_s, 1e-9):.0f} steps/s)\n")
+        sys.stdout.write(f"[rank 0] learned h={res.h:.5f} {perp_label} BEAR perplexity="
+                         f"{perp_bear:.4f}; h identical on all {args.nproc} ranks\n")
     sys.stdout.write(f"[rank {args.pid}] OK h={res.h!r}\n")
     sys.stdout.flush()
     torch.distributed.destroy_process_group()

@@ -119,7 +119,7 @@ def test_chip_smoke_train_phase_rehearsal(tmp_path):
     reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
     chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
     launches, codes, counts, ar, p0, n_rows = chip_smoke.lag13_train_phase(
-        chunks, reads, groups, str(tmp_path / "cnn"), "CPU", device="cpu", lag=LAG,
+        chunks, reads, groups, str(tmp_path / "cnn"), device="cpu", lag=LAG,
         cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
         batch=1024, epochs=2, n_score=100)
     assert launches == 0  # the plain version runs on the CPU: no kernel
@@ -137,7 +137,7 @@ def test_chip_smoke_sampled_phase_rehearsal(tmp_path, capsys):
     reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=4)
     chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
     chip_smoke.lag13_train_phase(
-        chunks, reads, groups, str(tmp_path / "cnn"), "CPU", device="cpu", lag=LAG,
+        chunks, reads, groups, str(tmp_path / "cnn"), device="cpu", lag=LAG,
         cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
         batch=1024, epochs=1, n_score=50)
     counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
@@ -153,7 +153,7 @@ def test_chip_smoke_sampled_phase_rehearsal(tmp_path, capsys):
     chip_smoke.sampled_phase(counter.tables[LAG][0], LAG, str(tmp_path / "cnn"),
                              str(tmp_path / "ysd1"), seqs, wt, "CPU", device="cpu", mc=5,
                              n_variants=100, sampled_check=(8, 30, 20), map_check=(100, 50),
-                             cli_wt_bp=40, profile=False)
+                             cli_wt_bp=40)
     out = capsys.readouterr().out
     for part in ("(C) 40 reads", "(D) 900 SNVs", "(E) 100 variants", "reduce='mean_std' =="):
         assert part in out
@@ -197,16 +197,15 @@ def test_chip_smoke_on_disk_phase_rehearsal(tmp_path, capsys):
         counter.add_chunk(c)
     rows = counter.nonzero_rows(LAG)
     run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
-                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
-                                     profile=False)
+                                     str(tmp_path / "disk"), device="cpu", lag=LAG)
     assert run["launches"] == 0 and run["chunks"] == 4  # 3,333 reads, 1,024 a chunk
     assert [g for _, g, _ in run["files"]] == [0, 0, 0, 1]
     assert run["files"][1][0].endswith(".fq.gz")
     applies = chip_smoke.streaming_train_phase(
-        run["prefix"], run["shards"], reads, groups, str(tmp_path / "stream"), "CPU",
+        run["prefix"], run["shards"], reads, groups, str(tmp_path / "stream"),
         device="cpu", lag=LAG, cnn_kw={"filter_width": 3, "num_filters": 8,
                                        "kmer_layer1_width": 6},
-        batch=256, epochs=2, n_cli=20, profile=False)
+        batch=256, epochs=2, n_cli=20)
     assert applies > 5
     out = capsys.readouterr().out
     for part in ("[summarize] -l 5:", "both groups' counts == phase 4's exactly",
@@ -240,24 +239,22 @@ def test_chip_smoke_other_models_phase_rehearsal(tmp_path, capsys):
         counter.add_chunk(c)
     rows = counter.nonzero_rows(LAG)
     run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
-                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
-                                     profile=False)
+                                     str(tmp_path / "disk"), device="cpu", lag=LAG)
     cnn_kw = {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}
     chip_smoke.streaming_train_phase(run["prefix"], run["shards"], reads, groups,
-                                     str(tmp_path / "stream"), "CPU", device="cpu", lag=LAG,
-                                     cnn_kw=cnn_kw, batch=512, epochs=1, n_cli=4,
-                                     profile=False)
-    assert chip_smoke.reference_phase(reads, chunks, str(tmp_path / "ref"), "CPU",
-                                      device="cpu", lag=LAG, genome_mb=0.05, cnn_kw=cnn_kw,
-                                      batch=256, epochs=2) == 0
-    chip_smoke.vbear_phase("CPU", device="cpu", applies=100, gate=False, profile=False)
-    launches, table = chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU",
-                                                  device="cpu", lag=LAG)
+                                     str(tmp_path / "stream"), device="cpu", lag=LAG,
+                                     cnn_kw=cnn_kw, batch=512, epochs=1, n_cli=4)
+    assert chip_smoke.reference_phase(reads, chunks, str(tmp_path / "ref"), device="cpu",
+                                      lag=LAG, genome_mb=0.05, cnn_kw=cnn_kw, batch=256,
+                                      epochs=2) == 0
+    chip_smoke.vbear_phase(device="cpu", applies=100, gate=False)
+    launches, table = chip_smoke.lag_select_phase(run["csv"], run["prefix"], device="cpu",
+                                                  lag=LAG)
     assert launches == {"lag_select": 0, "lag_select_cli": 0} and table.lags == (1, 2, 3, 4, 5)
     assert chip_smoke.assembly_phase(reads, groups, run["csv"], str(tmp_path / "stream"),
-                                     str(tmp_path / "asm"), "CPU", device="cpu", lag=LAG,
+                                     str(tmp_path / "asm"), device="cpu", lag=LAG,
                                      genome_mb=0.05, n_seeds=4, num=3, flank=20,
-                                     check_cfg=(2, 2, 4, 10), profile=False) == {
+                                     check_cfg=(2, 2, 4, 10)) == {
                                          "assemble_cli": 0, "assemble": 0}
     out = capsys.readouterr().out
     for part in ("[ref] first 5 ELBOs vs CPU float64", "[ref] train_bear_ref.main on YSD1",
@@ -287,23 +284,20 @@ def test_chip_smoke_beyond_dense_phase_rehearsal(tmp_path, capsys):
         counter.add_chunk(c)
     rows = counter.nonzero_rows(LAG)
     run = chip_smoke.summarize_phase(reads, groups, rows, counter.row_counts(LAG, rows),
-                                     str(tmp_path / "disk"), "CPU", device="cpu", lag=LAG,
-                                     profile=False)
+                                     str(tmp_path / "disk"), device="cpu", lag=LAG)
     ref_rows = chip_smoke.distinct_rows(reads, 17, "cpu")
     assert ref_rows[LAG] == len(rows) and ref_rows[1] == 5
     work = str(tmp_path / "beyond")
     lags = dict(dense_lag=LAG, device="cpu")
-    p_run = chip_smoke.passes_phase(run, ref_rows, work, "CPU", lag=7, passes=3, **lags)
+    p_run = chip_smoke.passes_phase(run, ref_rows, work, lag=7, passes=3, **lags)
     assert p_run["launches"] == 0 and p_run["passes"] == 3
     sparse_counter, model_dir = chip_smoke.sparse_phase(
-        run, p_run, ref_rows, work, "CPU", passes_lag=7, lag=17, applies=12, batch=256,
+        run, p_run, ref_rows, work, passes_lag=7, lag=17, applies=12, batch=256,
         check_chunks=2, **lags)
-    _, dense = chip_smoke.lag_select_phase(run["csv"], run["prefix"], "CPU", device="cpu",
-                                           lag=LAG)
+    _, dense = chip_smoke.lag_select_phase(run["csv"], run["prefix"], device="cpu", lag=LAG)
     assert chip_smoke.sparse_lag_phase(sparse_counter, dense, run["csv"], 3, p_run["chunks"],
-                                       "CPU", passes_lag=7, **lags) == 0
-    chip_smoke.sparse_generation_phase(sparse_counter, model_dir, reads, groups, "CPU",
-                                       lag=17, genome_mb=0.05, n_seeds=4, num=3, flank=20,
+                                       passes_lag=7, **lags) == 0
+    chip_smoke.sparse_generation_phase(sparse_counter, model_dir, reads, groups, lag=17, genome_mb=0.05, n_seeds=4, num=3, flank=20,
                                        check_cfg=(2, 2, 4, 10), n_score=40, **lags)
     out = capsys.readouterr().out
     for part in ("summarize -l 7 --passes 3", "shards byte-identical to 4e's",
@@ -328,24 +322,23 @@ def test_chip_smoke_mesh_phase_rehearsal(tmp_path, capsys):
         counter.add_chunk(c)
     rows = counter.nonzero_rows(LAG)
     counts = counter.row_counts(LAG, rows)
-    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"), "CPU",
-                                     device="cpu", lag=LAG, profile=False)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"),
+                                     device="cpu", lag=LAG)
     ref_rows = chip_smoke.distinct_rows(reads, 17, "cpu")
     work = str(tmp_path / "beyond")
     m_prefix = os.path.join(work, "sparse", "run")
     mf = chip_smoke.mf_for(sum(ref_rows.values()), run["n_bins"])
     chip_smoke.summarize_run(run["csv"], m_prefix, ["-l", "17", "-mf", mf], "cpu")
-    assert chip_smoke.data_sharded_phase(chunks, rows, counts, 1.0, "CPU", device="cpu",
-                                         lag=LAG)[0] == 0
-    launches, _ = chip_smoke.row_split_phase(run, ref_rows, work, "CPU", device="cpu",
-                                             dense_lag=LAG, lag=7)
+    assert chip_smoke.data_sharded_phase(chunks, rows, counts, device="cpu", lag=LAG) == 0
+    launches = chip_smoke.row_split_phase(run, ref_rows, work, device="cpu", dense_lag=LAG,
+                                          lag=7)
     assert launches == {"row_split": 0, "row_split_passes": 0}
-    mesh_counter, _ = chip_smoke.sparse_mesh_phase(run, ref_rows, m_prefix, work, "CPU",
-                                                   device="cpu", lag=17)
+    mesh_counter = chip_smoke.sparse_mesh_phase(run, ref_rows, m_prefix, work, device="cpu",
+                                                lag=17)
     assert chip_smoke.two_process_phase(
-        run, rows, counts, mesh_counter, work, "CPU", device="cpu",
+        run, rows, counts, mesh_counter, work, device="cpu",
         reads_kw=dict(genome_mb=0.05, coverage=4, read_len=60, seed=4), rows=1024, lag=LAG,
-        sparse_lag=17, timeout=300, threads=2)[0] == 0
+        sparse_lag=17, timeout=300, threads=2) == 0
     out = capsys.readouterr().out
     for part in ("(S) chunk 0", "each replica's table == count_chunk_plain",
                  "tables == phase 4's exactly", "2 slices refused", "== summarize -l 7 --passes 3",
@@ -369,43 +362,42 @@ def test_chip_smoke_data_parallel_phase_rehearsal(tmp_path, capsys):
     chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
     cnn_kw = {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}
     b_rec, s_rec, z_rec = {}, {}, {}
-    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), "CPU",
-                                 device="cpu", lag=LAG, cnn_kw=cnn_kw, batch=256, epochs=2,
-                                 n_score=100, record=b_rec)
+    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), device="cpu",
+                                 lag=LAG, cnn_kw=cnn_kw, batch=256, epochs=2, n_score=100,
+                                 record=b_rec)
     counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
     for c in chunks:
         counter.add_chunk(c)
     rows = counter.nonzero_rows(LAG)
     counts = counter.row_counts(LAG, rows)
-    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"), "CPU",
-                                     device="cpu", lag=LAG, profile=False)
+    run = chip_smoke.summarize_phase(reads, groups, rows, counts, str(tmp_path / "disk"),
+                                     device="cpu", lag=LAG)
     chip_smoke.streaming_train_phase(run["prefix"], run["shards"], reads, groups,
-                                     str(tmp_path / "stream"), "CPU", device="cpu", lag=LAG,
-                                     cnn_kw=cnn_kw, batch=256, epochs=1, n_cli=4,
-                                     profile=False, record=s_rec)
+                                     str(tmp_path / "stream"), device="cpu", lag=LAG,
+                                     cnn_kw=cnn_kw, batch=256, epochs=1, n_cli=4, record=s_rec)
     work = tmp_path / "work"
     work.mkdir()
     launches, w_out = chip_smoke.mesh_train_phase(
-        chunks, b_rec, s_rec, run["shards"], str(work), "CPU", device="cpu", lag=LAG,
-        cnn_kw=cnn_kw, batch=256, epochs=2, stream_applies=4, stream_every=2, profile=False)
+        chunks, b_rec, s_rec, run["shards"], str(work), device="cpu", lag=LAG,
+        cnn_kw=cnn_kw, batch=256, epochs=2, stream_applies=4, stream_every=2)
     assert launches == 0  # the plain version runs on the CPU: no kernel
-    chip_smoke.mesh_cli_phase(str(tmp_path / "dp"), "CPU", device="cpu", epochs=50, gate=False,
+    chip_smoke.mesh_cli_phase(str(tmp_path / "dp"), device="cpu", epochs=50, gate=False,
                               check_applies=20, vbear_applies=50)
-    chip_smoke.split_serving_phase(b_rec, s_rec, w_out, str(tmp_path / "split"), "CPU",
-                                   device="cpu", lag=LAG, cnn_kw=cnn_kw, n_check=40,
-                                   snv_bp=60, genome_mb=0.05)
+    chip_smoke.split_serving_phase(b_rec, s_rec, w_out, str(tmp_path / "split"), device="cpu",
+                                   lag=LAG, cnn_kw=cnn_kw, n_check=40, snv_bp=60,
+                                   genome_mb=0.05)
     sparse = SparseTransitionCounter(range(1, 18), n_groups=2, device="cpu")
     for chunk in summarize.iter_chunks(read_input_csv(run["csv"]), 17):
         sparse.add_chunk(chunk)
     sparse.flush()
     assert chip_smoke.two_process_phase(
-        run, rows, counts, sparse, str(work), "CPU", device="cpu",
+        run, rows, counts, sparse, str(work), device="cpu",
         reads_kw=dict(genome_mb=0.05, coverage=4, read_len=60, seed=4), rows=1024, lag=LAG,
         sparse_lag=17, timeout=300, threads=2, z=dict(cnn_kw=cnn_kw, batch=256, applies=4),
-        record=z_rec)[0] == 0
+        record=z_rec) == 0
     chip_smoke.z_against_w(z_rec, w_out, k=4)
     out = capsys.readouterr().out
-    for part in ("(W) count -> serve's chunks counted again", "applies/s in this run",
+    for part in ("(W) count -> serve's chunks counted again", "(W) 4c's protocol over the mesh",
                  "evaluation(mesh=) float64", "resumed after completion: no apply run",
                  "evaluation_streaming(mesh=) float64", "(X) train_bear_net.main",
                  "(X) train_bear_ref.main", "(X) vBEAR over the mesh",
@@ -420,16 +412,15 @@ def test_chip_smoke_options_phase_rehearsal(tmp_path, capsys):
     # CLI on YSD1 with its checks against float64, (Q) the optimizers, (R)
     # bfloat16 against float32 on a small handoff, and the trace; their own
     # checks raise on a fault.
-    chip_smoke.attention_phase(str(tmp_path / "attn"), "CPU", device="cpu", epochs=8, timed=4,
-                               profile=False)
-    rates = chip_smoke.optimizer_phase("CPU", device="cpu", check_applies=4, timed=3)
-    assert list(rates) == ["adam"] + chip_smoke.OPTAX_NAMES
+    chip_smoke.attention_phase(str(tmp_path / "attn"), device="cpu", epochs=8)
+    ran = chip_smoke.optimizer_phase(device="cpu", check_applies=4)
+    assert ran == {name: 4 for name in ["adam"] + chip_smoke.OPTAX_NAMES}
     reads, groups = chip_smoke.make_reads(genome_mb=0.05, coverage=4, read_len=60, seed=6)
     counter = TransitionCounter(lags=[LAG], n_groups=2, device="cpu")
     for c in chip_smoke.read_chunks(reads, groups, rows=1024):
         counter.add_chunk(c)
     codes, counts = counter.to_device_dataset(LAG)
-    chip_smoke.bf16_phase(codes, counts, codes.shape[0], str(tmp_path / "trace"), "CPU",
+    chip_smoke.bf16_phase(codes, counts, codes.shape[0], str(tmp_path / "trace"),
                           device="cpu", lag=LAG,
                           cnn_kw={"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6},
                           attn_kw={"d_model": 16, "num_heads": 2, "mlp_width": 32}, batch=1024,
@@ -472,25 +463,25 @@ def test_chip_smoke_examples_phase_rehearsal(tmp_path, capsys, monkeypatch):
     reads, groups = chip_smoke.make_reads(**size)
     chunks = list(chip_smoke.read_chunks(reads, groups, rows=1024))
     b_rec = {}
-    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), "CPU",
-                                 device="cpu", lag=LAG,
+    chip_smoke.lag13_train_phase(chunks, reads, groups, str(tmp_path / "cnn"), device="cpu",
+                                 lag=LAG,
                                  cnn_kw={"filter_width": 3, "num_filters": 8,
                                          "kmer_layer1_width": 6},
                                  batch=1024, epochs=1, n_score=50, record=b_rec)
     argv = ["--genome-mb", "0.05", "--coverage", "4", "--read-len", "60", "--lag", str(LAG),
             "--epochs", "1", "--batch-size", "1024", "--device", "cpu"]
     assert chip_smoke.genome_example_phase(
-        b_rec, "CPU", argv=argv, device="cpu", want_rows=b_rec["rows"],
+        b_rec, argv=argv, device="cpu", want_rows=b_rec["rows"],
         want_transitions=len(reads) * 61) == 0  # the plain version: no kernel
-    walls = chip_smoke.multihost_examples_phase(
-        str(tmp_path), "CPU", extra=["--device", "cpu", "--lag", "2", "--reads-per-file", "60",
-                                     "--read-len", "30"],
+    recs = chip_smoke.multihost_examples_phase(
+        str(tmp_path), extra=["--device", "cpu", "--lag", "2", "--reads-per-file", "60",
+                              "--read-len", "30"],
         want_transitions=4 * 60 * 31)
-    assert len(walls) == 3
+    assert [r["device"] for r in recs] == ["cpu"] * 3
     out = capsys.readouterr().out
-    for part in (f"(AA) torch_genome_lag13.main({argv}) in", "(== 4c's)",
-                 "(AB) torch_multihost_counting --nproc 2 --bench in",
-                 "(AC) torch_multihost_train --nproc 2 --bench  in",
-                 "(AC) torch_multihost_train --nproc 2 --bench --streaming in",
+    for part in (f"(AA) torch_genome_lag13.main({argv}):", "(== 4c's)",
+                 "(AB) torch_multihost_counting --nproc 2 --bench:",
+                 "(AC) torch_multihost_train --nproc 2 --bench:",
+                 "(AC) torch_multihost_train --nproc 2 --bench --streaming:",
                  "h identical on all 2 ranks"):
         assert part in out, part
