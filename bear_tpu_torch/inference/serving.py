@@ -58,6 +58,9 @@ SAMPLE_BUDGET_BYTES = 4 << 30
 # row (chip_smoke.py's peak memory on an H100, PERF.md), so a slice stays
 # near 2.7 GB.
 AR_SLICE_ROWS = 1 << 18
+# Calls of BearServer._encode_ragged whose strings all had one length
+# (callers reset it).
+uniform_encodes = 0
 
 
 def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS,
@@ -194,6 +197,24 @@ def _copy_out(t: torch.Tensor) -> np.ndarray:
     work on the device."""
     with span("bear.score.copy_out"):
         return t.cpu().numpy()
+
+
+def _join_ascii(strs) -> bytes:
+    """The strings joined into one ASCII byte string: all-str or all-bytes
+    input joins as it is, mixed input after decoding its bytes; a
+    non-ASCII letter raises UnicodeError."""
+    try:
+        return "".join(strs).encode("ascii")
+    except TypeError:  # bytes elements
+        pass
+    try:
+        joined = b"".join(strs)
+    except TypeError:  # str and bytes mixed
+        return "".join(s.decode("ascii") if isinstance(s, bytes) else s
+                       for s in strs).encode("ascii")
+    if not joined.isascii():
+        joined.decode("ascii")  # raises as decoding each element does
+    return joined
 
 
 def _row_slices(table, mesh, axis: str, dtype):
@@ -426,24 +447,34 @@ class BearServer:
                                            kr._as_keys(key, self.device)[None])[:, 0]
 
     def _encode_ragged(self, strs, lens, maxlen):
-        """Encode variable-length strings into a padded (0-filled)
-        [N, maxlen] code matrix via ONE host join + byte-LUT gather."""
+        """Encode variable-length strings into a padded (0-filled) int8
+        [N, maxlen] code matrix via ONE host join + byte translate. Strings
+        of one length (a sequencing run's reads) are joined as they are and
+        written as an [N, n] block; ragged ones are NUL-padded to maxlen in
+        the join, NUL translating to 0."""
+        global uniform_encodes
         with span("bear.score.encode"):
             lens = np.asarray(lens)
-            out = np.zeros((len(strs), maxlen), np.int32)
-            if len(strs) == 0 or maxlen == 0:
+            N = len(strs)
+            if N == 0 or maxlen == 0:
+                return np.zeros((N, maxlen), np.int8)
+            n = int(lens.max())
+            if n > maxlen:
+                raise ValueError(f"a string of {n} letters is longer than {maxlen}")
+            if n == int(lens.min()):
+                uniform_encodes += 1
+                codes = alphabets.translate_ascii(_join_ascii(strs), self.alphabet)
+                out = np.zeros((N, maxlen), np.int8)
+                out[:, :n] = np.frombuffer(codes, np.int8).reshape(N, n)
                 return out
-            try:
-                joined = "".join(strs)
-            except TypeError:  # bytes elements
-                joined = "".join(
-                    s.decode("ascii") if isinstance(s, bytes) else s
-                    for s in strs)
-            flat = alphabets.encode_string(joined, self.alphabet)
-            # Boolean-mask assignment walks rows in order, matching the join.
-            mask = np.arange(maxlen)[None, :] < lens[:, None]
-            out[mask] = flat
-            return out
+            raw = _join_ascii([s.ljust(maxlen, b"\0" if isinstance(s, bytes) else "\0")
+                               for s in strs])
+            nuls = np.count_nonzero(np.frombuffer(raw, np.uint8) == 0)
+            if nuls != N * maxlen - int(lens.sum()):
+                # A NUL inside a string: raises naming the first bad letter.
+                alphabets.translate_ascii(_join_ascii(strs), self.alphabet)
+            codes = alphabets.translate_ascii(raw, self.alphabet, nul_pads=True)
+            return np.frombuffer(bytearray(codes), np.int8).reshape(N, maxlen)
 
     def _sample_plan(self, mode, key, mc_samples, reduce, quantiles):
         """(sample keys or None, output width or None) of a Δ-score call,
@@ -694,10 +725,10 @@ class BearServer:
             if mode not in ("map", "sample"):
                 raise ValueError(f"unknown mode {mode!r}")
             seqs = list(seqs)
-            lengths = np.asarray([len(s) for s in seqs], np.int32)
+            lengths = np.fromiter(map(len, seqs), np.int32, len(seqs))
             maxlen = int(lengths.max()) if len(seqs) else 0
             L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
-            codes = self._encode_ragged(seqs, lengths, L).astype(np.int8)
+            codes = self._encode_ragged(seqs, lengths, L)
             if mode == "map":
                 return _copy_out(self.log_prob_map(codes, lengths))
             base = key if key is not None else kr.key(0)

@@ -58,6 +58,10 @@ def _lookup_table(alphabet: str, last: str) -> np.ndarray:
 
 _INPUT_TABLES = {a: _lookup_table(a, START) for a in _RESIDUES}
 _OUTPUT_TABLES = {a: _lookup_table(a, STOP) for a in _RESIDUES}
+# The input tables as ``bytes.translate`` tables (-1 stored as 0xFF), and
+# the same with NUL -> 0 for NUL-padded joins.
+_INPUT_BYTES = {a: t.tobytes() for a, t in _INPUT_TABLES.items()}
+_PADDED_INPUT_BYTES = {a: b"\0" + t[1:] for a, t in _INPUT_BYTES.items()}
 
 
 def encode_kmers(kmers, alphabet: str) -> np.ndarray:
@@ -86,15 +90,21 @@ def encode_kmers(kmers, alphabet: str) -> np.ndarray:
     return codes.reshape(arr.shape + (lag,))
 
 
-def encode_string(s: str, alphabet: str) -> np.ndarray:
-    """Encode ONE string (typically a join of many pieces) to int8 codes
-    via the byte LUT ('[' carries the input-side code A)."""
-    flat = np.frombuffer(s.encode("ascii"), np.uint8)
-    codes = _INPUT_TABLES[alphabet][flat]
-    if codes.size and codes.min() < 0:
-        bad = s[int(np.argmin(codes))]
-        raise ValueError(f"letter {bad!r} outside alphabet {alphabet!r}")
+def translate_ascii(raw: bytes, alphabet: str, nul_pads: bool = False) -> bytes:
+    """ASCII bytes -> the bytes of their int8 input codes ('[' carries the
+    input-side code A), one ``bytes.translate``; with ``nul_pads`` NUL -> 0.
+    A letter outside the alphabet raises ValueError naming the first."""
+    codes = raw.translate((_PADDED_INPUT_BYTES if nul_pads else _INPUT_BYTES)[alphabet])
+    bad = codes.find(0xFF)
+    if bad >= 0:
+        raise ValueError(f"letter {chr(raw[bad])!r} outside alphabet {alphabet!r}")
     return codes
+
+
+def encode_string(s: str, alphabet: str) -> np.ndarray:
+    """Encode ONE string (typically a join of many pieces) to a writable
+    int8 code array via one byte translate."""
+    return np.frombuffer(bytearray(translate_ascii(s.encode("ascii"), alphabet)), np.int8)
 
 
 def encode_output_symbols(symbols, alphabet: str) -> np.ndarray:

@@ -298,8 +298,17 @@ def test_alphabet_codecs_match_bear_tpu(alphabet, lag):
     np.testing.assert_array_equal(codes, jalpha.encode_kmers(kmers, alphabet))
     np.testing.assert_array_equal(alphabets.decode_kmers(codes, alphabet), kmers)
     joined = "".join(kmers)
-    np.testing.assert_array_equal(alphabets.encode_string(joined, alphabet),
-                                  jalpha.encode_string(joined, alphabet))
+    codes_s = alphabets.encode_string(joined, alphabet)
+    assert codes_s.dtype == np.int8 and codes_s.flags.writeable
+    np.testing.assert_array_equal(codes_s, jalpha.encode_string(joined, alphabet))
+    for bad in ("!", "\0"):  # the first bad letter is named, as bear_tpu names it
+        with pytest.raises(ValueError) as want:
+            jalpha.encode_string(joined + bad + "N!", alphabet)
+        with pytest.raises(ValueError, match="outside") as got:
+            alphabets.encode_string(joined + bad + "N!", alphabet)
+        assert str(got.value) == str(want.value)
+    with pytest.raises(UnicodeEncodeError):
+        alphabets.encode_string(joined + "\xe9", alphabet)
     A1 = alphabets.alphabet_size(alphabet) + 1
     np.testing.assert_array_equal(
         alphabets.one_hot(torch.from_numpy(codes), A1, torch.float64).numpy(),

@@ -30,6 +30,7 @@ from bear_tpu_torch.models import bear_net
 from bear_tpu_torch.models.ar_funcs import (AttentionAR, CNNAR, LinearAR, StopAR, flat_one_hot,
                                             get_ar_func)
 from bear_tpu_torch.ops import alphabets
+from bear_tpu_torch.ops import keyed_random as kr
 
 torch.set_num_threads(2)
 RTOL = {torch.float64: 1e-10, torch.float32: 1e-5}
@@ -180,18 +181,93 @@ def test_map_scores_protein_match_bear_tpu():
                                rtol=1e-10)
 
 
-def test_encode_ragged_matches_bear_tpu():
+def _encode_servers(alphabet="dna"):
+    table = np.zeros((serving.table_rows(2, alphabets.alphabet_size(alphabet)),
+                      alphabets.alphabet_size(alphabet) + 1))
+    return (jserving.BearServer(table, 2, van=1.0, alphabet=alphabet),
+            BearServer(table, 2, van=1.0, alphabet=alphabet, device="cpu"))
+
+
+def _encode_case(name):
+    """(strings, maxlen, alphabet, whether they take the equal-length form)."""
     rng = np.random.default_rng(5)
-    seqs = _rand_seqs(rng, 9, 0, 20)
-    lens = np.array([len(s) for s in seqs])
-    table = np.zeros((serving.table_rows(2), 5))
-    jserver = jserving.BearServer(table, 2, van=1.0)
-    server = BearServer(table, 2, van=1.0, device="cpu")
-    np.testing.assert_array_equal(server._encode_ragged(seqs, lens, 24),
-                                  jserver._encode_ragged(seqs, lens, 24))
-    np.testing.assert_array_equal(
-        server._encode_ragged([s.encode() for s in seqs], lens, 24),
-        jserver._encode_ragged(seqs, lens, 24))
+    ragged = _rand_seqs(rng, 9, 0, 20) + [""]
+    equal = _rand_seqs(rng, 9, 15, 16)
+    prot = alphabets.residues("prot")
+    return {
+        "equal_below_maxlen": (equal, 24, "dna", True),
+        "equal_at_maxlen": (_rand_seqs(rng, 7, 24, 25), 24, "dna", True),
+        "ragged_with_empty": (ragged, 24, "dna", False),
+        "bytes_equal": ([s.encode() for s in equal], 24, "dna", True),
+        "bytes_ragged": ([s.encode() for s in ragged], 24, "dna", False),
+        "mixed_ragged": ([s.encode() if i % 2 else s for i, s in enumerate(ragged)], 24,
+                         "dna", False),
+        "protein_ragged": (_rand_seqs(rng, 9, 1, 30, prot), 32, "prot", False),
+        "protein_equal": (_rand_seqs(rng, 9, 30, 31, prot), 32, "prot", True),
+        "bracket_in_read": (["AC[GT", "[[ACG", "TTTT["], 8, "dna", True),
+        "maxlen_0": (["", ""], 0, "dna", False),
+        "empty_list": ([], 24, "dna", False),
+    }[name]
+
+
+@pytest.mark.parametrize("case", ["equal_below_maxlen", "equal_at_maxlen", "ragged_with_empty",
+                                  "bytes_equal", "bytes_ragged", "mixed_ragged",
+                                  "protein_ragged", "protein_equal", "bracket_in_read",
+                                  "maxlen_0", "empty_list"])
+def test_encode_ragged_matches_bear_tpu(case):
+    seqs, maxlen, alphabet, uniform = _encode_case(case)
+    lens = np.array([len(s) for s in seqs], np.int64)
+    jserver, server = _encode_servers(alphabet)
+    before = serving.uniform_encodes
+    got = server._encode_ragged(seqs, lens, maxlen)
+    assert serving.uniform_encodes - before == int(uniform)
+    assert got.dtype == np.int8 and got.shape == (len(seqs), maxlen)
+    np.testing.assert_array_equal(got, jserver._encode_ragged(seqs, lens, maxlen))
+    if len(seqs):
+        assert not got[np.arange(maxlen)[None, :] >= lens[:, None]].any()
+    text = [s.decode() if isinstance(s, bytes) else s for s in seqs]
+    np.testing.assert_array_equal(got, jserver._encode_ragged(text, lens, maxlen))
+
+
+@pytest.mark.parametrize("kind", ["str", "bytes"])
+@pytest.mark.parametrize("uniform", [True, False])
+@pytest.mark.parametrize("bad", ["N", "\0", "\xe9"])
+def test_encode_ragged_refusals_match_on_both_paths(bad, uniform, kind):
+    """A letter outside the alphabet, a NUL inside a read and a non-ASCII
+    letter raise what bear_tpu raises, on both forms of the encode; the
+    error names the first bad letter of the reads."""
+    seqs = ["ACGTAC" if uniform else "ACGT", "GGTTCA", f"AC{bad}GNT", "ACNTTT"]
+    if kind == "bytes":
+        seqs = [s.encode("latin-1") for s in seqs]
+    lens = np.array([len(s) for s in seqs], np.int64)
+    jserver, server = _encode_servers()
+    with pytest.raises(ValueError) as want:
+        jserver._encode_ragged(seqs, lens, 8)
+    before = serving.uniform_encodes
+    with pytest.raises(type(want.value)) as got:
+        server._encode_ragged(seqs, lens, 8)
+    assert serving.uniform_encodes - before == int(uniform)
+    if not isinstance(want.value, UnicodeError):
+        assert str(got.value) == str(want.value) == f"letter {bad!r} outside alphabet 'dna'"
+
+
+def test_score_equal_length_and_ragged_paths_agree():
+    """Sampled scores of equal-length reads (the equal-length encode) are
+    bit-equal to the same reads' rows once a shorter read joins the call
+    (the ragged encode): the draws are keyed on (sample, read, row)."""
+    rng = np.random.default_rng(11)
+    lag = 3
+    server = BearServer(_table(_rand_seqs(rng, 40, 10, 60), lag), lag, van=0.7,
+                        dtype=torch.float64, device="cpu")
+    seqs = _rand_seqs(rng, 8, 40, 41)
+    kw = dict(mode="sample", key=kr.key(7), mc_samples=5, reduce="mean_std")
+    before = serving.uniform_encodes
+    equal = server.score(seqs, **kw)
+    assert serving.uniform_encodes - before == 1
+    ragged = server.score(seqs + ["ACGTTGCA"], **kw)
+    assert serving.uniform_encodes - before == 1
+    assert equal.shape == (8, 2) and ragged.shape == (9, 2)
+    np.testing.assert_array_equal(ragged[:8], equal)
 
 
 def test_server_rejects_bad_arguments():
