@@ -61,6 +61,10 @@ AR_SLICE_ROWS = 1 << 18
 # Calls of BearServer._encode_ragged whose strings all had one length
 # (callers reset it).
 uniform_encodes = 0
+# Positions of the sampled calls' padded [B, maxlen + 1] transition
+# matrices, maxlen the width of the call's code matrix, masked in or not:
+# what the row math runs over (callers reset it).
+padded_positions = 0
 
 
 def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS,
@@ -425,10 +429,12 @@ class BearServer:
         fold_in(keys[s], b) (b the index in this call); a row repeated
         within a sequence reuses one draw. Rows, gathers and concentrations
         run once, for the masked-in transitions only."""
+        global padded_positions
         codes = torch.as_tensor(codes, device=self.device)
         lengths = torch.as_tensor(lengths, device=self.device)
         keys = kr._as_keys(keys, self.device).reshape(-1)
         rows, nxt, mask = _context_rows_and_next(codes, lengths, self.lag, self._A)
+        padded_positions += mask.numel()
         with span("bear.score.mask"):  # the host waits for the mask's count
             b_idx, p_idx = mask.nonzero(as_tuple=True)
         rv, nv = rows[b_idx, p_idx], nxt[b_idx, p_idx]
@@ -436,9 +442,10 @@ class BearServer:
         seq = torch.arange(codes.shape[0], dtype=torch.int64, device=self.device)
         seq_keys = kr.fold_in(keys[:, None], seq[None, :])  # [S, B]
         picked = self._draw_picked(seq_keys, b_idx, rv, nv, conc)
-        full = picked.new_zeros((keys.shape[0],) + tuple(mask.shape))
-        full[:, b_idx, p_idx] = picked
-        return full.sum(dim=-1).T
+        with span("bear.score.assemble"):
+            full = picked.new_zeros((keys.shape[0],) + tuple(mask.shape))
+            full[:, b_idx, p_idx] = picked
+            return full.sum(dim=-1).T
 
     def log_prob_sampled(self, codes, lengths, key) -> torch.Tensor:
         """Posterior-sampled per-sequence log-probabilities [B] under one

@@ -225,7 +225,8 @@ def test_sampled_score_records_its_layers_under_one_root(traced):
     _one_root(recs, "bear.score.call")
     assert _names(recs)[1:] == ["bear.score.encode", "bear.score.rows", "bear.score.mask",
                                 "bear.score.concentrations", "bear.score.draw",
-                                "bear.score.reduce", "bear.score.copy_out"]
+                                "bear.score.assemble", "bear.score.reduce",
+                                "bear.score.copy_out"]
     assert all(r.parent == 0 for r in recs[1:])
 
 
