@@ -61,6 +61,9 @@ AR_SLICE_ROWS = 1 << 18
 # Calls of BearServer._encode_ragged whose strings all had one length
 # (callers reset it).
 uniform_encodes = 0
+# Calls of BearServer.score whose strings differed in length, their codes
+# laid into the padded matrix on the device (callers reset it).
+ragged_device_pads = 0
 # Positions of the sampled calls' padded [B, maxlen + 1] transition
 # matrices, maxlen the width of the call's code matrix, masked in or not:
 # what the row math runs over (callers reset it).
@@ -483,6 +486,33 @@ class BearServer:
             codes = alphabets.translate_ascii(raw, self.alphabet, nul_pads=True)
             return np.frombuffer(bytearray(codes), np.int8).reshape(N, maxlen)
 
+    def _encode_score(self, strs, lens, maxlen):
+        """(codes, lengths) of a score call: the int8 [N, maxlen] code
+        matrix, 0 past each string, and the [N] int32 lengths. Strings of
+        one length (and an empty call) take ``_encode_ragged`` on the host.
+        Ragged ones are joined and translated as they are, and their codes
+        and lengths copied to the device, where the codes are laid row by
+        row into the zeroed matrix; the host waits for none of it."""
+        global ragged_device_pads
+        lens = np.asarray(lens, np.int32)
+        if len(strs) == 0 or lens.max() == lens.min():
+            return self._encode_ragged(strs, lens, maxlen), lens
+        with span("bear.score.encode"):
+            ragged_device_pads += 1
+            n = int(lens.max())
+            if n > maxlen:
+                raise ValueError(f"a string of {n} letters is longer than {maxlen}")
+            # A bytearray: torch reads it without a copy, and its translate
+            # is a plain table loop (bytes.translate also tracks whether any
+            # byte changed, ~3x slower).
+            flat = alphabets.translate_ascii(bytearray(_join_ascii(strs)), self.alphabet)
+            flat = torch.frombuffer(flat, dtype=torch.int8).to(self.device, non_blocking=True)
+            lengths = torch.from_numpy(lens).to(self.device, non_blocking=True)
+            codes = torch.zeros((len(strs), maxlen), dtype=torch.int8, device=self.device)
+            codes.masked_scatter_(torch.arange(maxlen, device=self.device) < lengths[:, None],
+                                  flat)
+            return codes, lengths
+
     def _sample_plan(self, mode, key, mc_samples, reduce, quantiles):
         """(sample keys or None, output width or None) of a Δ-score call,
         after checking the mode/reduce contract."""
@@ -735,7 +765,7 @@ class BearServer:
             lengths = np.fromiter(map(len, seqs), np.int32, len(seqs))
             maxlen = int(lengths.max()) if len(seqs) else 0
             L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
-            codes = self._encode_ragged(seqs, lengths, L)
+            codes, lengths = self._encode_score(seqs, lengths, L)
             if mode == "map":
                 return _copy_out(self.log_prob_map(codes, lengths))
             base = key if key is not None else kr.key(0)

@@ -8,6 +8,7 @@ neither JAX nor bear_tpu, so it runs where only the port is installed:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
 
+import json
 import os
 
 import numpy as np
@@ -18,10 +19,12 @@ import chip_smoke
 from bear_tpu_torch.counting import count_chunk, engine, fastx
 from bear_tpu_torch.counting.count_chunk import count_chunk_update
 from bear_tpu_torch.counting.window_hist import window_update, window_update_plain
+from bear_tpu_torch.inference import serving
 from bear_tpu_torch.inference.serving import BearServer
 from bear_tpu_torch.models.ar_funcs import LinearAR
 from bear_tpu_torch.ops import keyed_draw
 from bear_tpu_torch.ops import keyed_random as kr
+from bench_gpu import proteome
 
 pytestmark = pytest.mark.cuda
 
@@ -138,6 +141,34 @@ def test_server_on_card_equals_cpu(cuda):
     got = BearServer(tc.tables[6][0], 6, h=0.1, ar_apply=ar.to(cuda),
                      dtype=torch.float64).score(seqs)
     np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_ragged_score_encode_on_card_syncs_nothing_and_equals_the_host_encode(cuda):
+    """score()'s encode of 2,048 ragged proteins (the protein cell's batch:
+    its configuration's length law, padded to 1,024) lays the codes into
+    the matrix on the card without a host sync, equal to _encode_ragged."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(here, "bench_gpu", "configs", "proteome_lag6_cnn.json")) as fh:
+        p = json.load(fh)["proteome"]
+    residues, lengths, _ = proteome.synth_proteome(
+        3800000011, 2048, 1, p["median_len"], p["len_sigma"], p["min_len"], p["max_len"],
+        p["substitution_rate"], p["held_out"])
+    strs = proteome.strings(residues, lengths)
+    lens = lengths.astype(np.int32)
+    L = -(-int(lens.max()) // 64) * 64
+    server = BearServer(np.zeros((engine.table_rows(1, 20), 21)), 1, van=1.0, alphabet="prot")
+    server._encode_score(strs, lens, L)  # the first launches and allocations
+    torch.cuda.synchronize()
+    before = serving.ragged_device_pads
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        codes, got_lens = server._encode_score(strs, lens, L)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert serving.ragged_device_pads == before + 1
+    assert codes.device.type == "cuda" and codes.dtype == torch.int8 and codes.shape == (2048, L)
+    np.testing.assert_array_equal(codes.cpu().numpy(), server._encode_ragged(strs, lens, L))
+    np.testing.assert_array_equal(got_lens.cpu().numpy(), lens)
 
 
 def test_philox_words_on_card_equal_cpu(cuda):

@@ -207,13 +207,19 @@ def _encode_case(name):
         "bracket_in_read": (["AC[GT", "[[ACG", "TTTT["], 8, "dna", True),
         "maxlen_0": (["", ""], 0, "dna", False),
         "empty_list": ([], 24, "dna", False),
+        "bracket_in_ragged_read": (["AC[GT", "[[A", "", "TTTT[GA["], 8, "dna", False),
+        "ragged_at_maxlen": (_rand_seqs(rng, 6, 0, 24) + _rand_seqs(rng, 1, 24, 25), 24, "dna",
+                             False),
     }[name]
 
 
-@pytest.mark.parametrize("case", ["equal_below_maxlen", "equal_at_maxlen", "ragged_with_empty",
-                                  "bytes_equal", "bytes_ragged", "mixed_ragged",
-                                  "protein_ragged", "protein_equal", "bracket_in_read",
-                                  "maxlen_0", "empty_list"])
+ENCODE_CASES = ["equal_below_maxlen", "equal_at_maxlen", "ragged_with_empty", "bytes_equal",
+                "bytes_ragged", "mixed_ragged", "protein_ragged", "protein_equal",
+                "bracket_in_read", "maxlen_0", "empty_list", "bracket_in_ragged_read",
+                "ragged_at_maxlen"]
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES)
 def test_encode_ragged_matches_bear_tpu(case):
     seqs, maxlen, alphabet, uniform = _encode_case(case)
     lens = np.array([len(s) for s in seqs], np.int64)
@@ -249,6 +255,95 @@ def test_encode_ragged_refusals_match_on_both_paths(bad, uniform, kind):
     assert serving.uniform_encodes - before == int(uniform)
     if not isinstance(want.value, UnicodeError):
         assert str(got.value) == str(want.value) == f"letter {bad!r} outside alphabet 'dna'"
+
+
+@pytest.mark.parametrize("case", ENCODE_CASES)
+def test_score_encode_lays_out_what_encode_ragged_gives(case):
+    """score()'s encode: ragged strings' codes laid into the padded matrix
+    on the device equal _encode_ragged's host matrix; strings of one length
+    (and empty calls) take _encode_ragged itself."""
+    seqs, maxlen, alphabet, uniform = _encode_case(case)
+    lens = np.array([len(s) for s in seqs], np.int32)
+    _, server = _encode_servers(alphabet)
+    ragged = len(set(lens.tolist())) > 1
+    uniform_before, ragged_before = serving.uniform_encodes, serving.ragged_device_pads
+    codes, lengths = server._encode_score(seqs, lens, maxlen)
+    assert serving.uniform_encodes - uniform_before == int(uniform)
+    assert serving.ragged_device_pads - ragged_before == int(ragged)
+    assert isinstance(codes, torch.Tensor) == ragged == isinstance(lengths, torch.Tensor)
+    got = codes.numpy() if ragged else codes
+    assert got.dtype == np.int8 and got.shape == (len(seqs), maxlen)
+    np.testing.assert_array_equal(got, server._encode_ragged(seqs, lens, maxlen))
+    got_lens = lengths.numpy() if ragged else lengths
+    assert got_lens.dtype == np.int32
+    np.testing.assert_array_equal(got_lens, lens)
+
+
+def _ragged_server(alphabet):
+    """(server, ragged strings) of a small linear BEAR over ``alphabet``."""
+    rng = np.random.default_rng(12)
+    letters = alphabets.residues(alphabet)
+    lag = 3 if alphabet == "dna" else 2
+    table = _table(_rand_seqs(rng, 40, 5, 60, letters), lag, alphabet)
+    _, params = _jax_linear(lag, alphabets.alphabet_size(alphabet), jnp.float64)
+    ar = _port_linear(params, lag, alphabets.alphabet_size(alphabet), torch.float64)
+    server = BearServer(table, lag, h=0.05, ar_apply=ar, dtype=torch.float64,
+                        alphabet=alphabet, device="cpu")
+    return server, _rand_seqs(rng, 11, 0, 70, letters) + ["", letters[:1]]
+
+
+@pytest.mark.parametrize("mode", ["map", "sample_1", "sample_41_mean_std"])
+@pytest.mark.parametrize("alphabet", ["dna", "prot"])
+def test_score_on_ragged_input_equals_the_host_encodes_answers(alphabet, mode):
+    """score() on ragged strings answers bit-equal to the log_prob_* calls
+    fed _encode_ragged's host matrix."""
+    server, seqs = _ragged_server(alphabet)
+    lens = np.array([len(s) for s in seqs], np.int32)
+    L = -(-int(lens.max()) // 64) * 64
+    codes = server._encode_ragged(seqs, lens, L)
+    key = kr.key(23)
+    before = serving.ragged_device_pads
+    if mode == "map":
+        got = server.score(seqs)
+        want = server.log_prob_map(codes, lens)
+    elif mode == "sample_1":
+        got = server.score(seqs, mode="sample", key=key)
+        want = server.log_prob_sampled(codes, lens, key)
+    else:
+        got = server.score(seqs, mode="sample", key=key, mc_samples=41, reduce="mean_std")
+        d = server.log_prob_sampled_multi(codes, lens, server._sample_keys(key, 41))
+        want = serving._reduce(d, "mean_std", None)
+    assert serving.ragged_device_pads - before == 1
+    assert got.shape == tuple(want.shape) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("kind", ["str", "bytes"])
+@pytest.mark.parametrize("bad", ["N", "\0", "longer_than_pad_to", "\xe9"])
+def test_score_refusals_on_ragged_input_match_encode_ragged(bad, kind):
+    """A letter outside the alphabet, a NUL inside a string, a string
+    longer than pad_to and a non-ASCII letter refuse a ragged score() call
+    as _encode_ragged refuses its strings: the same type and message. A
+    UnicodeError's message names the letter's offset in the join, which
+    NUL padding moves, so of it the reason and the letter are compared."""
+    seqs = ["ACGT", "GGTTCA", "ACGTTGCAAC" if bad == "longer_than_pad_to" else f"AC{bad}GNT",
+            "ACNTTT"]
+    if kind == "bytes":
+        seqs = [s.encode("latin-1") for s in seqs]
+    lens = np.array([len(s) for s in seqs], np.int32)
+    _, server = _encode_servers()
+    with pytest.raises((ValueError, UnicodeError)) as want:
+        server._encode_ragged(seqs, lens, 8)
+    before = serving.ragged_device_pads
+    with pytest.raises(type(want.value)) as got:
+        server.score(seqs, pad_to=8)
+    assert type(got.value) is type(want.value)
+    assert serving.ragged_device_pads - before == 1
+    if isinstance(want.value, UnicodeError):
+        w, g = want.value, got.value
+        assert (g.reason, g.object[g.start:g.end]) == (w.reason, w.object[w.start:w.end])
+    else:
+        assert str(got.value) == str(want.value)
 
 
 def test_score_equal_length_and_ragged_paths_agree():
