@@ -8,7 +8,8 @@ reverse complement, for a batch of sequences at once on the device:
   dense count table at row ``offset0 + ctx`` (the table stays where it is,
   int32 on the card when it comes from the counter), or, from a sparse
   table (a ``SparseTableIndex``: sorted nonzero rows and their counts, lags
-  up to 30), a ``torch.searchsorted`` lookup on the device where absent
+  up to 30), the binary search on the device that serving shares
+  (:func:`bear_tpu_torch.inference.scoring.sparse_gather`), where absent
   rows count zero;
 - concentrations are ``ar_apply(one_hot(window)) / h + counts`` (BEAR) or
   ``van + counts`` (BMM), the stop column set to 0 (no ends), no epsilon;
@@ -33,6 +34,7 @@ every lag without bear_tpu's two-fold split of rows beyond 32 bits.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Optional
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 
 from bear_tpu_torch.counting.count_chunk import table_rows
+from bear_tpu_torch.inference.scoring import sparse_gather
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops import keyed_random as kr
 from bear_tpu_torch.ops.keyed_draw import keyed_draw_full
@@ -67,22 +70,6 @@ def _gumbel(batch_key, steps: range, B: int, dtype, dev) -> torch.Tensor:
     return -torch.log(kr.exponential(words, dtype))
 
 
-def _sparse_gather(rows_sorted: torch.Tensor, counts: torch.Tensor):
-    """rows -> [len(rows), A+1] counts of a sparse table (sorted int64 rows
-    and aligned counts, on one device); absent rows, and every row of an
-    empty table, count zero."""
-    n = rows_sorted.numel()
-    if n == 0:
-        return lambda rows: counts.new_zeros((rows.numel(), counts.shape[1]))
-
-    def gather(rows):
-        slot = torch.searchsorted(rows_sorted, rows).clamp_max(n - 1)
-        hit = rows_sorted[slot] == rows
-        return torch.where(hit[:, None], counts[slot], 0)
-
-    return gather
-
-
 def _keyed_draw(seq_keys, seq_index, rows, conc):
     """Unnormalised log-Dirichlet draws [B, 5], sequence b's under
     ``fold_in(seq_keys[b], rows[b])``: the kernel on the card (base keys
@@ -103,7 +90,7 @@ def _rollout(table, seed_codes, lengths, batch_key, h, van, *, lag, ar_apply, ge
     lengths : [B] letters to generate per sequence (the rest is padding).
     Returns [B, max_steps] int64 letters 0..3 on the device."""
     if isinstance(table, tuple):
-        gather = _sparse_gather(*table)
+        gather = functools.partial(sparse_gather, *table)
         dev = table[0].device
     else:
         gather = table.__getitem__

@@ -11,7 +11,8 @@ Model stacking order matches the reference (get_var_probs.py:136-153):
 [raw AR (MAP mode only)] + [BEAR at each h] + [BMM at each van].
 A counter with a sparse host accumulator (``counts_for_rows``: multi-pass
 and sparse-first counting, lags 14-30) is read through a
-:class:`SparseTableIndex`.
+:class:`SparseTableIndex`; on the device a sparse table is looked up by
+:func:`sparse_gather`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import configparser
 import json
 import os
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -38,6 +39,29 @@ STOP = "]"
 
 
 # --- counters: kmer strings -> transition counts --------------------------
+
+
+class SparseTable(NamedTuple):
+    """A sparse count table of one group: sorted int64 ``rows`` [n] and
+    aligned ``counts`` [n, A+1]."""
+
+    rows: np.ndarray
+    counts: np.ndarray
+
+
+def sparse_gather(rows_sorted: torch.Tensor, counts: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """[..., A+1] counts of the table rows ``rows`` [...] in a sparse table
+    on the device (sorted int64 rows [n], aligned counts [n, A+1]), by a
+    binary search there, with no host sync; absent rows, and every row of
+    an empty table, count zero."""
+    n = rows_sorted.numel()
+    if n == 0:
+        return counts.new_zeros(tuple(rows.shape) + (counts.shape[1],))
+    rows = rows.to(torch.int64)
+    slot = torch.searchsorted(rows_sorted, rows).clamp_max(n - 1)
+    hit = rows_sorted[slot] == rows
+    return torch.where(hit[..., None], counts[slot], 0)
 
 
 class SparseTableIndex:

@@ -27,6 +27,14 @@ host table, one at a time, and gathers the query rows it owns, zeros
 elsewhere; the sum over the slices (and over the processes of a spanning
 mesh) is then an exact gather. Everything after the gather is as without
 a mesh, so the draws stay keyed on the global table row.
+
+Past the dense tables (DNA lag 16-30, protein lag 8-13: more rows than
+int32 holds) the table is a sparse map, its sorted int64 nonzero rows and
+their counts on the device, looked up by a binary search on the device
+(:func:`bear_tpu_torch.inference.scoring.sparse_gather`); absent rows count
+zero. The row arithmetic is int64 exactly at those lags and int32 below,
+and the draws stay keyed on the row, so a row draws the same whether the
+table is dense or sparse.
 """
 
 from __future__ import annotations
@@ -37,7 +45,14 @@ import numpy as np
 import torch
 
 from bear_tpu_torch.counting.engine import pad_offset, table_rows
-from bear_tpu_torch.inference.scoring import load_bear, load_bear_dataset, parse_var
+from bear_tpu_torch.inference.scoring import (
+    SparseTable,
+    SparseTableIndex,
+    load_bear,
+    load_bear_dataset,
+    parse_var,
+    sparse_gather,
+)
 from bear_tpu_torch.ops import alphabets
 from bear_tpu_torch.ops import keyed_random as kr
 from bear_tpu_torch.ops.keyed_draw import keyed_draw_picked, logp_picked
@@ -68,6 +83,15 @@ ragged_device_pads = 0
 # matrices, maxlen the width of the call's code matrix, masked in or not:
 # what the row math runs over (callers reset it).
 padded_positions = 0
+# score() and Δ calls served from a sparse map (callers reset it).
+sparse_lookups = 0
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+
+def row_dtype(lag: int, A: int = 4) -> torch.dtype:
+    """Type of the table rows at ``lag``: int64 where the rows outnumber
+    int32 (DNA lag >= 16, protein lag >= 8), else int32."""
+    return torch.int64 if table_rows(lag, A) > _INT32_MAX else torch.int32
 
 
 def _draw_bytes(A1: int, itemsize: int, F: int = SAMPLE_PROPOSALS,
@@ -107,17 +131,19 @@ def _context_rows_and_next(codes: torch.Tensor, lengths: torch.Tensor,
         B, L = codes.shape
         P = L + 1
         dev = codes.device
+        rt = row_dtype(lag, A)
         j = torch.arange(P, dtype=torch.int32, device=dev)[None, :]
         lengths = lengths.to(torch.int32)[:, None]
         codes_ext = torch.nn.functional.pad(codes.to(torch.int32), (lag, 1))
+        digits = codes_ext if rt == torch.int32 else codes_ext.to(rt)
 
-        code_acc = torch.zeros((B, P), dtype=torch.int32, device=dev)
+        code_acc = torch.zeros((B, P), dtype=rt, device=dev)
         pow_a = 1
         for i in range(1, lag + 1):
-            code_acc += codes_ext[:, lag - i : lag - i + P] * pow_a
+            code_acc += digits[:, lag - i : lag - i + P] * pow_a
             pow_a *= A
         row_off = torch.as_tensor(pad_offset(lag, np.maximum(0, lag - np.arange(P)), A),
-                                  dtype=torch.int32, device=dev)[None, :]
+                                  dtype=rt, device=dev)[None, :]
         rows = row_off + code_acc
 
         nxt = torch.where(j < lengths, codes_ext[:, lag : lag + P], A)
@@ -154,6 +180,19 @@ def table_from_dataset(dataset, lag: int, train_col: int = 0) -> np.ndarray:
     return table
 
 
+def sparse_table_from_dataset(dataset, lag: int, train_col: int = 0) -> SparseTable:
+    """The sparse form of :func:`table_from_dataset`, for lags past the
+    dense table: the dataset's distinct rows, sorted, and their counts in
+    column ``train_col``. Duplicate k-mer rows accumulate."""
+    if dataset.lag != lag:
+        raise ValueError(f"dataset lag {dataset.lag} != model lag {lag}")
+    A = alphabets.alphabet_size(dataset.alphabet)
+    rows, inverse = np.unique(_rows_from_codes(dataset.codes, lag, A), return_inverse=True)
+    counts = np.zeros((len(rows), A + 1), dataset.counts.dtype)
+    np.add.at(counts, inverse.reshape(-1), dataset.counts[:, train_col, :])
+    return SparseTable(rows, counts)
+
+
 def _rows_to_onehot_contexts(rows: torch.Tensor, lag: int, dtype, A: int = 4):
     """Inverse of the row index on the device: [..] rows -> one-hot
     [.., lag, A+1] '['-padded contexts (integer-exact suffix-length
@@ -163,7 +202,7 @@ def _rows_to_onehot_contexts(rows: torch.Tensor, lag: int, dtype, A: int = 4):
     for k in range(1, lag + 1):
         m += (rows >= (A**k - 1) // (A - 1)).to(torch.int32)
     offsets = torch.as_tensor([(A**k - 1) // (A - 1) for k in range(lag + 1)],
-                              dtype=torch.int32, device=rows.device)
+                              dtype=row_dtype(lag, A), device=rows.device)
     rem = rows - offsets[m]
     digs = []
     for _ in range(lag):
@@ -261,7 +300,12 @@ class BearServer:
     Parameters
     ----------
     table : [table_rows(lag), A+1] transition counts (train column), a
-        numpy array or tensor.
+        numpy array or tensor; or a sparse table, any object with sorted
+        int64 ``.rows`` and aligned ``.counts`` [n, A+1] (a
+        :class:`SparseTable` or ``SparseTableIndex``), or a counter with a
+        sparse accumulator (``counts_for_rows``; its group 0), the form of
+        the lags past the dense table. The sparse map holds the rows with a
+        count, on ``device`` in ``dtype``.
     lag : model lag.
     h : BEAR concentration (with ``ar_apply``).
     ar_apply : (one-hot [.., lag, A+1] on ``device``) -> probs [.., A+1],
@@ -289,12 +333,26 @@ class BearServer:
         if ar_apply is not None and h is None:
             raise ValueError("ar_apply needs h")
         A = alphabets.alphabet_size(alphabet)
-        if np.shape(table)[0] != table_rows(lag, A):
+        if hasattr(table, "counts_for_rows"):
+            table = SparseTableIndex(table, lag, 0)
+        dev = DataSplit(mesh, device).master
+        self._sparse = None
+        if hasattr(table, "rows") and hasattr(table, "counts"):
+            if mesh is not None:
+                raise ValueError("a sparse table is served from one device; mesh= splits "
+                                 "only a dense table")
+            counts = np.asarray(table.counts)
+            if counts.ndim != 2 or counts.shape[1] != A + 1:
+                raise ValueError(f"sparse counts {counts.shape} are not [n, {A + 1}]")
+            keep = counts.any(axis=1)
+            self._sparse = (torch.as_tensor(np.asarray(table.rows, np.int64)[keep]).to(dev),
+                            torch.as_tensor(counts[keep]).to(dev).to(dtype))
+            self._table = self._slices = None
+        elif np.shape(table)[0] != table_rows(lag, A):
             raise ValueError(
                 f"table rows {np.shape(table)[0]} != rows(lag={lag}, A={A})"
             )
-        dev = DataSplit(mesh, device).master
-        if mesh is None:
+        elif mesh is None:
             # Counts move to the device in their own type first, then convert
             # there (no full-size host float copy).
             self._table = torch.as_tensor(table).to(dev).to(dtype)
@@ -321,11 +379,14 @@ class BearServer:
         counts via load_bear_dataset, densified from the ``train_col``
         column into a table on the device, or row-split over ``mesh_axis``
         of ``mesh`` (the reference's load-model-then-scan-counts set-up,
-        get_var_probs.py:59-82 + 429-451)."""
+        get_var_probs.py:59-82 + 429-451). Past the dense table the counts
+        become the sparse map (:func:`sparse_table_from_dataset`)."""
         dev = DataSplit(mesh, device).master
         lag, alphabet_name, h, ar_apply, info = load_bear(
             path, double_softmax=double_softmax, device=dev)
-        table = table_from_dataset(load_bear_dataset(info), lag, train_col=train_col)
+        dense = row_dtype(lag, alphabets.alphabet_size(alphabet_name)) == torch.int32
+        table = (table_from_dataset if dense else sparse_table_from_dataset)(
+            load_bear_dataset(info), lag, train_col=train_col)
         return cls(table, lag, h=h, ar_apply=ar_apply, dtype=dtype,
                    alphabet=alphabet_name, device=dev, mesh=mesh, mesh_axis=mesh_axis)
 
@@ -338,7 +399,11 @@ class BearServer:
     def _gather(self, rows):
         """The table's rows ``rows`` [...] -> [..., A1] on the device. Row
         split: each slice gathers the rows it owns and zeros elsewhere, so
-        exactly one slice contributes each row and the sum is exact."""
+        exactly one slice contributes each row and the sum is exact. Sparse
+        map: a binary search on the device, absent rows zero."""
+        if self._sparse is not None:
+            with span("bear.score.lookup"):
+                return sparse_gather(*self._sparse, rows)
         if self._slices is None:
             return self._table[rows]
         out = None
@@ -361,6 +426,11 @@ class BearServer:
         with span("bear.score.concentrations"):
             return torch.cat([self._concentrations(r, self._gather(r))
                               for r in torch.split(rows, AR_SLICE_ROWS)])
+
+    def _count_sparse_call(self):
+        global sparse_lookups
+        if self._sparse is not None:
+            sparse_lookups += 1
 
     def _sample_keys(self, key, mc_samples: int) -> torch.Tensor:
         """[S] sample keys fold_in(key, s)."""
@@ -583,10 +653,12 @@ class BearServer:
         if keys is not None:
             # Window buffers and draws grow with the sample axis.
             batch = min(batch, max((1 << 21) // mc_samples, 1))
+        self._count_sparse_call()
         rows1, nxt1 = self._wt_transitions(codes)
         lag, A, dev = self.lag, self._A, self.device
+        rt = row_dtype(lag, A)
         i = torch.arange(lag + 1, dtype=torch.int64, device=dev)[None, :]
-        pow_a = torch.as_tensor([1] + [A**k for k in range(lag)], dtype=torch.int32,
+        pow_a = torch.as_tensor([1] + [A**k for k in range(lag)], dtype=rt,
                                 device=dev)[None, :]
         V = len(pos)
         out = torch.empty((V,) if keys is None else (V, width), dtype=self._dtype,
@@ -594,8 +666,8 @@ class BearServer:
         for s in range(0, V, batch):
             e = min(s + batch, V)
             p = torch.as_tensor(pos[s:e], device=dev)[:, None]
-            a = torch.as_tensor(alt[s:e], dtype=torch.int32, device=dev)[:, None]
-            r = torch.as_tensor(ref[s:e], dtype=torch.int32, device=dev)[:, None]
+            a = torch.as_tensor(alt[s:e], dtype=rt, device=dev)[:, None]
+            r = torch.as_tensor(ref[s:e], dtype=rt, device=dev)[:, None]
             t = p + i
             valid = t <= L  # t == L is the stop
             tc = torch.clamp(t, max=L)
@@ -616,17 +688,18 @@ class BearServer:
         (code A) give digit 0 and count toward the prefix-block offset (the
         Horner form of _rows_from_codes' math)."""
         lag, A = self.lag, self._A
+        rt = row_dtype(lag, A)
         W_mt = C.shape[1] - lag
         C32 = C.to(torch.int32)
-        code = torch.zeros((C.shape[0], W_mt), dtype=torch.int32, device=C.device)
-        npad = torch.zeros_like(code)
+        code = torch.zeros((C.shape[0], W_mt), dtype=rt, device=C.device)
+        npad = torch.zeros((C.shape[0], W_mt), dtype=torch.int32, device=C.device)
         for k in range(lag):
             ch = C32[:, k : k + W_mt]
             is_pad = ch == A
             npad += is_pad.to(torch.int32)
             code = code * A + torch.where(is_pad, 0, ch)
         offsets = torch.as_tensor([pad_offset(lag, n, A) for n in range(lag + 1)],
-                                  dtype=torch.int32, device=C.device)
+                                  dtype=rt, device=C.device)
         rows_mt = offsets[npad] + code
         nxt_mt = C32[:, lag:]
         m_mt = torch.arange(W_mt, device=C.device)[None, :] < n_mt[:, None]
@@ -669,6 +742,7 @@ class BearServer:
             if mode == "sample" and mc_samples != 1:
                 return np.zeros((0, mc_samples), self._np_dtype())
             return np.zeros((0,), self._np_dtype())
+        self._count_sparse_call()
 
         # '['-padded + '$'-terminated char codes; both out-of-alphabet
         # symbols carry code A ('[' only in context prefixes, '$' only as a
@@ -766,6 +840,7 @@ class BearServer:
             maxlen = int(lengths.max()) if len(seqs) else 0
             L = pad_to or (-(-max(maxlen, 1) // 64) * 64)
             codes, lengths = self._encode_score(seqs, lengths, L)
+            self._count_sparse_call()
             if mode == "map":
                 return _copy_out(self.log_prob_map(codes, lengths))
             base = key if key is not None else kr.key(0)

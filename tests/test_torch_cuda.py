@@ -8,6 +8,7 @@ neither JAX nor bear_tpu, so it runs where only the port is installed:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 """
 
+import copy
 import json
 import os
 
@@ -169,6 +170,46 @@ def test_ragged_score_encode_on_card_syncs_nothing_and_equals_the_host_encode(cu
     assert codes.device.type == "cuda" and codes.dtype == torch.int8 and codes.shape == (2048, L)
     np.testing.assert_array_equal(codes.cpu().numpy(), server._encode_ragged(strs, lens, L))
     np.testing.assert_array_equal(got_lens.cpu().numpy(), lens)
+
+
+def test_lag20_sparse_server_on_card_equals_cpu_and_its_lookup_syncs_nothing(cuda):
+    """A lag-20 server over the sparse map of seeded reads scores on the card
+    as on the CPU in float64 (MAP, MC-41, sampled SNV Δ); its lookup, the
+    binary search on the card, runs without a host sync."""
+    from bear_tpu_torch.counting.sparse import SparseTransitionCounter
+    from bear_tpu_torch.models.ar_funcs import get_ar_func
+
+    lag = 20
+    rng = np.random.default_rng(20)
+    template = rng.integers(0, 4, size=400).astype(np.int8)
+    starts = rng.integers(0, 300, size=600)
+    reads = template[starts[:, None] + np.arange(100)[None, :]]
+    sc = SparseTransitionCounter([lag], n_groups=1, device=cuda)
+    for c in chip_smoke.read_chunks(reads, np.zeros(600, np.int32), rows=128):
+        sc.add_chunk(c)
+    widths = {"filter_width": 8, "num_filters": 96, "kmer_layer1_width": 64}
+    ar = get_ar_func("cnn", lag, 4, widths, dtype=torch.float64, device="cpu")
+    ar.requires_grad_(False)
+    seqs = chip_smoke.decode_reads(reads[:64]) + ["ACGT" * 30]
+    wt = seqs[0]
+    pos = np.repeat(np.arange(len(wt)), 3)
+    alt = np.array([a for c in wt for a in "ACGT" if a != c])
+    kw = dict(mode="sample", key=kr.key(20), mc_samples=41, reduce="mean_std")
+    servers = [BearServer(sc, lag, h=0.05, ar_apply=a, dtype=torch.float64, device=d)
+               for a, d in ((ar, "cpu"), (copy.deepcopy(ar).to(cuda), cuda))]
+    for call in (lambda s: s.score(seqs), lambda s: s.score(seqs, **kw),
+                 lambda s: s.delta_scores_snv(wt, pos, alt, **kw)):
+        np.testing.assert_allclose(call(servers[1]), call(servers[0]), rtol=1e-12, atol=1e-12)
+    rows = serving._context_rows_and_next(
+        torch.as_tensor(reads[:64], device=cuda), torch.full((64,), 100, device=cuda), lag)[0]
+    servers[1]._gather(rows)  # the first launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = servers[1]._gather(rows)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    np.testing.assert_array_equal(got.cpu().numpy(), servers[0]._gather(rows.cpu()).numpy())
 
 
 def test_philox_words_on_card_equal_cpu(cuda):
