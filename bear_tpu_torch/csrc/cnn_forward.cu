@@ -59,9 +59,21 @@
 //     the thread that wrote it, so the statistics span all blocks; a hidden
 //     block's sum over one position's filters is added to the block's sums
 //     in shared memory. A CNN of one block each (up to 96 filters and 64
-//     hidden units: every CNN in the repo) has an instance of its own with
-//     the block counts constant, and stages nothing more. Lag, A1 and fw
+//     hidden units, as at lag 13) has an instance of its own with the
+//     block counts constant, and stages nothing more. Lag, A1 and fw
 //     are runtime values; shared memory alone bounds the widths;
+//   - narrow widths: a CNN whose filters fit one block of 32 and whose
+//     hidden units fit one of 16 (bear_cnn_bear.cfg's 30 and 16, the protein
+//     cell's) takes the same function, in the same order, over those blocks
+//     (Narrow below; ops/cnn_forward.py picks it from the widths alone).
+//     Padded to 96 x 64, 30 and 16 made 5.1x the multiply-adds, ran the
+//     statistics, elu and stores over 96 filters, and the 64-row tile took
+//     146,420 B at the protein CNN, one block an SM. The narrow tile is 64
+//     rows and 256 threads (87,924 B there, two blocks an SM): a thread owns
+//     2 rows x 4 filters of the conv (two loads of the rows' inputs, one
+//     16-byte load of the filters and 8 FMAs a tap) and 2 rows x 2 hidden
+//     units of the dense product. 16 warps an SM beat fewer loads: 4 rows x
+//     4 filters at 128 threads (8 warps an SM) ran 25% slower on an H100;
 //   - two 256-thread blocks an SM cap a thread at 128 registers: the
 //     micro-tiles above are the largest that fit, and 16 warps an SM hide
 //     the loads' latency better than 8 warps of tiles twice the size
@@ -80,6 +92,11 @@
 // On an H100 at the lag-13 CNN this reaches ~36% of the FMA roofline: by
 // ablation, the dense product runs at ~59% of its own bound, the conv at
 // ~40% (a quarter of its instructions are loads), elu ~10% of the time.
+// At the protein CNN the narrow instance reaches ~18% (the padded one
+// 5.4%): by ablation no phase takes more than 13% of its time (the conv's
+// FMAs 13%, elu 9%, the head 7%, the statistics 7%, the dense product
+// 5%); shared memory's delivery (the dense product's four loads a
+// thread for 4 FMAs, the conv's three for 8) and latency bound the rest.
 // That roofline counts the conv densely (fw A1 taps a filter); the rows the
 // main path serves are one-hot, fw of those taps non-zero.
 
@@ -89,12 +106,16 @@
 
 namespace {
 
-constexpr int FILTER_LANES = 8;  // threads that share a row's filters
-constexpr int FILTERS_PER_LANE = 12;
-constexpr int NF_BLOCK = FILTER_LANES * FILTERS_PER_LANE;  // 96 filters a block
-constexpr int HIDDEN_LANES = 16;  // threads that share a row's hidden units
-constexpr int HIDDEN_PER_LANE = 4;
-constexpr int W1_BLOCK = HIDDEN_LANES * HIDDEN_PER_LANE;  // 64 hidden units a block
+// An instance's blocks: FL threads share a row's filters, FPL filters each
+// (NF = FL FPL filters a block); HL threads share a row's hidden units, HPL
+// each (W1 = HL HPL hidden units a block).
+template <int FL_, int FPL_, int HL_, int HPL_>
+struct Blocks {
+  static constexpr int FL = FL_, FPL = FPL_, NF = FL_ * FPL_;
+  static constexpr int HL = HL_, HPL = HPL_, W1 = HL_ * HPL_;
+};
+using Padded = Blocks<8, 12, 16, 4>;  // 96 filters, 64 hidden units a block
+using Narrow = Blocks<8, 4, 8, 2>;    // 32 filters, 16 hidden units: one block of each
 constexpr int SMEM_MAX = 232448;  // shared memory a block may have on Hopper
 constexpr double NORM_EPS = 1e-5;
 // Blocks of NT threads an SM must hold at once: two of 256 cap a thread at
@@ -213,9 +234,10 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
 __device__ __forceinline__ void copy_async_wait() { asm volatile("cp.async.wait_all;\n" ::); }
 
 // The filter that activation (and weights1) row p of a block holds: p =
-// t * 8 + lane holds lane * 12 + t.
+// t * FL + lane holds lane * FPL + t.
+template <class B>
 __host__ __device__ constexpr int filter_of(int p) {
-  return (p % FILTER_LANES) * FILTERS_PER_LANE + p / FILTER_LANES;
+  return (p % B::FL) * B::FPL + p / B::FL;
 }
 
 // Shared-memory regions, offsets in elements of T (ops/cnn_forward.py
@@ -226,8 +248,10 @@ struct Layout {
   int S, S1, xraw, xT, act, hacc, filt, w1, s0, i0, s1, i1, w2, b2, total;
 };
 
+template <class B>
 __host__ __device__ inline Layout layout(int R, int itemsize, int LA, int K, int CL, int A1,
                                          int nf, int w1) {
+  constexpr int NF_BLOCK = B::NF, W1_BLOCK = B::W1;
   const int per16 = 16 / itemsize;
   const int NFP = blocks_of(nf, NF_BLOCK) * NF_BLOCK, HB = blocks_of(w1, W1_BLOCK);
   const int W1P = HB * W1_BLOCK;
@@ -246,7 +270,7 @@ __host__ __device__ inline Layout layout(int R, int itemsize, int LA, int K, int
   m.filt = o;
   o += K * NFP;  // filters [K][NFP]
   m.w1 = o;
-  o += NF_BLOCK * W1_BLOCK;  // a block of weights1 [96][64], rows filter-permuted
+  o += NF_BLOCK * W1_BLOCK;  // a block of weights1 [NF][W1], rows filter-permuted
   m.s0 = o;
   o += CL * NFP;
   m.i0 = o;
@@ -263,24 +287,25 @@ __host__ __device__ inline Layout layout(int R, int itemsize, int LA, int K, int
   return m;
 }
 
-// Block (hb, fb) of weights1[j] [nf][w1] -> dst [96][64]: row p from filter
-// fb * 96 + filter_of(p), columns hb * 64 on, zeros beyond nf and w1;
+// Block (hb, fb) of weights1[j] [nf][w1] -> dst [NF][W1]: row p from filter
+// fb * NF + filter_of(p), columns hb * W1 on, zeros beyond nf and w1;
 // 16-byte copies where w1's rows allow them.
-template <int NT, typename T>
+template <int NT, class B, typename T>
 __device__ __forceinline__ void copy_weights1(T* dst, const T* src, int nf, int w1, int hb,
                                               int fb, bool vec) {
+  constexpr int NF_BLOCK = B::NF, W1_BLOCK = B::W1;
   const int f0 = fb * NF_BLOCK, h0 = hb * W1_BLOCK;
   if (vec) {
     constexpr int V = 16 / sizeof(T), CHUNKS = W1_BLOCK / V;
 #pragma unroll
     for (int c = threadIdx.x; c < NF_BLOCK * CHUNKS; c += NT) {
-      const int p = c / CHUNKS, h = (c - p * CHUNKS) * V, f = f0 + filter_of(p);
+      const int p = c / CHUNKS, h = (c - p * CHUNKS) * V, f = f0 + filter_of<B>(p);
       const bool ok = f < nf && h0 + h < w1;
       copy_async<16>(dst + p * W1_BLOCK + h, ok ? src + f * w1 + h0 + h : src, ok ? 16 : 0);
     }
   } else {
     for (int e = threadIdx.x; e < NF_BLOCK * W1_BLOCK; e += NT) {
-      const int p = e / W1_BLOCK, h = e - p * W1_BLOCK, f = f0 + filter_of(p);
+      const int p = e / W1_BLOCK, h = e - p * W1_BLOCK, f = f0 + filter_of<B>(p);
       const bool ok = f < nf && h0 + h < w1;
       copy_async<sizeof(T)>(dst + e, ok ? src + f * w1 + h0 + h : src,
                             ok ? static_cast<int>(sizeof(T)) : 0);
@@ -313,9 +338,9 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* x, int64_t tile, int6
   }
 }
 
-// WIDE: more than one block of filters or of hidden units; else one of each
-// (up to 96 filters and 64 hidden units), the block counts constants.
-template <typename T, int R, int NT, bool WIDE>
+// B: the blocks (Padded or Narrow). WIDE: more than one block of filters or
+// of hidden units; else one of each, the block counts constants.
+template <typename T, int R, int NT, bool WIDE, class B>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS<NT>)
 cnn_forward_kernel(const T* __restrict__ x, const T* __restrict__ filters,
                    const T* __restrict__ intercept0, const T* __restrict__ weights1,
@@ -323,15 +348,18 @@ cnn_forward_kernel(const T* __restrict__ x, const T* __restrict__ filters,
                    const T* __restrict__ intercept2, const T* __restrict__ scale0,
                    const T* __restrict__ scale1, T* __restrict__ out, int64_t n, int lag,
                    int A1, int fw, int nf, int w1, bool vec_x, bool vec_w1) {
+  constexpr int FILTER_LANES = B::FL, FILTERS_PER_LANE = B::FPL, NF_BLOCK = B::NF;
+  constexpr int HIDDEN_LANES = B::HL, HIDDEN_PER_LANE = B::HPL, W1_BLOCK = B::W1;
   constexpr int RC = R / (NT / FILTER_LANES);  // rows a thread in the conv
   constexpr int RD = R / (NT / HIDDEN_LANES);  // rows a thread in the dense layer
-  static_assert(RC >= 1 && RD >= 1 && R % (NT / FILTER_LANES) == 0, "tile rows");
+  static_assert(RC >= 1 && RD >= 1 && R % (NT / FILTER_LANES) == 0 &&
+                R % (NT / HIDDEN_LANES) == 0, "tile rows");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int LA = lag * A1, K = fw * A1, CL = lag - fw + 1;
   const int NFB = WIDE ? blocks_of(nf, NF_BLOCK) : 1, NFP = NFB * NF_BLOCK;
   const int HB = WIDE ? blocks_of(w1, W1_BLOCK) : 1, W1P = HB * W1_BLOCK;
-  const Layout L = layout(R, sizeof(T), LA, K, CL, A1, nf, w1);
+  const Layout L = layout<B>(R, sizeof(T), LA, K, CL, A1, nf, w1);
   const int S = L.S, S1 = L.S1;
   T* xraw = sm + L.xraw;
   T* xT = sm + L.xT;
@@ -401,7 +429,7 @@ cnn_forward_kernel(const T* __restrict__ x, const T* __restrict__ filters,
     for (int j = 0; j < CL; ++j) {
       if (j > 0) __syncthreads();  // the last dense product is done with act and w1s
       const T* w1j = weights1 + static_cast<int64_t>(j) * nf * w1;
-      copy_weights1<NT>(w1s, w1j, nf, w1, 0, 0, vec_w1);
+      copy_weights1<NT, B>(w1s, w1j, nf, w1, 0, 0, vec_w1);
 
       // (1) conv, a block of 96 filters at a time: c[i][t] = conv[j][fb * 96
       // + lane * 12 + t] of row rc + i; each row's sum over its filters
@@ -525,7 +553,7 @@ cnn_forward_kernel(const T* __restrict__ x, const T* __restrict__ filters,
         for (int fb = 0; fb < NFB; ++fb) {
           if (hb + fb > 0) {
             __syncthreads();  // the last block's product is done with w1s
-            copy_weights1<NT>(w1s, w1j, nf, w1, hb, fb, vec_w1);
+            copy_weights1<NT, B>(w1s, w1j, nf, w1, hb, fb, vec_w1);
             copy_async_wait();
             __syncthreads();
           }
@@ -632,13 +660,13 @@ cnn_forward_kernel(const T* __restrict__ x, const T* __restrict__ filters,
   copy_async_wait();  // nothing left in flight at exit
 }
 
-template <typename T, int R, int NT, bool WIDE>
+template <typename T, int R, int NT, bool WIDE, class B>
 cudaError_t launch(const void* const* p, void* out, int64_t n, int lag, int A1, int fw, int nf,
                    int w1, cudaStream_t stream) {
-  const Layout L = layout(R, sizeof(T), lag * A1, fw * A1, lag - fw + 1, A1, nf, w1);
+  const Layout L = layout<B>(R, sizeof(T), lag * A1, fw * A1, lag - fw + 1, A1, nf, w1);
   const size_t smem = static_cast<size_t>(L.total) * sizeof(T);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  auto kernel = cnn_forward_kernel<T, R, NT, WIDE>;
+  auto kernel = cnn_forward_kernel<T, R, NT, WIDE, B>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                          cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
@@ -678,27 +706,34 @@ cudaError_t launch(const void* const* p, void* out, int64_t n, int lag, int A1, 
 // nf], scale1 [w1]), all contiguous, of float (itemsize 4) or double (8),
 // on one card; out [n, A1]. `rows` and `threads` are the tile a block owns
 // (64 and 256 or 16 and 128 in float, 16 and 128 in double:
-// ops/cnn_forward.py launch_shape). Launched on `stream`; returns a
-// cudaError_t (0: launched; cudaErrorInvalidValue where the tile is none of
-// these or does not fit shared memory).
+// ops/cnn_forward.py launch_shape), in either instance. Launched on
+// `stream`; sets *narrow to 1 where the narrow instance ran, else 0;
+// returns a cudaError_t (0: launched; cudaErrorInvalidValue where the tile
+// is none of these or does not fit shared memory).
 extern "C" int cnn_forward_launch(const void* x, const void* filters, const void* intercept0,
                                   const void* weights1, const void* intercept1,
                                   const void* weights2, const void* intercept2,
                                   const void* scale0, const void* scale1, void* out, int64_t n,
                                   int32_t lag, int32_t A1, int32_t fw, int32_t nf, int32_t w1,
                                   int32_t itemsize, int32_t rows, int32_t threads,
-                                  void* stream) {
+                                  void* stream, int32_t* narrow) {
   if (n < 1 || A1 < 1 || fw < 1 || fw > lag || nf < 1 || w1 < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* p[9] = {x, filters, intercept0, weights1, intercept1,
                       weights2, intercept2, scale0, scale1};
   auto st = static_cast<cudaStream_t>(stream);
-  const bool wide = nf > NF_BLOCK || w1 > W1_BLOCK;
-#define CNN_TILE(TY, R, NT)                                                               \
-  if (itemsize == static_cast<int>(sizeof(TY)) && rows == R && threads == NT)             \
-    return static_cast<int>(wide ? launch<TY, R, NT, true>(p, out, n, lag, A1, fw, nf, w1, st) \
-                                 : launch<TY, R, NT, false>(p, out, n, lag, A1, fw, nf, w1, st));
+  // The instance, from the widths alone (ops/cnn_forward.py is_narrow
+  // mirrors this rule for its shared-memory count).
+  const bool nar = nf <= Narrow::NF && w1 <= Narrow::W1;
+  const bool wide = nf > Padded::NF || w1 > Padded::W1;
+  *narrow = nar ? 1 : 0;
+#define CNN_TILE(TY, R, NT)                                                                 \
+  if (itemsize == static_cast<int>(sizeof(TY)) && rows == R && threads == NT)               \
+    return static_cast<int>(                                                                \
+        nar    ? launch<TY, R, NT, false, Narrow>(p, out, n, lag, A1, fw, nf, w1, st)        \
+        : wide ? launch<TY, R, NT, true, Padded>(p, out, n, lag, A1, fw, nf, w1, st)        \
+               : launch<TY, R, NT, false, Padded>(p, out, n, lag, A1, fw, nf, w1, st));
   CNN_TILE(float, 64, 256)
   CNN_TILE(float, 16, 128)
   CNN_TILE(double, 16, 128)

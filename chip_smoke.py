@@ -51,7 +51,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    cnn_forward against the plain forward (float32 and float64), and each
    is timed alone there beside its bound. keyed_draw's launches are counted
    on (C)-(F) and 4f (K) and 4g (O), cnn_forward's on (C)-(E), each path
-   from 0 just before it;
+   from 0 just before it, none of them its narrow instance's; (Cp) the
+   protein cell's CNN (lag 6, 30 filters, 16 hidden units) over its
+   proteome's lag-6 table, one MC-41 call of 2,048 held-out proteins, every
+   cnn_forward launch the narrow instance's, its AR slices held against the
+   plain forward (float32 and float64) and timed alone beside the bound;
 4e. the on-disk workflow: phase 4's reads written as FASTQ (the train group
    over 3 files, one gzip-compressed; the held-out group in 1), the
    summarize CLI at -l 13 on the card (the native parser for every file, one
@@ -1135,7 +1139,7 @@ def cnn_forward_vs_plain(x, params, shape=None):
     return out
 
 
-def cnn_forward_timing(fn, card, reps=20):
+def cnn_forward_timing(fn, card, reps=20, label="(C)'s AR slices"):
     """4d: the k-mers of one call of fn (the AR slices that CNNAR.forward
     hands to ops.cnn_forward.cnn_probs, captured) held kernel against the
     plain forward in float32 and float64 (cnn_forward_vs_plain); then the
@@ -1190,7 +1194,7 @@ def cnn_forward_timing(fn, card, reps=20):
                                        if "float64" in k),
                kernel_err64=max(h["kernel_err64"] for k, h in held.items() if "float32" in k),
                plain_err64=max(h["plain_err64"] for k, h in held.items() if "float32" in k))
-    print(f"[kernel] cnn_forward at (C)'s AR slices {rows} (lag {lag}, A1 {A1}, fw {fw}, nf "
+    print(f"[kernel] cnn_forward at {label} {rows} (lag {lag}, A1 {A1}, fw {fw}, nf "
           f"{nf}, w1 {w1}, float32): ms {ms:.6f} plain_ms {plain_ms:.6f} bound_ms "
           f"{bound_ms:.6f} (operations: {flops:,} FLOPs a row at 67 TFLOP/s) = "
           f"{out['roofline_pct']:.2f}% of the roofline; one {rows[0]:,}-row slice "
@@ -1200,6 +1204,81 @@ def cnn_forward_timing(fn, card, reps=20):
           f"{out['kernel_err64']:.3e}, the plain forward {out['plain_err64']:.3e}), max_rel_err "
           f"{out['max_rel_err_float64']:.3e} (float64) [{card}]")
     return out
+
+
+# (Cp) the protein cell's CNN, the one that takes cnn_forward's narrow
+# instance (bench_gpu's proteome_lag6_cnn configuration: lag 6, the 20
+# residues, bear_cnn_bear.cfg's 30 filters of width 3 and 16 hidden units):
+# the cell's proteome drawn from SEED, its training proteins counted into
+# the lag-6 table (5.66 GB), one MC-41 call of PROTEIN_SEQS held-out
+# proteins, ragged, as the cell makes its calls.
+PROTEIN_CONFIG = "bench_gpu/configs/proteome_lag6_cnn.json"
+PROTEIN_SEQS = 2048
+
+
+def protein_server(device="cuda", lag=None, families=None, seqs=PROTEIN_SEQS):
+    """(server, proteins): a BearServer of PROTEIN_CONFIG's CNN at seeded
+    weights over the table of its proteome's training proteins, and the
+    first ``seqs`` held-out proteins as strings. ``lag`` and ``families``
+    replace the configuration's (a rehearsal at a small size)."""
+    import torch
+    from bear_tpu_torch.counting import TransitionCounter, chunk_reads
+    from bear_tpu_torch.inference import BearServer
+    from bear_tpu_torch.models import get_ar_func
+    from bench_gpu import proteome
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), PROTEIN_CONFIG)) as f:
+        cfg = json.load(f)
+    lag = cfg["lag"] if lag is None else lag
+    p = dict(cfg["proteome"], **({} if families is None else {"families": families}))
+    residues, lengths, groups = proteome.synth_proteome(
+        SEED, p["families"], p["members"], p["median_len"], p["len_sigma"], p["min_len"],
+        p["max_len"], p["substitution_rate"], p["held_out"])
+    counter = TransitionCounter(lags=[lag], n_groups=1, alphabet=cfg["alphabet"], device=device)
+    codes = proteome.sequences(residues, lengths)
+    for chunk in chunk_reads(((codes[k], 0) for k in np.flatnonzero(groups == 0)), lag,
+                             batch_size=p["chunk_rows"]):
+        counter.add_chunk(chunk)
+    m = cfg["model"]
+    ar = get_ar_func("cnn", lag, cfg["alphabet_size"],
+                     {k: m[k] for k in ("num_filters", "filter_width", "kmer_layer1_width")},
+                     device=device, generator=torch.Generator().manual_seed(SEED))
+    ar.requires_grad_(False)
+    server = BearServer(counter.table(lag)[0], lag, h=m["serve_h"], ar_apply=ar,
+                        alphabet=cfg["alphabet"], device=device)
+    held = np.flatnonzero(groups == 1)[:seqs]
+    return server, proteome.strings(*proteome.select(residues, lengths, held))
+
+
+def protein_phase(card, device="cuda", mc=MC, **size):
+    """4d (Cp): one MC-41 call of protein_server's proteins (``size``: its
+    ``lag``, ``families`` and ``seqs``), finite, its cnn_forward launches
+    counted from 0 just before it, every one of them the narrow instance on
+    the card; there its AR slices held against the plain forward and timed
+    (cnn_forward_timing). Returns {launches, narrow_launches} and, on the
+    card, the timing's fields."""
+    import torch
+    from bear_tpu_torch.ops import cnn_forward
+    from bear_tpu_torch.ops.keyed_random import key as make_key
+
+    server, proteins = protein_server(device, **size)
+    key = make_key(SEED)
+    call = lambda: server.score(proteins, mode="sample", key=key, mc_samples=mc,  # noqa: E731
+                                reduce="mean_std")
+    call()  # warm-up
+    cnn_forward.launches = cnn_forward.narrow_launches = 0
+    out = call()
+    rec = {"launches": cnn_forward.launches, "narrow_launches": cnn_forward.narrow_launches}
+    check(out.shape == (len(proteins), 2) and np.isfinite(out).all(),
+          f"(Cp) scores of {len(proteins)} proteins: {out.shape}, not all finite")
+    print(f"[sample] (Cp) {len(proteins):,} proteins, MC-{mc}, reduce='mean_std': finite; "
+          f"cnn_forward {rec['launches']} launches, {rec['narrow_launches']} of the narrow "
+          f"instance")
+    if torch.device(device).type == "cuda":
+        check(rec["launches"] > 0 and rec["narrow_launches"] == rec["launches"],
+              f"(Cp) the protein CNN's call did not take the narrow instance alone: {rec}")
+        rec.update(cnn_forward_timing(call, card, label="(Cp)'s AR slices"))
+    return rec
 
 
 # The attention kernel (csrc/attention_forward.cu) against the plain block
@@ -3756,8 +3835,12 @@ def main() -> int:
         window_update.launches = 0
         count_chunk_update.launches = 0
         d_rec = {}
+        cnn_forward.narrow_launches = 0
         sampled_phase(train_table, LAG, os.path.join(tmp, "cnn"), os.path.join(tmp, "ysd1"),
                       seqs, genome_prefix(DMS_BP), card, record=d_rec)
+        cnn_narrow = cnn_forward.narrow_launches
+        check(cnn_narrow == 0, f"the lag-13 CNN (96 filters, 64 hidden units) took the narrow "
+                               f"instance {cnn_narrow} times in 4d")
         keyed_by_path, d_keyed = dict(d_rec["keyed_launches"]), d_rec["keyed_draw"]
         cnn_by_path, d_cnn = dict(d_rec["cnn_launches"]), d_rec["cnn_forward"]
         check(all(n > 0 for n in cnn_by_path.values()),
@@ -3766,6 +3849,7 @@ def main() -> int:
               f"{count_chunk_update.launches}, window_hist {window_update.launches}, "
               f"keyed_draw by path {keyed_by_path}, cnn_forward by path {cnn_by_path} (the Δ "
               f"window math is PyTorch ops)")
+    d_protein = protein_phase(card)
     torch.cuda.empty_cache()
 
     # 4e. the on-disk workflow: reads as FASTQ -> summarize -l 13 (its
@@ -3927,7 +4011,9 @@ def main() -> int:
                          "make_ar_func_cnn) is jitted XLA; the port's ATen forward before it",
         "launches": sum(cnn_by_path.values()),
         "launches_by_path": cnn_by_path,
+        "narrow_launches": cnn_narrow,
         "library_ms": None, **d_cnn,
+        "protein": d_protein,
         "ptxas": ptxas_report(libs[cnn_forward.SOURCE].with_suffix(".log").read_text()),
     }, {
         "name": "attention_forward", "route": "cuda",

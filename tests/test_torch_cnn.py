@@ -237,6 +237,42 @@ def test_cnn_forward_launch_shape_and_shared_memory():
     assert cf.launch_shape(1 << 18, 4, 132, 13, 5, 8, 289, 64).rows == 16
 
 
+def test_cnn_forward_narrow_instance_launch_shape():
+    from bear_tpu_torch.ops import cnn_forward as cf
+
+    protein = (6, 21, 3, 30, 16)  # lag, A1, fw, nf, w1 of the protein cell's CNN
+    ysd1 = (5, 5, 3, 30, 16)  # bear_cnn_bear.cfg's widths on DNA
+    for widths in (protein, ysd1):
+        assert cf.is_narrow(*widths[3:])
+        # The scoring cells' slices (2^18 and 94,208 rows) take the 64-row
+        # tile of 256 threads; assembly's steps and double the 16-row tile
+        # of 128, the tiles of the padded instance.
+        for n in (1 << 18, 94_208):
+            assert cf.launch_shape(n, 4, 132, *widths) == cf.TILES[4][0] == (64, 256)
+        assert cf.launch_shape(1024, 4, 132, *widths) == cf.TILES[4][-1] == (16, 128)
+        assert cf.launch_shape(1 << 18, 8, 132, *widths) == cf.TILES[8][-1] == (16, 128)
+        # Two blocks an SM (228 KB, 1 KB a block reserved).
+        assert 2 * (cf.smem_bytes(64, 4, *widths) + 1024) <= 228 * 1024
+    # Unpadded past 32 filters and 16 hidden units: no 96 x 64 blocks.
+    assert cf.smem_bytes(64, 4, *protein) == 4 * (64 * 126 + (126 + 32) * 68 + 63 * 32 + 32 * 16
+                                                  + 2 * 4 * 32 + 2 * 16 + 16 * 21 + 21)
+    # The edge: 32 filters and 16 hidden units are narrow, two blocks an SM;
+    # one filter or one hidden unit more takes the padded instance, one
+    # block an SM here.
+    assert cf.is_narrow(32, 16) and cf.is_narrow(1, 1)
+    assert 2 * (cf.smem_bytes(64, 4, 6, 21, 3, 32, 16) + 1024) <= 228 * 1024
+    for past in ((33, 16), (32, 17), (96, 64)):
+        assert not cf.is_narrow(*past)
+        assert cf.launch_shape(1 << 18, 4, 132, 6, 21, 3, *past) == (64, 256)
+        assert 2 * (cf.smem_bytes(64, 4, 6, 21, 3, *past) + 1024) > 228 * 1024
+    # (146,420 B: what 30 filters and 16 hidden units took padded to 96 x 64.)
+    assert cf.smem_bytes(64, 4, 6, 21, 3, 33, 16) == 146_420
+    # A narrow CNN whose 64-row tile does not fit shared memory takes 16 rows.
+    long = (40, 21, 3, 30, 16)
+    assert cf.smem_bytes(64, 4, *long) > cf.SMEM_MAX >= cf.smem_bytes(16, 4, *long)
+    assert cf.launch_shape(1 << 18, 4, 132, *long) == (16, 128)
+
+
 def test_cnn_forward_refuses_what_the_kernel_cannot_take():
     from bear_tpu_torch.ops import cnn_forward as cf
 

@@ -812,10 +812,24 @@ def test_no_mesh_on_card_names_cuda0(cuda, what):
 # lag-13 CNN of the benchmark, at a small one and at a wide one (two blocks
 # of filters and two of hidden units), on one-hot and on dense random
 # inputs; chip_smoke.cnn_forward_vs_plain holds float32 at CNN_F32_ATOL on
-# the probabilities and float64 at rtol 1e-12.
-CNN_CASES = {"lag13": (13, {"filter_width": 8, "num_filters": 96, "kmer_layer1_width": 64}),
-             "small": (5, {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}),
-             "wide": (13, {"filter_width": 8, "num_filters": 128, "kmer_layer1_width": 96})}
+# the probabilities and float64 at rtol 1e-12. The narrow instance (one
+# block of 32 filters and 16 hidden units): the small CNN, the protein
+# cell's (lag 6, A1 21, bear_cnn_bear.cfg's widths), YSD1's at those widths
+# (lag 5, DNA) and its edge (32 filters, 16 hidden units); one filter or one
+# hidden unit past it takes the padded instance. Values: (lag, alphabet
+# size, widths).
+CNN_CASES = {"lag13": (13, 4, {"filter_width": 8, "num_filters": 96, "kmer_layer1_width": 64}),
+             "small": (5, 4, {"filter_width": 3, "num_filters": 8, "kmer_layer1_width": 6}),
+             "wide": (13, 4, {"filter_width": 8, "num_filters": 128, "kmer_layer1_width": 96}),
+             "protein": (6, 20, {"filter_width": 3, "num_filters": 30, "kmer_layer1_width": 16}),
+             "ysd1": (5, 4, {"filter_width": 3, "num_filters": 30, "kmer_layer1_width": 16}),
+             "narrow_edge": (6, 20, {"filter_width": 3, "num_filters": 32,
+                                     "kmer_layer1_width": 16}),
+             "past_filters": (6, 20, {"filter_width": 3, "num_filters": 33,
+                                      "kmer_layer1_width": 16}),
+             "past_hidden": (6, 20, {"filter_width": 3, "num_filters": 32,
+                                     "kmer_layer1_width": 17})}
+NARROW_CASES = {"small", "protein", "ysd1", "narrow_edge"}
 
 
 def _cnn_inputs(cuda, case, dtype, n, dense, seed=0):
@@ -823,15 +837,16 @@ def _cnn_inputs(cuda, case, dtype, n, dense, seed=0):
     (scales 1, intercepts 0), and n seeded k-mers on the card."""
     from bear_tpu_torch.models.ar_funcs import get_ar_func
 
-    lag, kw = CNN_CASES[case]
+    lag, A, kw = CNN_CASES[case]
     g = torch.Generator().manual_seed(seed)
-    ar = get_ar_func("cnn", lag, 4, kw, dtype=dtype, device=cuda, generator=g)
+    ar = get_ar_func("cnn", lag, A, kw, dtype=dtype, device=cuda, generator=g)
     params = [(p + 0.3 * torch.randn(p.shape, generator=g, dtype=dtype).to(cuda)).detach()
               for p in ar.params_list()]
     if dense:
-        x = torch.randn((n, lag, 5), generator=g, dtype=dtype)
+        x = torch.randn((n, lag, A + 1), generator=g, dtype=dtype)
     else:
-        x = torch.nn.functional.one_hot(torch.randint(0, 5, (n, lag), generator=g), 5).to(dtype)
+        x = torch.nn.functional.one_hot(torch.randint(0, A + 1, (n, lag), generator=g),
+                                        A + 1).to(dtype)
     return ar, params, x.to(cuda)
 
 
@@ -843,12 +858,15 @@ def test_cnn_forward_equals_plain(cuda, n, dense, case, dtype):
     from bear_tpu_torch.ops import cnn_forward
 
     ar, params, x = _cnn_inputs(cuda, case, dtype, n, dense)
-    before = cnn_forward.launches
+    nf, w1 = params[0].shape[2], params[2].shape[2]
+    assert cnn_forward.is_narrow(nf, w1) == (case in NARROW_CASES)
+    before, narrow_before = cnn_forward.launches, cnn_forward.narrow_launches
     with torch.no_grad():
         got = ar(x, params)
         want = ar._forward_plain(x, params)
     assert cnn_forward.launches == before + 1
-    assert got.dtype == dtype and got.shape == (n, 5)
+    assert cnn_forward.narrow_launches == narrow_before + (case in NARROW_CASES)
+    assert got.dtype == dtype and got.shape == (n, x.shape[2])
     stats = chip_smoke.cnn_forward_vs_plain(x, params)
     assert stats["held"], stats
     if dtype == torch.float32:  # as close to float64 as the plain forward is
@@ -907,6 +925,23 @@ def test_cnn_forward_nan_and_inf_propagate_as_in_plain(cuda):
     assert float((got[finite] - want[finite]).abs().max()) <= chip_smoke.CNN_F32_ATOL
 
 
+def test_cnn_forward_nan_and_inf_propagate_at_narrow_widths(cuda):
+    # The narrow instance as the padded one: a non-finite input reaches only
+    # its own row, as in the plain forward.
+    from bear_tpu_torch.ops import cnn_forward
+
+    ar, params, x = _cnn_inputs(cuda, "protein", torch.float32, 200, True)
+    x[3, 0, 0], x[70, 5, 20], x[150, 2, 7] = float("nan"), float("inf"), -float("inf")
+    before = cnn_forward.narrow_launches
+    with torch.no_grad():
+        got, want = ar(x, params), ar._forward_plain(x, params)
+    assert cnn_forward.narrow_launches == before + 1
+    torch.testing.assert_close(got.isnan(), want.isnan(), rtol=0, atol=0)
+    finite = want.isfinite().all(-1)
+    assert int(finite.sum()) >= 197
+    assert float((got[finite] - want[finite]).abs().max()) <= chip_smoke.CNN_F32_ATOL
+
+
 def test_cnn_forward_keeps_aten_under_grad_and_compute_dtype(cuda):
     from bear_tpu_torch.models.ar_funcs import get_ar_func
     from bear_tpu_torch.ops import cnn_forward
@@ -917,7 +952,7 @@ def test_cnn_forward_keeps_aten_under_grad_and_compute_dtype(cuda):
     out = ar(x, live)
     out.log().sum().backward()
     assert cnn_forward.launches == before and all(p.grad is not None for p in live)
-    ar16 = get_ar_func("cnn", 5, 4, CNN_CASES["small"][1], compute_dtype=torch.bfloat16,
+    ar16 = get_ar_func("cnn", 5, 4, CNN_CASES["small"][2], compute_dtype=torch.bfloat16,
                        device=cuda)
     with torch.no_grad():
         ar16(x, params)

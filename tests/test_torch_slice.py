@@ -160,6 +160,16 @@ def test_chip_smoke_sampled_phase_rehearsal(tmp_path, capsys):
     assert out.count("[cli] score_cli") == 3
 
 
+def test_chip_smoke_protein_phase_rehearsal(capsys):
+    # chip_smoke.py's 4d (Cp) on the CPU at a small size: the protein cell's
+    # proteome, CNN widths and table (at lag 3), one MC-5 call of 32
+    # proteins; its own checks raise on a fault. The CPU runs the plain
+    # forward: no launch.
+    rec = chip_smoke.protein_phase("CPU", device="cpu", mc=5, lag=3, families=40, seqs=32)
+    assert rec == {"launches": 0, "narrow_launches": 0}
+    assert "(Cp) 32 proteins, MC-5" in capsys.readouterr().out
+
+
 def test_chip_smoke_variant_generators():
     wt = chip_smoke.genome_prefix(1000, genome_mb=0.05, seed=4)
     assert set(wt) <= set("ACGT") and len(wt) == 1000
